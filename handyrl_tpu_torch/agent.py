@@ -1,0 +1,158 @@
+"""Inference-time policies used by evaluation and network battles.
+
+Capability parity with the reference agent layer
+(HandyRL's handyrl/agent.py): uniform-random play, rule-based
+play delegating to the env, greedy/sampled neural policies, and a
+model ensemble.  The ``reset / action / observe`` surface is the
+framework's evaluation contract; the internals here are organized
+around one shared piece of policy math (`masked_logits` +
+`sample_action`) that the Generator reuses, so actor-side action
+selection has a single implementation.
+"""
+
+import random
+
+import numpy as np
+
+from .utils.tree import softmax_np
+
+# Logit penalty that guarantees illegal actions never win an argmax or
+# receive softmax mass in float32.
+ILLEGAL = 1e32
+
+
+def masked_logits(logits, legal_actions):
+    """Return a copy of ``logits`` with illegal entries pushed to -inf
+    scale, so downstream softmax/argmax see only legal actions."""
+    masked = np.full_like(logits, -ILLEGAL)
+    masked[legal_actions] = logits[legal_actions]
+    return masked
+
+
+def sample_action(logits, legal_actions, temperature=1.0):
+    """Pick an action from masked ``logits``.
+
+    ``temperature == 0`` is greedy; otherwise a softmax draw at that
+    temperature.  Returns ``(action, probs)`` where ``probs`` is the
+    temperature-1 masked distribution (the behavior policy recorded
+    for importance sampling).
+    """
+    masked = masked_logits(logits, legal_actions)
+    probs = softmax_np(masked)
+    if temperature == 0:
+        action = int(np.argmax(masked))
+    elif temperature == 1.0:
+        action = random.choices(legal_actions,
+                                weights=probs[legal_actions])[0]
+    else:
+        tempered = softmax_np(masked / temperature)
+        action = random.choices(legal_actions,
+                                weights=tempered[legal_actions])[0]
+    return int(action), probs
+
+
+def _render(env, probs, value):
+    """Human-readable dump of a policy/value pair (``show=True`` path);
+    envs may override via a ``print_outputs`` hook."""
+    if hasattr(env, "print_outputs"):
+        env.print_outputs(probs, value)
+        return
+    if value is not None:
+        print("v = %f" % float(np.ravel(value)[0]))
+    if probs is not None:
+        print("p = %s" % (probs * 1000).astype(int))
+
+
+# Back-compat alias: the reference exposes this helper by this name.
+def print_outputs(env, prob, v):
+    _render(env, prob, v)
+
+
+class RandomAgent:
+    """Uniform play over legal actions; the baseline opponent."""
+
+    def reset(self, env, show=False):
+        pass
+
+    def action(self, env, player, show=False):
+        return random.choice(env.legal_actions(player))
+
+    def observe(self, env, player, show=False):
+        return [0.0]
+
+
+class RuleBasedAgent(RandomAgent):
+    """Delegates to the env's scripted policy when it has one."""
+
+    def __init__(self, key=None):
+        self.key = key
+
+    def action(self, env, player, show=False):
+        scripted = getattr(env, "rule_based_action", None)
+        if scripted is None:
+            return super().action(env, player, show)
+        return scripted(player, key=self.key)
+
+
+class Agent:
+    """Neural policy over a TorchModel: greedy at temperature 0, else a
+    softmax draw; carries recurrent hidden state across the game."""
+
+    def __init__(self, model, temperature=0.0, observation=True):
+        self.model = model
+        self.hidden = None
+        self.temperature = temperature
+        self.observation = observation
+
+    def reset(self, env, show=False):
+        self.hidden = self.model.init_hidden()
+
+    def plan(self, obs):
+        outputs = self.model.inference(obs, self.hidden)
+        self.hidden = outputs.pop("hidden", None)
+        return outputs
+
+    def action(self, env, player, show=False):
+        outputs = self.plan(env.observation(player))
+        legal = env.legal_actions(player)
+        action, probs = sample_action(
+            outputs["policy"], legal, self.temperature)
+        if show:
+            _render(env, probs, outputs.get("value"))
+        return action
+
+    def observe(self, env, player, show=False):
+        if not self.observation:
+            return None
+        outputs = self.plan(env.observation(player))
+        value = outputs.get("value")
+        if show:
+            _render(env, None, value)
+        return value
+
+
+class EnsembleAgent(Agent):
+    """Averages head outputs across a list of models, each carrying its
+    own hidden state."""
+
+    def reset(self, env, show=False):
+        self.hidden = [m.init_hidden() for m in self.model]
+
+    def plan(self, obs):
+        per_model = []
+        for i, model in enumerate(self.model):
+            out = model.inference(obs, self.hidden[i])
+            self.hidden[i] = out.pop("hidden", None)
+            per_model.append(out)
+        keys = set().union(*(out.keys() for out in per_model))
+        return {
+            k: np.mean([out[k] for out in per_model if k in out], axis=0)
+            for k in keys
+        }
+
+
+class SoftAgent(Agent):
+    """Temperature-1 sampling — the exploration-matched eval agent."""
+
+    def __init__(self, model):
+        super().__init__(model, temperature=1.0)

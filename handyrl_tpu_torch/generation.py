@@ -1,0 +1,532 @@
+"""Self-play episode generation — the actor-side hot loop.
+
+Produces the framework's episode wire format (capability parity with
+HandyRL's handyrl/generation.py): per-step "moment" dicts keyed
+by channel then player, bz2-pickled in blocks of ``compress_steps``,
+plus the final outcome and the job args that produced the episode.
+The moment schema is protocol — the batch maker consumes it.
+
+Two rollout engines share that wire format:
+
+  * ``Generator`` — one episode at a time, one inference per
+    participant per step.  Mirrors the reference hot loop
+    (HandyRL's handyrl/generation.py:31-73) and remains the
+    fallback for heterogeneous-model jobs.
+  * ``RolloutPool`` — the production engine: K episodes advance in
+    lockstep and every step issues ONE batched ``(K*P)``-row
+    forward covering all seats of all episodes.  The reference (and
+    ``Generator``) dispatch one batch-1 forward per seat per step,
+    which drowns small nets in dispatch overhead; batching across
+    seats and episodes amortizes it ~K*P-fold.  Evaluation jobs ride
+    the same batch (greedy trained seats vs host-side scripted
+    opponents), so eval matches never stall the pool.
+
+The counterpart of ``handyrl_tpu.generation``.  ``models`` are
+TorchModel/RandomModel/ServedModel instances; the pool's batched
+``inference_batch`` runs on the model's device, or on the inference
+service's when the model is a ``pipeline.ServedModel``.  The port does
+not carry the JAX package's telemetry spans or episode trace stamps
+yet.
+"""
+
+import bz2
+import pickle
+
+import numpy as np
+
+from .agent import ILLEGAL, RandomAgent, sample_action
+from .utils.tree import (
+    tree_leaves,
+    tree_map_leaves,
+    tree_structure,
+    tree_unflatten,
+)
+
+MOMENT_KEYS = (
+    "observation", "selected_prob", "action_mask", "action",
+    "value", "reward", "return",
+)
+
+
+def fill_discounted_returns(moments, players, gamma):
+    """Discounted return per player, one vectorized backward pass:
+    R[t] = r[t] + gamma * R[t+1] over a (T, P) reward matrix."""
+    rewards = np.asarray(
+        [[m["reward"][p] or 0.0 for p in players] for m in moments],
+        dtype=np.float64)
+    acc = np.zeros(len(players))
+    for t in range(len(moments) - 1, -1, -1):
+        acc = rewards[t] + gamma * acc
+        returns = moments[t]["return"]
+        for i, p in enumerate(players):
+            returns[p] = acc[i]
+
+
+def pack_episode(moments, outcome, job_args, compress_steps,
+                 compress=True):
+    """Wire format: job args + step count + outcome + moment blocks.
+
+    Blocks are bz2-compressed pickle on the control plane (the legacy
+    socket transport pays per byte); the shm trajectory path passes
+    ``compress=False`` for raw pickle blocks — shared-memory bandwidth
+    is free and the bz2 CPU cost is the actor loop's.  Consumers sniff
+    the stream magic per block (batch.load_block), so the two formats
+    mix freely in one replay buffer."""
+    def block(lo):
+        blob = pickle.dumps(moments[lo: lo + compress_steps])
+        return bz2.compress(blob) if compress else blob
+
+    return {
+        "args": job_args,
+        "steps": len(moments),
+        "outcome": outcome,
+        "moment": [block(lo)
+                   for lo in range(0, len(moments), compress_steps)],
+    }
+
+
+def blank_moment(players):
+    return {key: {p: None for p in players} for key in MOMENT_KEYS}
+
+
+def generation_participants(env, trained_players, observation_flag):
+    """Players that run inference this step: everyone on turn, plus
+    observers — except trained off-turn players when the config does
+    not keep their RNN state warm (``observation`` flag)."""
+    on_turn = env.turns()
+    watching = []
+    for p in env.observers():
+        if p in on_turn:
+            continue
+        if p in trained_players and not observation_flag:
+            continue
+        watching.append(p)
+    return on_turn, watching
+
+
+def record_action(moment, player, policy, legal):
+    """Sample an action from masked ``policy`` and record the behavior
+    probability + action mask into the moment (IS bookkeeping)."""
+    action, probs = sample_action(policy, legal)
+    mask = np.full_like(policy, ILLEGAL)
+    mask[legal] = 0.0
+    moment["action"][player] = action
+    moment["selected_prob"][player] = float(probs[action])
+    moment["action_mask"][player] = mask
+
+
+class Seat:
+    """One player's acting state inside a single episode."""
+
+    __slots__ = ("player", "model", "hidden")
+
+    def __init__(self, player, model):
+        self.player = player
+        self.model = model
+        self.hidden = model.init_hidden()
+
+    def think(self, obs):
+        """Run inference, carrying the recurrent state forward."""
+        outputs = self.model.inference(obs, self.hidden)
+        self.hidden = outputs.pop("hidden", None)
+        return outputs
+
+
+class Generator:
+    """Plays full self-play episodes one at a time (fallback path)."""
+
+    def __init__(self, env, args):
+        self.env = env
+        self.args = args
+
+    # -- one step ----------------------------------------------------
+    def _step(self, seats, trained_players):
+        """Advance the env by one move; returns the recorded moment or
+        None if the env reports an error."""
+        moment = blank_moment(self.env.players())
+        on_turn, watching = generation_participants(
+            self.env, trained_players, self.args["observation"])
+
+        for player in list(on_turn) + watching:
+            seat = seats[player]
+            obs = self.env.observation(player)
+            outputs = seat.think(obs)
+            moment["observation"][player] = obs
+
+            value = outputs.get("value")
+            if value is not None:
+                moment["value"][player] = np.ravel(
+                    np.asarray(value, np.float32))
+
+            if player in on_turn:
+                record_action(moment, player, outputs["policy"],
+                              self.env.legal_actions(player))
+
+        if self.env.step(moment["action"]):
+            return None
+
+        rewards = self.env.reward()
+        for p in self.env.players():
+            moment["reward"][p] = rewards.get(p)
+        moment["turn"] = on_turn
+        return moment
+
+    # -- entry points ------------------------------------------------
+    def generate(self, models, args):
+        """Play one episode; returns the packed episode, or None when
+        the env signals a reset/step failure."""
+        if self.env.reset():
+            return None
+        seats = {p: Seat(p, models[p]) for p in self.env.players()}
+        trained_players = args["player"]
+
+        moments = []
+        while not self.env.terminal():
+            moment = self._step(seats, trained_players)
+            if moment is None:
+                return None
+            moments.append(moment)
+        if not moments:
+            return None
+
+        fill_discounted_returns(
+            moments, self.env.players(), self.args["gamma"])
+        return pack_episode(moments, self.env.outcome(), args,
+                            self.args["compress_steps"],
+                            compress=self.args.get(
+                                "episode_compress", True))
+
+    def execute(self, models, args):
+        episode = self.generate(models, args)
+        if episode is None:
+            print("None episode in generation!")
+        return episode
+
+
+# ---------------------------------------------------------------------
+# lockstep rollout pool (the production actor engine)
+# ---------------------------------------------------------------------
+
+class _Slot:
+    """One in-flight job inside the pool."""
+
+    __slots__ = ("job", "mode", "moments", "trained", "agents",
+                 "opponent", "on_turn", "parts", "pending", "model")
+
+    def __init__(self, job, mode):
+        self.job = job
+        self.mode = mode            # "g" generation | "e" evaluation
+        self.moments = []
+        self.trained = list(job["player"])
+        self.agents = {}            # eval: host-side opponent agents
+        self.opponent = None        # eval: opponent name for the result
+        self.on_turn = ()
+        self.parts = ()
+        self.pending = {}           # player -> obs staged this step
+        self.model = None           # eval: the snapshot this match uses
+
+
+class RolloutPool:
+    """K concurrent episodes advanced in lockstep, one batched forward
+    per step.
+
+    All neural seats across all slots share ONE model (the learner's
+    newest snapshot — generation jobs always assign the same epoch to
+    every trained seat, see Learner._assign_job).  When a job carrying
+    a newer snapshot enters a slot mid-flight, the whole pool switches
+    to it: the behavior probabilities recorded per step are whatever
+    policy actually produced the action, so importance-sampling
+    corrections stay exact.  Each finished episode records the epoch
+    that actually completed it (``final_model_epoch``) so stats
+    attribution stays truthful even for mixed-policy episodes; any
+    future league/mixed-snapshot scheduler must not assume the job's
+    ``model_id`` label describes every step.
+
+    Recurrent nets keep a stacked hidden state of shape ``(K*P, ...)``;
+    rows advance only for the seats that actually observed this step
+    (the same semantics as per-seat ``Seat.think``), and a slot's rows
+    are zeroed when a new episode enters it.
+    """
+
+    def __init__(self, envs, args):
+        self.envs = list(envs)
+        self.args = args
+        self.players = self.envs[0].players()
+        self.P = len(self.players)
+        self.K = len(self.envs)
+        self.N = self.K * self.P
+        self.model = None
+        self.model_epoch = -1       # epoch label of the installed model
+        self.hidden = None
+        self.slots = [None] * self.K
+        self._free = list(range(self.K))
+        self._obs_leaves = None     # flat (N, ...) numpy buffers
+        self._obs_treedef = None
+        self._opponents = None      # eval opponent pool, resolved once
+
+    def _opponent_pool(self):
+        if self._opponents is None:
+            from .evaluation import configured_opponents
+
+            self._opponents = configured_opponents(self.args)
+        return self._opponents
+
+    # -- admission ----------------------------------------------------
+    def has_free_slot(self):
+        return bool(self._free)
+
+    @staticmethod
+    def accepts(job):
+        """Pool-compatible jobs: every neural seat runs one shared
+        model.  Generation jobs with mixed snapshots (league play) fall
+        back to the sequential Generator."""
+        ids = {i for i in job["model_id"].values() if i >= 0}
+        return job["role"] in ("g", "e") and len(ids) == 1
+
+    def assign(self, job, models):
+        """Enter a job into a free slot; returns the finished-payload
+        tuple immediately if the env fails to reset."""
+        k = self._free.pop()
+        env = self.envs[k]
+        slot = _Slot(job, job["role"])
+        neural = next(m for m in models.values() if m is not None)
+        self._set_model(neural)
+        self.model_epoch = max(job["model_id"].values())
+
+        if slot.mode == "e":
+            import random as _random
+
+            from .evaluation import build_agent
+
+            # eval matches are pinned to the snapshot they were
+            # scheduled with: if the pool later swaps to a newer one,
+            # this slot finishes on per-row solo inference (unlike
+            # generation, eval results carry no behavior probabilities
+            # that could correct for a mid-match policy change)
+            slot.model = neural
+            slot.opponent = _random.choice(self._opponent_pool())
+            for p, m in models.items():
+                if m is None:
+                    agent = (build_agent(slot.opponent, env)
+                             or RandomAgent())
+                    slot.agents[p] = agent
+
+        if env.reset():
+            self._free.append(k)
+            verb = "episode" if slot.mode == "g" else "result"
+            print("None episode in generation!" if slot.mode == "g"
+                  else "None episode in evaluation!")
+            return [(verb, None)]
+
+        for agent in slot.agents.values():
+            agent.reset(env)
+        self._reset_hidden_rows(k)
+        self.slots[k] = slot
+        return []
+
+    def _set_model(self, model):
+        if model is self.model:
+            return
+        prev = self.model
+        self.model = model
+        # keep recurrent state across a params-only swap; rebuild when
+        # the hidden structure changes (e.g. RandomModel -> real net).
+        # Host-side copies: the pool scatters rows in place.
+        if prev is None or not _same_hidden_structure(prev, model):
+            hidden = model.init_hidden([self.N])
+            self.hidden = (None if hidden is None else tree_map_leaves(
+                lambda a: np.array(a), hidden))
+
+    def _reset_hidden_rows(self, k):
+        if self.hidden is None:
+            return
+        lo, hi = k * self.P, (k + 1) * self.P
+        for leaf in tree_leaves(self.hidden):
+            leaf[lo:hi] = 0
+
+    # -- the lockstep step ---------------------------------------------
+    def _write_obs(self, row, obs):
+        leaves = tree_leaves(obs)
+        if self._obs_leaves is None:
+            self._obs_treedef = tree_structure(obs)
+            self._obs_leaves = [
+                np.zeros((self.N,) + np.shape(a), np.asarray(a).dtype)
+                for a in leaves
+            ]
+        for buf, leaf in zip(self._obs_leaves, leaves):
+            buf[row] = leaf
+
+    def _gather_rows(self):
+        """Collect the (row, slot, player) triples that need inference
+        this step and stage their observations into the batch buffer."""
+        rows = []
+        for k, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            env = self.envs[k]
+            if slot.mode == "g":
+                on_turn, watching = generation_participants(
+                    env, slot.trained, self.args["observation"])
+                parts = list(on_turn) + watching
+            else:
+                on_turn = env.turns()
+                watching = [p for p in env.observers()
+                            if p not in on_turn]
+                parts = [p for p in slot.trained
+                         if p in on_turn
+                         or (p in watching and self.args["observation"])]
+            slot.on_turn = on_turn
+            slot.parts = parts
+            slot.pending = {}
+            stale = slot.mode == "e" and slot.model is not self.model
+            for p in parts:
+                row = k * self.P + self.players.index(p)
+                obs = env.observation(p)
+                slot.pending[p] = obs
+                if stale:
+                    continue  # pinned snapshot: solo inference instead
+                self._write_obs(row, obs)
+                rows.append((row, k, p))
+        return rows
+
+    def _forward(self, rows):
+        obs = tree_unflatten(self._obs_treedef, self._obs_leaves)
+        if self.hidden is None and getattr(
+                self.model, "supports_rows", False):
+            # served inference (pipeline.ServedModel): ship only the
+            # rows that observed this step — the N-row staging buffer
+            # stays host-side and outputs scatter back N-shaped
+            idx = np.fromiter((r for r, _, _ in rows), dtype=np.int64)
+            outputs = self.model.inference_batch(obs, None, rows=idx)
+        else:
+            outputs = self.model.inference_batch(obs, self.hidden)
+        new_hidden = outputs.pop("hidden", None)
+        if self.hidden is not None and new_hidden is not None:
+            idx = np.fromiter((r for r, _, _ in rows), dtype=np.int64)
+            for old, new in zip(tree_leaves(self.hidden),
+                                tree_leaves(new_hidden)):
+                old[idx] = np.asarray(new)[idx]
+        return outputs
+
+    def _finish(self, k, slot, payload_ok):
+        self.slots[k] = None
+        self._free.append(k)
+        env = self.envs[k]
+        if slot.mode == "g":
+            if not payload_ok or not slot.moments:
+                print("None episode in generation!")
+                return ("episode", None)
+            fill_discounted_returns(
+                slot.moments, env.players(), self.args["gamma"])
+            episode = pack_episode(
+                slot.moments, env.outcome(), slot.job,
+                self.args["compress_steps"],
+                compress=self.args.get("episode_compress", True))
+            # the pool may have swapped to a newer snapshot mid-episode
+            # (IS-exact — recorded probs are the acting policy's), so
+            # the honest generation-stats label is the epoch that
+            # actually finished the episode, not the one that scheduled
+            # it.  Consumers fall back to the job label when absent
+            # (sequential Generator episodes are single-policy).
+            episode["final_model_epoch"] = self.model_epoch
+            # the learner reduces gen_model_epoch into the per-epoch
+            # policy_lag_* metrics
+            episode["gen_model_epoch"] = self.model_epoch
+            return ("episode", episode)
+        if not payload_ok:
+            print("None episode in evaluation!")
+            return ("result", None)
+        result = {"args": slot.job, "result": env.outcome(),
+                  "opponent": slot.opponent}
+        return ("result", result)
+
+    def _advance_generation(self, k, slot, outputs):
+        env = self.envs[k]
+        moment = blank_moment(env.players())
+        for p in slot.parts:
+            row = k * self.P + self.players.index(p)
+            moment["observation"][p] = slot.pending[p]
+            value = outputs.get("value")
+            if value is not None:
+                moment["value"][p] = np.ravel(
+                    np.asarray(value[row], np.float32))
+            if p in slot.on_turn:
+                record_action(moment, p, np.asarray(outputs["policy"][row]),
+                              env.legal_actions(p))
+        if env.step(moment["action"]):
+            return self._finish(k, slot, payload_ok=False)
+        rewards = env.reward()
+        for p in env.players():
+            moment["reward"][p] = rewards.get(p)
+        moment["turn"] = slot.on_turn
+        slot.moments.append(moment)
+        if env.terminal():
+            return self._finish(k, slot, payload_ok=True)
+        return None
+
+    def _solo_think(self, row, model, obs):
+        """Single-state inference for a pinned eval seat, reading and
+        writing its hidden row directly (Seat.think semantics)."""
+        hrow = (None if self.hidden is None else
+                tree_map_leaves(lambda leaf: leaf[row], self.hidden))
+        out = model.inference(obs, hrow)
+        hid = out.pop("hidden", None)
+        if self.hidden is not None and hid is not None:
+            for leaf, new in zip(tree_leaves(self.hidden),
+                                 tree_leaves(hid)):
+                leaf[row] = np.asarray(new)
+        return out
+
+    def _advance_evaluation(self, k, slot, outputs):
+        env = self.envs[k]
+        stale = slot.model is not self.model
+        policies = {}
+        for p in slot.parts:
+            row = k * self.P + self.players.index(p)
+            if stale:
+                policies[p] = self._solo_think(
+                    row, slot.model, slot.pending[p])["policy"]
+            else:
+                policies[p] = np.asarray(outputs["policy"][row])
+        actions = {}
+        for p in slot.on_turn:
+            if p in slot.agents:
+                actions[p] = slot.agents[p].action(env, p)
+            elif p in policies:
+                # trained eval seats play greedily (reference Agent
+                # default temperature 0, evaluation.py Evaluator._seat)
+                action, _ = sample_action(
+                    policies[p], env.legal_actions(p), temperature=0)
+                actions[p] = action
+        if env.step(actions):
+            return self._finish(k, slot, payload_ok=False)
+        if env.terminal():
+            return self._finish(k, slot, payload_ok=True)
+        return None
+
+    def step(self):
+        """Advance every in-flight episode by one move.  Returns the
+        list of finished ``(verb, payload)`` tuples."""
+        if all(slot is None for slot in self.slots):
+            return []
+        rows = self._gather_rows()
+        # rows can be empty with only eval slots whose opponents are on
+        # turn (host agents need no inference) — still advance the envs
+        outputs = self._forward(rows) if rows else {}
+        finished = []
+        for k in range(self.K):
+            slot = self.slots[k]
+            if slot is None:
+                continue
+            advance = (self._advance_generation if slot.mode == "g"
+                       else self._advance_evaluation)
+            done = advance(k, slot, outputs)
+            if done is not None:
+                finished.append(done)
+        return finished
+
+
+def _same_hidden_structure(a, b):
+    ha = a.init_hidden([1]) if hasattr(a, "init_hidden") else None
+    hb = b.init_hidden([1]) if hasattr(b, "init_hidden") else None
+    return tree_structure(ha) == tree_structure(hb)

@@ -1,0 +1,544 @@
+"""Batched inference service: the learner-side half of the pipeline.
+
+The counterpart of ``handyrl_tpu.pipeline.service`` on the shm plane.
+One server thread owns a device copy of the serving model and answers
+obs->action requests from every attached rollout worker: requests
+accumulate across workers inside a **wait-or-timeout batching window**
+(``pipeline.batch_window`` seconds after the first pending request, or
+until ``pipeline.max_batch`` rows are staged, whichever first), then
+ONE batched forward covers all of them and replies scatter back over
+each worker's reply ring.
+
+The forward keeps its parameters resident on ``device`` in a module
+the service owns: a **hot swap** (``set_model``) is adopted between
+batches on the service thread, which copies the new snapshot's params
+into that module once; no request ever pays a parameter upload, and
+the learner's own tensors are never read mid-dispatch.  Each dispatch
+uploads the bucket-padded observation batch once and downloads the
+outputs once (:func:`..models.wrapper.forward_numpy`).  Batch shapes
+bucket to powers of two (floor 8, ceiling ``max_batch``), as in the
+JAX service, so the device sees a handful of shapes.
+
+Liveness is a heartbeat stamp on a shared ``ShmBoard``: workers watch
+its age and fall back to local inference when the service goes silent.
+
+Counters: ``stats()`` is cumulative; ``epoch_stats()`` reduces the
+dispatches since its last call into ``infer_batch_size_{mean,p95}``,
+``infer_queue_wait_sec`` and ``infer_dispatch_ms_{p50,p99}`` (host
+clock around upload + forward + download of one dispatch).
+
+Not ported yet: the GSPMD/mesh dispatch, the retrace and sharding
+guards, chaos hooks, telemetry spans, and the network-plane
+``submit`` with epoch-pinned routing.
+"""
+
+import threading
+import time
+import traceback
+
+import numpy as np
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..models.wrapper import build_module, forward_numpy
+from ..utils.tree import tree_structure, tree_unflatten
+from .shm import (
+    ShmBoard,
+    ShmRing,
+    dumps,
+    loads_view,
+    unpack_request,
+)
+
+
+class _Client:
+    """One attached worker: its three rings + request schema."""
+
+    __slots__ = ("cid", "req", "rsp", "traj", "leaf_specs", "example",
+                 "rows_max", "treedef", "req_stuck_since",
+                 "traj_stuck_since", "last_seen", "drop_warned")
+
+    def __init__(self, cid, req, rsp, traj, leaf_specs, example,
+                 rows_max):
+        self.cid = cid
+        self.req = req
+        self.rsp = rsp
+        self.traj = traj
+        self.leaf_specs = [(tuple(s), str(d)) for s, d in leaf_specs]
+        self.example = example
+        self.rows_max = rows_max
+        self.treedef = tree_structure(example)
+        self.req_stuck_since = None  # torn-write reclaim bookkeeping
+        self.traj_stuck_since = None
+        self.last_seen = 0.0         # last request/trajectory activity
+        self.drop_warned = False     # reply-drop warning, once per client
+
+    def deliver(self, seq, epoch, part) -> bool:
+        """Hand one answered request back over the reply ring."""
+        return self.rsp.push(dumps((seq, epoch, part)))
+
+
+def _bucket(n, cap, floor=8):
+    """Pad target for an n-row batch: next power of two, floor
+    ``floor``, ceiling ``cap``."""
+    b = floor
+    while b < n:
+        b <<= 1
+    return min(b, cap)
+
+
+def _percentile(values, q):
+    srt = sorted(values)
+    return srt[min(len(srt) - 1, int(q * len(srt)))]
+
+
+class InferenceService:
+    """The batched inference server (one per learner process).
+
+    Thread contract: ``attach``/``set_model``/``stats`` may be called
+    from the learner's thread; the batching loop runs on the service's
+    own thread; ``drain_trajectories`` belongs to the learner thread
+    (it is the trajectory rings' single consumer).  ``clock``/``sleep``
+    are injectable so the batching window is unit-testable without wall
+    time.  ``device`` is where the forward runs (``"cuda"`` unless the
+    caller names another).
+    """
+
+    TORN_GRACE = 30.0  # seconds a mid-write slot may stall before reclaim
+    # a client silent on BOTH rings this long is presumed dead and its
+    # rings are reclaimed; a live worker reaped by mistake degrades
+    # itself to local inference on the next reply timeout
+    CLIENT_IDLE_REAP = 600.0
+    GRAVE_GRACE = 10.0  # close only after in-flight snapshots expire
+    BUCKET_FLOOR = 8
+
+    def __init__(self, model, cfg, epoch=0, device=DEFAULT_DEVICE,
+                 clock=time.monotonic, sleep=time.sleep):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.clock = clock
+        self.sleep = sleep
+        self._lock = threading.Lock()
+        self._clients = {}
+        self._next_cid = 0
+        self._model = model
+        self._epoch = int(epoch)
+        self._pending_model = None
+        self._fwd = None             # service-owned module on device
+        self._fwd_spec = None        # (class, config) it was built for
+        self._fwd_loaded = None      # the model whose params it holds
+        self.board = ShmBoard.create()
+        self._thread = None
+        self._stop = False
+        self.failure = None          # exception that ended the loop
+        # counters — epoch accumulators reset by epoch_stats()
+        self._batch_rows = []
+        self._dispatch_sec = []
+        self._queue_wait = 0.0
+        self._requests_epoch = 0
+        self._warm = []              # client ids awaiting a warmup
+        self.batches = 0             # cumulative dispatches
+        self.requests = 0            # cumulative request frames served
+        self.rows_served = 0         # cumulative obs rows answered
+        self.param_loads = 0         # snapshots copied onto the device
+        self.reclaimed = 0           # torn slots skipped (dead writers)
+        self.corrupt = 0             # undecodable slots skipped
+        self.reply_drops = 0         # replies refused by a full/small ring
+        self.reaped = 0              # idle clients reclaimed
+        self._grave = []             # (deadline, client) pending close
+
+    # -- control-plane face (learner thread) ---------------------------
+    def attach(self, spec):
+        """Allocate a client slot + rings for one worker's handshake;
+        returns the attach descriptor the worker maps."""
+        leaf_specs = spec["leaves"]
+        rows_max = max(1, int(spec.get("rows_max", 1)))
+        row_bytes = sum(
+            int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+            for shape, dtype in leaf_specs)
+        need = 16 + 2 * rows_max * max(1, row_bytes)
+        slot = max(int(self.cfg.slot_bytes), need)
+        with self._lock:
+            cid = self._next_cid
+            self._next_cid += 1
+            client = _Client(
+                cid,
+                req=ShmRing.create(self.cfg.ring_slots, slot),
+                rsp=ShmRing.create(self.cfg.ring_slots, slot),
+                traj=ShmRing.create(self.cfg.traj_slots,
+                                    int(self.cfg.traj_slot_mb) << 20),
+                leaf_specs=leaf_specs,
+                example=spec["example"],
+                rows_max=rows_max,
+            )
+            client.last_seen = self.clock()
+            self._clients[cid] = client
+            # warm this schema's buckets from the SERVICE thread, so the
+            # first real request does not pay the first-call setup of
+            # the device forward
+            self._warm.append(cid)
+        return {
+            "client": cid,
+            "board": self.board.name,
+            "req": client.req.descriptor(),
+            "rsp": client.rsp.descriptor(),
+            "traj": client.traj.descriptor(),
+        }
+
+    def set_model(self, model, epoch):
+        """Hot-swap the serving snapshot; adopted between batches, so
+        no in-flight request is ever dropped."""
+        with self._lock:
+            self._pending_model = (model, int(epoch))
+
+    @property
+    def alive(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def start(self):
+        self._stop = False
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="infer-service")
+        self._thread.start()
+
+    def stop(self):
+        self._stop = True
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def close(self):
+        self.stop()
+        with self._lock:
+            clients = list(self._clients.values())
+            self._clients.clear()
+            clients.extend(c for _due, c in self._grave)
+            self._grave = []
+        for c in clients:
+            c.req.close()
+            c.rsp.close()
+            c.traj.close()
+        self.board.close()
+
+    # -- metrics -------------------------------------------------------
+    def _ring_counts(self, field):
+        with self._lock:
+            clients = list(self._clients.values())
+        return sum(getattr(c.req, field) + getattr(c.rsp, field)
+                   + getattr(c.traj, field) for c in clients)
+
+    def ring_full_count(self):
+        """Cumulative push refusals across every ring of every client,
+        read straight from the shm headers."""
+        return self._ring_counts("full_count")
+
+    def torn_slot_count(self):
+        """Cumulative torn/corrupt slots skipped across every ring."""
+        return self._ring_counts("torn_count")
+
+    def epoch_stats(self):
+        """Reduction of the dispatches since the last call; resets the
+        epoch accumulators."""
+        with self._lock:
+            rows = self._batch_rows
+            secs = self._dispatch_sec
+            wait = self._queue_wait
+            requests = self._requests_epoch
+            self._batch_rows = []
+            self._dispatch_sec = []
+            self._queue_wait = 0.0
+            self._requests_epoch = 0
+        out = {
+            "infer_batches": len(rows),
+            "infer_requests": requests,
+            "shm_ring_full_count": self.ring_full_count(),
+            "shm_torn_slots": self.torn_slot_count(),
+        }
+        if rows:
+            out["infer_batch_size_mean"] = sum(rows) / len(rows)
+            out["infer_batch_size_p95"] = _percentile(rows, 0.95)
+            out["infer_queue_wait_sec"] = wait / len(rows)
+            out["infer_dispatch_ms_p50"] = 1e3 * _percentile(secs, 0.50)
+            out["infer_dispatch_ms_p99"] = 1e3 * _percentile(secs, 0.99)
+        return out
+
+    def stats(self):
+        """Cumulative snapshot (status endpoint)."""
+        with self._lock:
+            n = len(self._clients)
+        return {
+            "clients": n,
+            "epoch": self._epoch,
+            "alive": self.alive,
+            "device": str(self.device),
+            "generation": self.board.generation,
+            "batches": self.batches,
+            "requests": self.requests,
+            "rows_served": self.rows_served,
+            "param_loads": self.param_loads,
+            "shm_ring_full_count": self.ring_full_count(),
+            "shm_torn_slots": self.torn_slot_count(),
+            "torn_reclaimed": self.reclaimed,
+            "corrupt_slots": self.corrupt,
+            "reply_drops": self.reply_drops,
+            "clients_reaped": self.reaped,
+        }
+
+    # -- trajectory intake (learner thread) ----------------------------
+    def drain_trajectories(self, max_episodes=512):
+        """Pop finished episodes off every client's trajectory ring."""
+        episodes = []
+        now = self.clock()
+        with self._lock:
+            clients = list(self._clients.values())
+        for c in clients:
+            while len(episodes) < max_episodes:
+                try:
+                    ep = c.traj.pop(loads=loads_view)
+                except Exception as exc:
+                    self._skip_corrupt(c.traj, c.cid, "trajectory", exc)
+                    continue
+                if ep is None:
+                    c.traj_stuck_since = self._maybe_reclaim(
+                        c.traj, c.traj_stuck_since, now,
+                        cid=c.cid, kind="trajectory")
+                    break
+                c.traj_stuck_since = None
+                c.last_seen = now
+                episodes.append(ep)
+        return episodes
+
+    def _skip_corrupt(self, ring, cid, kind, exc):
+        """A complete slot whose payload would not decode: skip it
+        LOUDLY so the ring flows again."""
+        if ring.skip_one():
+            with self._lock:
+                self.corrupt += 1
+            print(f"WARNING: corrupt {kind} slot from client {cid} "
+                  f"skipped ({exc!r})")
+
+    def _maybe_reclaim(self, ring, stuck_since, now, cid=-1,
+                       kind="request"):
+        """Mid-write slot watch: a slot odd-stamped for longer than
+        TORN_GRACE means its writer died mid-frame — skip it LOUDLY.
+        Returns the updated stuck-since stamp."""
+        if not ring.pending() or ring.readable():
+            return None
+        if stuck_since is None:
+            return now
+        if now - stuck_since >= self.TORN_GRACE:
+            if ring.skip_torn():
+                with self._lock:
+                    self.reclaimed += 1
+                print(f"WARNING: torn {kind} slot from client {cid} "
+                      f"reclaimed (stalled {now - stuck_since:.0f}s)")
+            return None
+        return stuck_since
+
+    # -- the device forward --------------------------------------------
+    def _adopt_model(self):
+        with self._lock:
+            pending = self._pending_model
+            self._pending_model = None
+        if pending is None:
+            return
+        self._model, self._epoch = pending
+        self._fwd_loaded = None  # copy the new params at next dispatch
+
+    def _ensure_forward(self, model):
+        """The service-owned device module holding ``model``'s params:
+        rebuilt only when the net's spec changes, params copied once
+        per adopted snapshot.  None for duck models without a ``spec``
+        (RandomModel, stubs), which keep their own ``inference_batch``."""
+        spec = getattr(model, "spec", None)
+        if spec is None:
+            return None
+        if self._fwd is None or self._fwd_spec != spec:
+            self._fwd = build_module(spec, self.device)
+            self._fwd_spec = spec
+            self._fwd_loaded = None
+        if self._fwd_loaded is not model:
+            self._fwd.load_state_dict(model.module.state_dict())
+            self._fwd_loaded = model
+            self.param_loads += 1
+        return self._fwd
+
+    def _forward(self, model, obs):
+        """One batched forward: numpy leaves in, numpy dict out."""
+        fwd = self._ensure_forward(model)
+        if fwd is None:
+            return model.inference_batch(obs, None)
+        return forward_numpy(fwd, self.device, obs)
+
+    # -- the batching loop --------------------------------------------
+    def _collect(self, pending, now):
+        """One sweep over every request ring; appends (client, seq,
+        rows, leaves) tuples.  Returns rows collected this sweep."""
+        got = 0
+        with self._lock:
+            clients = list(self._clients.values())
+        for c in clients:
+            while True:
+                try:
+                    item = c.req.pop(
+                        loads=lambda v, c=c: unpack_request(
+                            v, c.leaf_specs))
+                except Exception as exc:
+                    self._skip_corrupt(c.req, c.cid, "request", exc)
+                    continue
+                if item is None:
+                    c.req_stuck_since = self._maybe_reclaim(
+                        c.req, c.req_stuck_since, now,
+                        cid=c.cid, kind="request")
+                    break
+                c.req_stuck_since = None
+                c.last_seen = self.clock()
+                seq, rows, leaves = item
+                pending.append((c, seq, rows, leaves))
+                got += rows
+        return got
+
+    def step(self):
+        """One batching-window pass: collect, wait-or-timeout, forward,
+        reply.  Returns True when a batch dispatched.  Synchronous and
+        clock-injected: unit tests drive it directly, no thread."""
+        pending = []
+        total = self._collect(pending, self.clock())
+        if not pending:
+            return False
+        t_first = self.clock()
+        # wait-or-timeout: give batch-mates from other workers
+        # batch_window seconds to arrive, unless the batch is full
+        deadline = t_first + self.cfg.batch_window
+        while total < self.cfg.max_batch:
+            now = self.clock()
+            if now >= deadline:
+                break
+            self.sleep(min(2e-4, deadline - now))
+            total += self._collect(pending, self.clock())
+        self._dispatch(pending, self.clock() - t_first)
+        return True
+
+    def _dispatch(self, pending, waited):
+        self._adopt_model()
+        model, epoch = self._model, self._epoch
+        # one forward per max_batch chunk (normally exactly one)
+        i = 0
+        while i < len(pending):
+            chunk, rows = [], 0
+            while i < len(pending) and (
+                    rows + pending[i][2] <= self.cfg.max_batch
+                    or not chunk):
+                chunk.append(pending[i])
+                rows += pending[i][2]
+                i += 1
+            bucket = _bucket(rows, max(rows, self.cfg.max_batch),
+                             self.BUCKET_FLOOR)
+            leaves = [np.concatenate(parts, axis=0) for parts in zip(
+                *[leaves for _, _, _, leaves in chunk])]
+            if bucket > rows:
+                leaves = [np.concatenate(
+                    [leaf, np.zeros((bucket - rows,) + leaf.shape[1:],
+                                    leaf.dtype)], axis=0)
+                    for leaf in leaves]
+            obs = tree_unflatten(chunk[0][0].treedef, leaves)
+            t0 = time.perf_counter()
+            outputs = self._forward(model, obs)
+            dispatch_sec = time.perf_counter() - t0
+            outputs.pop("hidden", None)
+            lo = 0
+            for client, seq, n, _leaves in chunk:
+                part = {k: np.asarray(v[lo:lo + n])
+                        for k, v in outputs.items()}
+                lo += n
+                if not client.deliver(seq, epoch, part):
+                    # full or too small for the OUTPUT pickle: the
+                    # worker will time out, count it, and degrade to
+                    # local inference — say why, once per client
+                    self.reply_drops += 1
+                    if not client.drop_warned:
+                        client.drop_warned = True
+                        print(f"WARNING: inference reply to client "
+                              f"{client.cid} dropped (reply ring full "
+                              f"or slot smaller than the output frame)")
+            self.batches += 1
+            self.requests += len(chunk)
+            self.rows_served += rows
+            with self._lock:
+                self._batch_rows.append(rows)
+                self._dispatch_sec.append(dispatch_sec)
+                self._queue_wait += waited
+                self._requests_epoch += len(chunk)
+
+    def _warm_next(self):
+        """Run the forward once at one pending client's likely buckets
+        (min bucket + its lockstep rows_max) with zero observations.
+        Runs on the service thread between batches."""
+        with self._lock:
+            if not self._warm:
+                return False
+            # peek, don't pop: warm_pending stays truthful while the
+            # warmup forward blocks this thread (and the beat)
+            client = self._clients.get(self._warm[0])
+        try:
+            if client is not None:
+                self._adopt_model()
+                buckets = {_bucket(1, self.cfg.max_batch,
+                                   self.BUCKET_FLOOR),
+                           _bucket(client.rows_max, self.cfg.max_batch,
+                                   self.BUCKET_FLOOR)}
+                for rows in sorted(buckets):
+                    leaves = [np.zeros((rows,) + shape, dtype)
+                              for shape, dtype in client.leaf_specs]
+                    self._forward(self._model,
+                                  tree_unflatten(client.treedef, leaves))
+        finally:
+            with self._lock:
+                if self._warm:
+                    self._warm.pop(0)
+        return client is not None
+
+    def _reap_idle(self):
+        """Reclaim clients silent on both rings past CLIENT_IDLE_REAP.
+        Two-phase: removal from the live set now, ring close after
+        GRAVE_GRACE."""
+        now = self.clock()
+        with self._lock:
+            dead = [cid for cid, c in self._clients.items()
+                    if now - c.last_seen > self.CLIENT_IDLE_REAP]
+            for cid in dead:
+                client = self._clients.pop(cid)
+                self._grave.append((now + self.GRAVE_GRACE, client))
+                self.reaped += 1
+                print(f"pipeline: reaped idle client {cid} "
+                      f"(silent {self.CLIENT_IDLE_REAP:.0f}s)")
+            ready = [c for due, c in self._grave if now >= due]
+            self._grave = [(due, c) for due, c in self._grave
+                           if now < due]
+        for client in ready:
+            client.req.close()
+            client.rsp.close()
+            client.traj.close()
+        return bool(dead or ready)
+
+    @property
+    def warm_pending(self):
+        with self._lock:
+            return len(self._warm)
+
+    def _loop(self):
+        try:
+            self.board.beat(epoch=self._epoch)
+            while not self._stop:
+                self._adopt_model()
+                worked = self.step()
+                if not worked:
+                    worked = self._warm_next()
+                if not worked:
+                    self._reap_idle()
+                self.board.beat(epoch=self._epoch)
+                if not worked:
+                    self.sleep(5e-4)
+        except Exception as exc:
+            # the beat stops with the thread, so workers see a dead
+            # service; the owner reads the cause here
+            self.failure = exc
+            traceback.print_exc()

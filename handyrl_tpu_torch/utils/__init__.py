@@ -1,0 +1,10 @@
+from .tree import (  # noqa: F401
+    softmax_np,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_map_leaves,
+    tree_stack,
+    tree_structure,
+    tree_unflatten,
+)

@@ -1,0 +1,125 @@
+"""The port stands alone: no JAX, no Flax, nothing of ``handyrl_tpu``.
+
+A fresh interpreter imports the port, serves one batch on the CPU
+through the inference service, and plays one ``--eval`` game through
+the CLI; afterwards no ``jax*``/``flax*``/``optax*`` or
+``handyrl_tpu.*`` module may be loaded.  An AST scan of the package
+finds no such import anywhere, lazy ones included.  And the card is
+never replaced by the CPU behind the caller's back.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from handyrl_tpu_torch.__main__ import main as cli_main
+from handyrl_tpu_torch.device import resolve_device
+from torchfix import CHILD_ENV, one_torch_thread  # noqa: F401  (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "handyrl_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "handyrl_tpu")
+
+CHILD = textwrap.dedent("""
+    import os, sys, time
+    import numpy as np
+
+    from handyrl_tpu_torch.__main__ import main
+    from handyrl_tpu_torch.durability import write_checksummed
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+    from handyrl_tpu_torch.pipeline import (
+        InferenceService, PipelineClient, PipelineConfig, build_obs_spec)
+
+    env = make_env({"env": "HungryGeese"})
+    model = TorchModel(GeeseNet(filters=8, blocks=2), device="cpu")
+    model.init_params(seed=0)
+    cfg = PipelineConfig.from_config({"batch_window": 0.0})
+    svc = InferenceService(model, cfg, epoch=1, device="cpu")
+    svc.start()
+    client = PipelineClient(svc.attach(build_obs_spec(env, 4)), cfg)
+    try:
+        deadline = time.monotonic() + 20
+        while not client.healthy() or svc.warm_pending:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        batch = np.stack([env.observation(p) for p in env.players()])
+        out = client.wrap(model, 1).inference_batch(batch)
+        assert out["policy"].shape == (4, 4)
+        assert client.served_rows == 4 and client.local_rows == 0
+    finally:
+        svc.close()
+        client.close()
+
+    params = random_flax_params(GeeseNet(), seed=1)
+    write_checksummed("m.ckpt", {"params": params, "epoch": 1})
+    with open("config.yaml", "w") as f:
+        f.write("env_args:\\n    env: HungryGeese\\n")
+    assert main(["--eval", "m.ckpt", "1", "1", "--device", "cpu"]) == 0
+
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "handyrl_tpu"))
+    print("FORBIDDEN_MODULES", bad)
+    assert not bad, bad
+""")
+
+
+def test_served_batch_and_eval_game_load_no_jax(tmp_path):
+    env = dict(CHILD_ENV, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "FORBIDDEN_MODULES []" in proc.stdout
+    assert "agent 0: win rate" in proc.stdout
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
+    sources = []
+    for root, _dirs, files in os.walk(PACKAGE):
+        sources += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
+    assert len(sources) > 20
+    bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
+           for path in sources for line, name in _imports(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_asking_for_the_card_without_one_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--eval", "none.ckpt", "1", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("mps")
+
+
+def test_cli_refuses_modes_that_are_not_ported(capsys):
+    assert cli_main(["--train"]) == 2
+    assert "not ported" in capsys.readouterr().out
+    assert cli_main(["--bogus"]) == 1
+    assert cli_main([]) == 1
