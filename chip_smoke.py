@@ -18,22 +18,39 @@ from a seed:
                  ``RolloutPool`` through ``ServedModel`` (fallback
                  "none"), with a hot swap to a second param set mid-run;
   5. --eval    — ``python -m handyrl_tpu_torch --eval`` on a checkpoint
-                 in the JAX package's on-disk format.
+                 in the JAX package's on-disk format;
+  6. training  — the HungryGeese episodes phase 4 drained go into the
+                 device replay ring (and a CPU replica of it); at the
+                 shipped train_args (128 windows x 16 steps, seat mode,
+                 TD/TD): gather parity card vs CPU, three float32 steps
+                 with TF32 off card vs CPU (losses, gradients, parameter
+                 steps), three bf16 steps against them, then the fused
+                 replay step timed with CUDA events and profiled;
+  7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
+                 config.yaml cut to 3 epochs, the port's ``--eval`` of
+                 ``models/3.ckpt``, and a restart from epoch 3 that
+                 restores the optimizer and trains a fourth epoch.
 
 Every phase prints one ``phaseN {json}`` line and raises on failure.
-The JAX package has no Pallas kernel, so this slice ports none and the
+The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
 device record.  Exits non-zero, printing no result, where
 ``torch.cuda.is_available()`` is False or the package is missing.
 
 Run from the repository root:  python3 chip_smoke.py
 Full outputs land in chiprun_out/chip_smoke/.
+
+``python3 chip_smoke.py --jax-curve`` instead runs the JAX package's
+``main.py --train`` on phase 7's config, on the CPU, in a subprocess
+(this script never imports JAX), and prints its per-epoch curve: the
+reference the port's curve is read against.  It needs JAX and no card.
 """
 
 import json
 import os
 import queue
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +61,8 @@ from collections import Counter
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"                           # the card phases 6-7 train on
+CLI_DEVICE = []                        # extra CLI args of the children
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 SEED = 0
 FILTERS, BLOCKS = 32, 12               # GeeseNet's published width
@@ -435,7 +454,7 @@ def eval_entry(params):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "handyrl_tpu_torch", "--eval", ckpt,
-             "8", "1"], cwd=cwd, env=env, capture_output=True, text=True,
+             "8", "1", *CLI_DEVICE], cwd=cwd, env=env, capture_output=True, text=True,
             timeout=600)
         wall = time.perf_counter() - t0
     with open(os.path.join(OUT_DIR, "eval_stdout.txt"), "w") as f:
@@ -449,6 +468,493 @@ def eval_entry(params):
         raise RuntimeError("--eval printed no result table")
     return {"exit": proc.returncode, "wall_s": wall, "games": 8,
             "result_table": table}
+
+
+
+# ---------------------------------------------------------------------
+# phase 6: GeeseNet training steps from the device replay ring
+# ---------------------------------------------------------------------
+
+# the shipped train_args at full size, in seat mode (HungryGeese trains
+# one seat per row): 128 windows x 16 steps = 2,048 rows per step
+TRAIN_ARGS = {"turn_based_training": False, "observation": False,
+              "burn_in_steps": 0, "forward_steps": 16, "batch_size": 128,
+              "lambda": 0.7, "gamma": 0.8, "policy_target": "TD",
+              "value_target": "TD", "entropy_regularization": 0.1,
+              "entropy_regularization_decay": 0.1}
+RING_CFG = {"turn_based_training": False, "observation": False,
+            "forward_steps": 16, "burn_in_steps": 0,
+            "transfer_dtype": "bfloat16", "compute_dtype": "bfloat16"}
+PARITY_STEPS, TIMED_STEPS, WARMUP_STEPS, PROFILED_STEPS = 3, 60, 10, 10
+# float32 with TF32 off, card vs CPU: the first step's loss components
+# agree within LOSS_RTOL.  Against a float64 CPU run of the same steps,
+# the first step's losses and gradients on the card may err F64_FACTOR
+# x as much as the CPU's float32 run does, or the floor, whichever is
+# larger (later steps start from parameters that already differ):
+LOSS_RTOL = 1e-4                   # loss components (p, v, ent, total)
+GRAD_TOL = 1e-4                    # x max |grad| of each tensor
+F64_FACTOR = 10.0
+# Every step moves each parameter as the float64 run does, held the
+# same way (F64_FACTOR x the CPU's float32 error, or DELTA_TOL x lr),
+# wherever the float64 gradient exceeds MOVED_REL x its tensor's
+# largest: Adam turns any gradient into a step of ~lr, so an element
+# whose gradient is near float32 noise (raw gradients reach 1e2 here,
+# their float32 error 1e-4) moves by up to +-lr on either device, and
+# from step 2 on every run starts from parameters that already differ
+DELTA_TOL = 0.05
+MOVED_REL = 1e-2
+# clip_frac is left out: it counts ratios rho > 1, and on on-policy
+# episodes rho is 1 up to rounding, so it flips with summation order
+LOSS_KEYS = ("p", "v", "ent", "total")
+# bf16 total loss vs float32, relative to the loss's scale
+# |p| + |v| + entropy_regularization * ent (>= |total|, never ~0)
+BF16_LOSS_RTOL = 0.05
+PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16, data sheet
+
+
+def _event_ms(torch, fn, reps):
+    """Mean CUDA-event milliseconds of ``fn()`` over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _geese_update(torch, params, device, dtype):
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import (
+        DEFAULT_LR,
+        UpdateStep,
+        make_optimizer,
+    )
+
+    net = GeeseNet(FILTERS, BLOCKS)
+    net.load_state_dict(from_flax(params, net))
+    net = net.to(device, torch.float64 if dtype == "float64"
+                 else torch.float32)
+    lr = DEFAULT_LR * TRAIN_ARGS["batch_size"] * TRAIN_ARGS["forward_steps"]
+    step = UpdateStep(net, LossConfig.from_config(TRAIN_ARGS),
+                      make_optimizer(net.parameters(), lr),
+                      "float32" if dtype == "float64" else dtype)
+    if dtype == "float64":
+        # the reference: the forward in float64 (the batch's float32
+        # tensors promote to it in the loss)
+        step.apply_fn = lambda obs: net(obs.to(torch.float64))
+    return step, lr
+
+
+def _named(step, attr):
+    """Each parameter's ``data`` or ``grad`` as a float64 CPU copy."""
+    import torch
+
+    return {n: getattr(p, attr).detach().to("cpu", torch.float64,
+                                            copy=True)
+            for n, p in step.module.named_parameters()}
+
+
+def _max_diff(a, b):
+    return float((a - b).abs().max())
+
+
+def train_steps(torch, episodes, params):
+    from handyrl_tpu_torch.learner import host_copy
+    from handyrl_tpu_torch.ops.targets import compute_target
+    from handyrl_tpu_torch.staging import (
+        DeviceReplay,
+        make_replay_update_step,
+    )
+
+    out = {"episodes": len(episodes), "rows_per_step":
+           TRAIN_ARGS["batch_size"] * TRAIN_ARGS["forward_steps"]}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = DeviceReplay(RING_CFG, len(episodes), 4096 << 20, DEV)
+    card.offer(episodes)
+    card.ingest(max_episodes=10 ** 6)
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    cpu = DeviceReplay(RING_CFG, len(episodes), 4096 << 20, "cpu")
+    cpu.offer(episodes)
+    cpu.ingest(max_episodes=10 ** 6)
+    out.update(ring_episodes=card.size, ring_t_max=card.t_max,
+               ring_mib=card.nbytes / 2 ** 20,
+               ring_device=str(card.buffers["ep_len"].device))
+    if not out["ring_device"].startswith(DEV):
+        raise AssertionError(f"the ring is not on the card: {out}")
+
+    # (a) gather parity on injected (slots, tstarts, seats)
+    rng = np.random.default_rng(SEED)
+    B = TRAIN_ARGS["batch_size"]
+
+    def draw():
+        slots = rng.integers(0, card.size, B)
+        cands = 1 + np.maximum(0, card.ep_len[slots] - 16)
+        return [torch.from_numpy(np.asarray(a, np.int64))
+                for a in (slots, rng.integers(0, cands), rng.integers(0, 4, B))]
+
+    draws = [draw() for _ in range(PARITY_STEPS)]
+    batches = {"card": [card.gather(*[a.to(DEV) for a in d])
+                        for d in draws],
+               "cpu": [cpu.gather(*d) for d in draws]}
+    mismatched = [k for k, v in batches["card"][0].items()
+                  if not torch.equal(v.cpu(), batches["cpu"][0][k])]
+    out["gather_equal"] = not mismatched
+    if mismatched:
+        raise AssertionError(f"card gather differs from the CPU's: "
+                             f"{mismatched}")
+
+    # (b) three float32 steps with TF32 off from the same weights and
+    # batches on the card and on the CPU, both held against a float64
+    # CPU run of the same steps
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {"card": _geese_update(torch, params, DEV, "float32")[0],
+                "cpu": _geese_update(torch, params, "cpu", "float32")[0],
+                "f64": _geese_update(torch, params, "cpu", "float64")[0]}
+        lr = runs["cpu"].optimizer.param_groups[0]["lr"]
+        # parameter-step error per mask: the gate's, and for the record
+        # tier-1's (|grad| > 1e-6, test_torch_update.py) and one ten
+        # times lower than the gate's
+        masks = {"delta": MOVED_REL, "delta_rel_1e-3": 1e-3,
+                 "delta_abs_1e-6": None}
+        err = {d: dict({"loss": 0.0, "grad": 0.0},
+                       **{key: 0.0 for key in masks})
+               for d in ("card", "cpu")}
+        card_vs_cpu_loss = 0.0
+        f32_totals, f32_scales = [], []
+        for k in range(PARITY_STEPS):
+            batch_of = {"card": batches["card"][k],
+                        "cpu": batches["cpu"][k], "f64": batches["cpu"][k]}
+            before = {d: _named(run, "data") for d, run in runs.items()}
+            losses = {d: {n: float(v.detach()) for n, v in
+                          run.loss_and_grads(batch_of[d])[0].items()}
+                      for d, run in runs.items()}
+            grads = {d: _named(run, "grad") for d, run in runs.items()}
+            for run in runs.values():
+                run.apply_grads()
+            after = {d: _named(run, "data") for d, run in runs.items()}
+            ref = losses["f64"]
+            m = losses["card"]
+            f32_totals.append(m["total"])
+            f32_scales.append(abs(m["p"]) + abs(m["v"]) + TRAIN_ARGS[
+                "entropy_regularization"] * abs(m["ent"]))
+            for d in ("card", "cpu"):
+                e = err[d]
+                if k == 0:
+                    e["loss"] = max(
+                        abs(losses[d][n] - ref[n]) / max(abs(ref[n]), 1e-12)
+                        for n in LOSS_KEYS)
+                for n, g64 in grads["f64"].items():
+                    scale = float(g64.abs().max())
+                    if k == 0:
+                        e["grad"] = max(e["grad"], _max_diff(
+                            grads[d][n], g64) / scale)
+                    diff = ((after[d][n] - before[d][n])
+                            - (after["f64"][n] - before["f64"][n])).abs()
+                    for key, rel in masks.items():
+                        moved = g64.abs() > (1e-6 if rel is None
+                                             else rel * scale)
+                        if moved.any():
+                            e[key] = max(e[key],
+                                         float(diff[moved].max()) / lr)
+            if k == 0:
+                card_vs_cpu_loss = max(
+                    abs(m[n] - losses["cpu"][n])
+                    / max(abs(losses["cpu"][n]), 1e-12) for n in LOSS_KEYS)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    out["f32_parity"] = {
+        "card_vs_cpu_loss_rel_max": card_vs_cpu_loss,
+        "vs_float64": err, "factor": F64_FACTOR,
+        "floors": {"loss": LOSS_RTOL, "grad": GRAD_TOL,
+                   "delta": DELTA_TOL},
+        "moved_rel": MOVED_REL,
+        "lr": lr, "f32_totals": f32_totals}
+    emit("phase6_parity", out["f32_parity"])
+    if card_vs_cpu_loss > LOSS_RTOL:
+        raise AssertionError(f"f32 losses differ: {out['f32_parity']}")
+    for key, floor in out["f32_parity"]["floors"].items():
+        if err["card"][key] > max(F64_FACTOR * err["cpu"][key], floor):
+            raise AssertionError(
+                f"the card's float32 {key} is further from float64 than "
+                f"the CPU's allows: {out['f32_parity']}")
+
+    # (c) bf16 sanity: 3 steps from the same weights and batches
+    bf16, _ = _geese_update(torch, params, DEV, "bfloat16")
+    bf16_totals = [float(bf16(b)["total"]) for b in batches["card"]]
+    bf16_rel = [abs(b - f) / scale for b, f, scale in zip(
+        bf16_totals, f32_totals, f32_scales)]
+    out["bf16"] = {"totals": bf16_totals, "rel_vs_f32": bf16_rel,
+                   "rtol": BF16_LOSS_RTOL}
+    if not all(np.isfinite(bf16_totals)) or max(bf16_rel) > BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 steps: {out['bf16']}")
+
+    # steady state: the fused replay step (device draw + gather + bf16
+    # forward/backward + clip + Adam), the shipped setting
+    step, _ = _geese_update(torch, params, DEV, "bfloat16")
+    fused = make_replay_update_step(card, step, B, seed=SEED)
+    state = card.device_state()
+    for _ in range(WARMUP_STEPS):
+        fused(state)
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TIMED_STEPS)]
+    metrics = []
+    t0 = time.perf_counter()
+    for start, stop in events:
+        start.record()
+        metrics.append(fused(state))
+        stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    finite = all(float(m["nonfinite"]) == 0 for m in metrics)
+    rows = out["rows_per_step"]
+    flops, _ = forward_cost(rows)
+    flops *= 3  # forward + backward (two GEMMs per forward GEMM)
+    median = statistics.median(step_ms)
+    out["steady"] = {
+        "steps": TIMED_STEPS, "step_ms_median": median,
+        "step_ms_p90": _percentile(step_ms, 0.9),
+        "steps_per_s": 1e3 / median, "rows_per_s": rows * 1e3 / median,
+        "wall_steps_per_s": TIMED_STEPS / wall,
+        "wall_rows_per_s": rows * TIMED_STEPS / wall,
+        "model_flop_per_step": flops,
+        "bf16_bound_ms": 1e3 * flops / PEAK_BF16_FLOPS,
+        "bf16_peak_share": flops / (median / 1e3) / PEAK_BF16_FLOPS,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "finite": finite}
+    if not finite:
+        raise AssertionError("a fused replay step was not finite")
+
+    # launches per step and busy share, from torch.profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            fused(state)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, "train_step_trace.json"))
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    copies = {kind: sum(e.count for e in prof.key_averages()
+                        if kind in e.key) / PROFILED_STEPS
+              for kind in ("Memcpy HtoD", "Memcpy DtoH")}
+    out["profile"] = {
+        "steps": PROFILED_STEPS,
+        "kernel_launches_per_step":
+            sum(e.count for e in kernels) / PROFILED_STEPS,
+        "host_to_device_copies_per_step": copies["Memcpy HtoD"],
+        "device_to_host_copies_per_step": copies["Memcpy DtoH"],
+        "device_busy_ms_per_step": (device_us / PROFILED_STEPS / 1e3
+                                    if device_us else "not measured"),
+        "device_busy_share": (device_us / window_us if device_us
+                              else "not measured"),
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_us": e.self_device_time_total}
+                        for e in top]}
+
+    # per-layer times at the step's shapes (CUDA events, mean of 20)
+    d = [a.to(DEV) for a in draws[0]]
+    batch = card.gather(*d)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    values = torch.rand(B, 16, 1, 1, device=DEV)
+    ones = torch.ones_like(values)
+    t0 = time.perf_counter()
+    host_copy(step.module.state_dict())
+    snapshot_ms = 1e3 * (time.perf_counter() - t0)
+    out["layers_ms"] = {
+        "draw": _event_ms(torch, lambda: card.draw(state, gen, B), 20),
+        "gather": _event_ms(torch, lambda: card.gather(*d), 20),
+        "forward_backward": _event_ms(
+            torch, lambda: step.loss_and_grads(batch), 20),
+        "td_targets": _event_ms(torch, lambda: compute_target(
+            "TD", values, values, None, 0.7, 1.0, ones, ones, ones), 20),
+        "clip_adam": _event_ms(torch, step.apply_grads, 20),
+        "snapshot_host_copy": snapshot_ms,
+        "ring_ingest_per_episode": 1e3 * out["ingest_s"] / len(episodes)}
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 7: python -m handyrl_tpu_torch --train on the shipped config
+# ---------------------------------------------------------------------
+
+# what a bounded run forces; everything else is the shipped config.yaml
+TRAIN_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl"}
+
+
+def train_config(cuts):
+    import yaml
+
+    with open(os.path.join(ROOT, "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    config["train_args"].update(cuts)
+    return config
+
+
+def run_training(cmd, cwd, config, timeout=420):
+    import yaml
+
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    records = []
+    path = os.path.join(cwd, "metrics.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            records = [json.loads(line) for line in f]
+    return proc, records, wall
+
+
+def epoch_rows(records, steps=0):
+    """Per-epoch rows of a metrics.jsonl; ``steps`` and the episode
+    count are cumulative in the records (from ``steps`` and 0 at the
+    run's start)."""
+    rows, received = [], 0
+    for r in records:
+        new = r.get("episodes_received", received) - received
+        received = r.get("episodes_received", received)
+        rows.append({
+            "epoch": r["epoch"], "win_rate": r.get("win_rate"),
+            "eval_games": r.get("eval_games"),
+            "steps": r["steps"] - steps, "episodes": new or None,
+            "epoch_wall_s": r["epoch_wall_sec"],
+            "episodes_per_s": new / max(r["epoch_wall_sec"], 1e-9) or None,
+            "loss_total": r.get("total"),
+            "replay_dropped": r.get("replay_dropped"),
+            "infer_dispatch_ms_p50": r.get("infer_dispatch_ms_p50")})
+        steps = r["steps"]
+    return rows
+
+
+def train_entry():
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="train_")
+    try:
+        return _train_entry(cwd)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def _check_run(proc, tag):
+    with open(os.path.join(OUT_DIR, f"{tag}_stdout.txt"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    if "WARNING: device_replay is off" in proc.stdout:
+        raise AssertionError(f"{tag} took the host batcher path")
+
+
+def _train_entry(cwd):
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    config = train_config(TRAIN_CUTS)
+    proc, records, wall = run_training(train, cwd, config)
+    _check_run(proc, "train")
+    out = {"cuts": TRAIN_CUTS, "wall_s": wall, "epochs": epoch_rows(records)}
+    if [r["epoch"] for r in records] != [0, 1, 2] or not os.path.exists(
+            os.path.join(cwd, "models", "3.ckpt")):
+        raise AssertionError(f"3 epochs did not land: {records}")
+    for r in records:
+        if r.get("replay") != "device" or not str(
+                r.get("replay_device")).startswith(DEV):
+            raise AssertionError(f"not the ring path on the card: {r}")
+        if not all(np.isfinite(r[k]) for k in ("p", "v", "ent", "total")):
+            raise AssertionError(f"nonfinite losses: {r}")
+        if not r.get("eval_games"):
+            raise AssertionError(f"no eval games counted: {r}")
+    # the workers' exit reports share one pipe, so two may land on one
+    # line: read them by pattern, not by line
+    workers = {int(w): {"cuda_initialized": c == "True",
+                        "fallbacks": int(f), "served_rows": int(s),
+                        "local_rows": int(loc)}
+               for w, c, f, s, loc in re.findall(
+                   r"closed worker (\d+): cuda initialized (\w+), pipeline "
+                   r"fallbacks (\d+), served rows (\d+), local rows (\d+)",
+                   proc.stdout)}
+    stats = [json.loads(line.split("=", 1)[1]) for line in
+             proc.stdout.splitlines()
+             if line.startswith("inference service stats =")]
+    out.update(workers=workers, service=stats[-1] if stats else None)
+    if len(workers) != config["train_args"]["worker"]["num_parallel"] or any(
+            w["cuda_initialized"] or w["fallbacks"]
+            for w in workers.values()):
+        raise AssertionError(f"worker fallbacks or CUDA in a worker: "
+                             f"{workers}")
+    if not stats or stats[-1]["param_loads"] < 4:
+        raise AssertionError(f"the service did not load every epoch: "
+                             f"{stats}")
+
+    # the port's --eval reads the checkpoint back
+    proc_eval = subprocess.run(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
+         "models/3.ckpt", "40", "2", *CLI_DEVICE], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    _check_run(proc_eval, "train_eval")
+    out["eval_3"] = [line for line in proc_eval.stdout.splitlines()
+                     if line.startswith("agent ")]
+    if not any("win rate" in line for line in out["eval_3"]):
+        raise AssertionError("--eval of models/3.ckpt printed no result")
+
+    # restart from epoch 3: the optimizer state resumes, one more epoch
+    steps = records[-1]["steps"]
+    proc2, records2, wall2 = run_training(
+        train, cwd, train_config(dict(TRAIN_CUTS, epochs=4,
+                                      restart_epoch=3)))
+    _check_run(proc2, "train_restart")
+    out["restart"] = {"wall_s": wall2, "epochs": epoch_rows(
+        records2[len(records):], steps=steps)}
+    if f"restored optimizer state at step {steps}" not in proc2.stdout:
+        raise AssertionError("the restart did not restore the optimizer")
+    if records2[-1]["epoch"] != 3 or not os.path.exists(
+            os.path.join(cwd, "models", "4.ckpt")):
+        raise AssertionError("the restart trained no further epoch")
+    return out
+
+
+def jax_curve():
+    """The JAX package's curve on the phase-7 config, on the CPU:
+    ``main.py --train`` in a subprocess (this script imports no JAX)."""
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="jax_curve_")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    try:
+        proc, records, wall = run_training(
+            [sys.executable, os.path.join(ROOT, "main.py"), "--train"],
+            cwd, train_config(TRAIN_CUTS), timeout=1800)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+    print(json.dumps({"jax_cpu_curve": epoch_rows(records), "wall_s": wall,
+                      "exit": proc.returncode}), flush=True)
+    return proc.returncode
 
 
 # ---------------------------------------------------------------------
@@ -497,7 +1003,8 @@ def main():
     cpu_model = TorchModel.from_flax(GeeseNet(FILTERS, BLOCKS), params,
                                      device="cpu")
     n_params = sum(p.numel() for p in model.module.parameters())
-    assert next(model.module.parameters()).is_cuda
+    if next(model.module.parameters()).device.type != torch.device(DEV).type:
+        raise AssertionError("the model is not on the card")
     report["phase2"] = {"params": n_params, "filters": FILTERS,
                         "blocks": BLOCKS, "seed": SEED,
                         "setup_s": time.perf_counter() - t0}
@@ -588,8 +1095,16 @@ def main():
     report["phase5"] = eval_entry(params)
     emit("phase5", report["phase5"])
 
-    # 6. kernels: the JAX package reaches pl.pallas_call nowhere, so
-    # this slice owes no hand-written kernel
+    # 6. GeeseNet training steps on the card
+    report["phase6"] = train_steps(torch, drained, params)
+    emit("phase6", report["phase6"])
+
+    # 7. --train on the shipped config, then a restart
+    report["phase7"] = train_entry()
+    emit("phase7", report["phase7"])
+
+    # kernels: the JAX package reaches pl.pallas_call nowhere, so the
+    # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "
           "pl.pallas_call (grep -rn pallas handyrl_tpu is empty)")
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
@@ -602,4 +1117,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--jax-curve"]:
+        sys.exit(jax_curve())
     sys.exit(main())

@@ -1,0 +1,307 @@
+"""Host-side training-batch assembly (numpy).
+
+The counterpart of ``handyrl_tpu.batch``, a copy: decompress episode
+moment blocks, select the training players (turn-based gathers only the
+turn player; otherwise one random player, or all players when
+observers train too), build ``(T, P, ...)`` arrays with the full mask
+set, and pad short slices to the static ``burn_in + forward_steps``
+window.  The device replay ring (:mod:`.staging`) reuses the columnar
+block builder here and recomputes the rest on the device.
+
+Batch layout (B = batch, T = time, P = players, A = actions):
+  observation      pytree of (B, T, P_in, ...)   P_in = 1 if turn-based
+  selected_prob    (B, T, P_in, 1)   behavior-policy probability
+  action           (B, T, P_in, 1)   int32
+  action_mask      (B, T, P_in, A)   0 legal / 1e32 illegal
+  value/reward/return (B, T, P, V)
+  outcome          (B, 1, P, 1)
+  episode_mask     (B, T, 1, 1)      0 on padding
+  turn_mask        (B, T, P, 1)      1 where the player acted
+  observation_mask (B, T, P, 1)      1 where the player observed
+  progress         (B, T, 1)         fraction of episode elapsed
+
+Observation wire formats (``transfer_dtype``): float32 as is; uint8 for
+integer-valued planes (checked exact); and bfloat16 carried as its
+``uint16`` bit pattern (round to nearest even), which the device side
+views as ``torch.bfloat16`` — numpy has no bf16 type of its own, and
+the port depends on no package that adds one.
+"""
+
+import bz2
+import pickle
+import random
+from collections import OrderedDict
+
+import numpy as np
+
+from .utils.tree import stack_time_player, tree_map, tree_stack
+
+ILLEGAL = np.float32(1e32)
+
+
+def to_bf16_bits(a):
+    """float array -> bfloat16 bit patterns as ``uint16`` (round to
+    nearest even, the rounding of a float32 -> bfloat16 cast)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    rounded = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16
+    return rounded.astype(np.uint16)
+
+
+def load_block(blob):
+    """Moment block bytes -> list of moment dicts.  bz2-compressed
+    pickle (``BZh`` magic, the control plane) and raw pickle (the shm
+    trajectory path) are told apart by their magic."""
+    if blob[:2] == b"BZ":
+        blob = bz2.decompress(blob)
+    return pickle.loads(blob)
+
+
+def decompress_moments(ep):
+    """Inflate an episode's moment blocks and slice to [start, end)."""
+    moments = [m for blob in ep["moment"] for m in load_block(blob)]
+    return moments[ep["start"] - ep["base"]: ep["end"] - ep["base"]]
+
+
+def _pad_time(arr, before, after, value=0.0):
+    pad = [(before, after)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad, constant_values=value)
+
+
+# ---------------------------------------------------------------------
+# columnar block cache: each moment block is converted ONCE into
+# stacked (T_block, P_all, ...) arrays with presence masks, so every
+# draw reduces to slice + concatenate + gather + pad.  Cached per blob,
+# bounded by decompressed bytes.
+# ---------------------------------------------------------------------
+
+_COL_CACHE = OrderedDict()  # blob -> (columnar dict, nbytes)
+_COL_CACHE_MAX_BYTES = 512 * 1024 * 1024
+_col_cache_bytes = 0
+
+
+def set_columnar_cache_mb(mb):
+    """Resize this process's columnar cache cap (0/None keeps it)."""
+    global _COL_CACHE_MAX_BYTES, _col_cache_bytes
+    if not mb:
+        return
+    _COL_CACHE_MAX_BYTES = int(mb) * 1024 * 1024
+    while _col_cache_bytes > _COL_CACHE_MAX_BYTES and _COL_CACHE:
+        _, (_, freed) = _COL_CACHE.popitem(last=False)
+        _col_cache_bytes -= freed
+
+
+def _nbytes_tree(x):
+    if isinstance(x, dict):
+        return sum(_nbytes_tree(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes_tree(v) for v in x)
+    return getattr(x, "nbytes", 8)
+
+
+def _build_columnar(moments):
+    """Stack one block's moments into (T, P_all, ...) arrays."""
+    players = list(moments[0]["observation"].keys())
+    turn0 = moments[0]["turn"][0]
+    obs_template = tree_map(
+        lambda a: np.zeros_like(a), moments[0]["observation"][turn0])
+    num_actions = len(moments[0]["action_mask"][turn0])
+
+    def pick(m, key, p, default):
+        v = m[key][p]
+        return default if v is None else v
+
+    obs = stack_time_player(
+        [[m["observation"][p] for p in players] for m in moments],
+        obs_template)
+    prob = np.array(
+        [[[pick(m, "selected_prob", p, 1.0)] for p in players]
+         for m in moments], np.float32)
+    act = np.array(
+        [[[pick(m, "action", p, 0)] for p in players] for m in moments],
+        np.int32)
+    amask = np.stack([
+        np.stack([
+            np.asarray(m["action_mask"][p], np.float32)
+            if m["action_mask"][p] is not None
+            else np.full(num_actions, ILLEGAL, np.float32)
+            for p in players])
+        for m in moments])
+
+    def channel(key):
+        return np.array(
+            [[np.ravel(m[key][p]) if m[key][p] is not None else [0.0]
+              for p in players] for m in moments],
+            np.float32).reshape(len(moments), len(players), -1)
+
+    tmask = np.array(
+        [[[m["selected_prob"][p] is not None] for p in players]
+         for m in moments], np.float32)
+    omask = np.array(
+        [[[m["observation"][p] is not None] for p in players]
+         for m in moments], np.float32)
+    turn_idx = np.array(
+        [players.index(m["turn"][0]) for m in moments], np.int64)
+
+    return {
+        "players": players, "obs": obs, "prob": prob, "act": act,
+        "amask": amask, "value": channel("value"),
+        "reward": channel("reward"), "return": channel("return"),
+        "tmask": tmask, "omask": omask, "turn_idx": turn_idx,
+    }
+
+
+def _columnar_block(blob):
+    global _col_cache_bytes
+    hit = _COL_CACHE.get(blob)
+    if hit is not None:
+        _COL_CACHE.move_to_end(blob)
+        return hit[0]
+    col = _build_columnar(load_block(blob))
+    nbytes = _nbytes_tree(col)
+    if nbytes <= _COL_CACHE_MAX_BYTES // 4:
+        _COL_CACHE[blob] = (col, nbytes)
+        _col_cache_bytes += nbytes
+        while _col_cache_bytes > _COL_CACHE_MAX_BYTES:
+            _, (_, freed) = _COL_CACHE.popitem(last=False)
+            _col_cache_bytes -= freed
+    return col
+
+
+def _tree_cat_slice(trees, spans):
+    """Concatenate rows ``spans[i]`` of each tree i (slice first, so a
+    draw copies only window bytes)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_cat_slice([t[k] for t in trees], spans)
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(
+            _tree_cat_slice([t[i] for t in trees], spans)
+            for i in range(len(first)))
+    if len(trees) == 1:
+        a, b = spans[0]
+        return first[a:b]
+    return np.concatenate([t[a:b] for t, (a, b) in zip(trees, spans)])
+
+
+def _take_turn(arr, turn_idx):
+    """Gather each step's acting player's row: (T, P, ...) -> (T, 1, ...)."""
+    idx = turn_idx.reshape((len(turn_idx), 1) + (1,) * (arr.ndim - 2))
+    return np.take_along_axis(arr, idx, axis=1)
+
+
+def _episode_tensors(ep, cfg):
+    """Build one episode's (T, P, ...) tensors, padded to batch_steps."""
+    blocks = [_columnar_block(blob) for blob in ep["moment"]]
+    lo, hi = ep["start"] - ep["base"], ep["end"] - ep["base"]
+
+    spanned, spans, offset = [], [], 0
+    for block in blocks:
+        length = len(block["turn_idx"])
+        a, b = max(0, lo - offset), min(length, hi - offset)
+        if a < b:
+            spanned.append(block)
+            spans.append((a, b))
+        offset += length
+
+    def cat(key):
+        return _tree_cat_slice([b[key] for b in spanned], spans)
+
+    players_all = blocks[0]["players"]
+    players = players_all
+    if not cfg["turn_based_training"]:
+        # solo training: one random seat per draw
+        players = [random.choice(players)]
+    sel = [players_all.index(p) for p in players]
+
+    if cfg["turn_based_training"] and not cfg["observation"]:
+        # one acting seat per step: gather the turn player's data
+        turn_idx = cat("turn_idx")
+        obs = tree_map(lambda a: _take_turn(a, turn_idx), cat("obs"))
+        prob = _take_turn(cat("prob"), turn_idx)
+        act = _take_turn(cat("act"), turn_idx)
+        amask = _take_turn(cat("amask"), turn_idx)
+    else:
+        obs = tree_map(lambda a: a[:, sel], cat("obs"))
+        prob = cat("prob")[:, sel]
+        act = cat("act")[:, sel]
+        amask = cat("amask")[:, sel]
+
+    v = cat("value")[:, sel]
+    rew = cat("reward")[:, sel]
+    ret = cat("return")[:, sel]
+    oc = np.array([ep["outcome"][p] for p in players],
+                  np.float32).reshape(1, len(players), 1)
+
+    steps = hi - lo
+    emask = np.ones((steps, 1, 1), np.float32)
+    tmask = cat("tmask")[:, sel]
+    omask = cat("omask")[:, sel]
+    progress = (np.arange(ep["start"], ep["end"], dtype=np.float32)[:, None]
+                / ep["total"])
+
+    # pad short slices to the static window; burn-in alignment keeps the
+    # training start at index burn_in_steps
+    batch_steps = cfg["burn_in_steps"] + cfg["forward_steps"]
+    if steps < batch_steps:
+        pad_b = cfg["burn_in_steps"] - (ep["train_start"] - ep["start"])
+        pad_a = batch_steps - steps - pad_b
+        obs = tree_map(lambda a: _pad_time(a, pad_b, pad_a), obs)
+        prob = _pad_time(prob, pad_b, pad_a, 1.0)
+        # after the terminal step the value bootstrap is the final outcome
+        v = np.concatenate(
+            [_pad_time(v, pad_b, 0), np.tile(oc, [pad_a, 1, 1])])
+        act = _pad_time(act, pad_b, pad_a)
+        rew = _pad_time(rew, pad_b, pad_a)
+        ret = _pad_time(ret, pad_b, pad_a)
+        emask = _pad_time(emask, pad_b, pad_a)
+        tmask = _pad_time(tmask, pad_b, pad_a)
+        omask = _pad_time(omask, pad_b, pad_a)
+        amask = _pad_time(amask, pad_b, pad_a, ILLEGAL)
+        progress = _pad_time(progress, pad_b, pad_a, 1.0)
+
+    return obs, {
+        "selected_prob": prob, "value": v, "action": act, "outcome": oc,
+        "reward": rew, "return": ret, "episode_mask": emask,
+        "turn_mask": tmask, "observation_mask": omask,
+        "action_mask": amask, "progress": progress,
+    }
+
+
+def make_batch(episodes, cfg):
+    """Assemble a ``(B, T, P, ...)`` training batch from episode slices.
+
+    ``transfer_dtype`` picks the observation wire format (module
+    docstring); every other tensor stays float32/int32."""
+    obs_list, datum = [], []
+    for ep in episodes:
+        obs, row = _episode_tensors(ep, cfg)
+        obs_list.append(obs)
+        datum.append(row)
+
+    batch = {k: np.stack([d[k] for d in datum]) for k in datum[0]}
+    batch["observation"] = _encode_obs(
+        tree_stack(obs_list), cfg.get("transfer_dtype"))
+    return batch
+
+
+def _encode_obs(obs, transfer_dtype):
+    """Compact wire encodings for the floating observation leaves."""
+    if transfer_dtype == "bfloat16":
+        return tree_map(
+            lambda a: to_bf16_bits(a)
+            if np.issubdtype(a.dtype, np.floating) else a, obs)
+    if transfer_dtype == "uint8":
+        def quantize(a):
+            if not np.issubdtype(a.dtype, np.floating):
+                return a
+            q = a.astype(np.uint8)
+            if not np.array_equal(q.astype(a.dtype), a):
+                raise ValueError(
+                    "transfer_dtype 'uint8' requires integer-valued "
+                    "observations in [0, 255]; this env's observations "
+                    "are not — use 'bfloat16' instead")
+            return q
+
+        return tree_map(quantize, obs)
+    return obs

@@ -1,0 +1,994 @@
+"""The learner: conductor server, training thread, batcher farm.
+
+The counterpart of the local single-process path of
+``handyrl_tpu.learner``:
+
+  * the Trainer owns the net's parameters, the Adam state and (by
+    default) the replay ring, all on the training device.  One step is
+    draw -> gather -> forward -> backward -> clip -> Adam, updating
+    parameters and optimizer state in place (:mod:`.ops.update`,
+    :mod:`.staging`); a steady-state step uploads nothing and reads
+    nothing back;
+  * per-step metrics stay on the device and are stacked and copied to
+    the host once per epoch;
+  * at each epoch boundary the trainer thread takes a HOST COPY of the
+    parameters (never an alias of the live tensors, which the next
+    step updates in place); the learner serves that snapshot to the
+    workers and to the batched inference service, and checkpoints it
+    in the JAX package's format;
+  * ``device_replay: off`` trains from host batches assembled by
+    batcher processes instead, and says so loudly.
+
+The stdout log format (``updated model(N)``, ``epoch N``, ``win rate``,
+``loss = ...``, ``generation stats``) is the JAX package's, so its plot
+scripts read either.
+
+Left for later items: telemetry and attribution, the runtime guards
+(retrace, sharding, numerics, lock order, stall), the resource ledger,
+the fleet registry and heartbeats, the episode WAL, chaos drills, the
+serving frontend and router, the status server, Anakin, meshes and
+multihost, league opponents and remote workers (``--train-server``).
+"""
+
+import json
+import os
+import pickle
+import queue
+import random
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from .batch import make_batch
+from .connection import MultiProcessJobExecutor
+from .device import DEFAULT_DEVICE, resolve_device
+from .durability import (
+    CheckpointManifest,
+    CorruptCheckpointError,
+    read_verified,
+    resolve_restart,
+    write_checksummed,
+)
+from .environment import make_env, prepare_env
+from .models import TorchModel
+from .models.convert import from_flax, to_flax
+from .models.wrapper import build_module
+from .ops.losses import LossConfig
+from .ops.update import (
+    DEFAULT_LR,
+    UpdateStep,
+    make_optimizer,
+    set_learning_rate,
+)
+from .staging import DeviceReplay, make_replay_update_step
+from .utils.tree import tree_map_leaves
+from .worker import WorkerCluster
+
+
+def _models_dir():
+    return "models"
+
+
+def model_path(model_id):
+    return os.path.join(_models_dir(), f"{model_id}.ckpt")
+
+
+def latest_model_path():
+    return os.path.join(_models_dir(), "latest.ckpt")
+
+
+def train_state_path():
+    return os.path.join(_models_dir(), "train_state.ckpt")
+
+
+def resolve_transfer_dtype(args):
+    """The observation wire format: 'auto' follows the compute dtype."""
+    transfer = args.get("transfer_dtype", "auto") or "auto"
+    if transfer == "auto":
+        compute = args.get("compute_dtype", "bfloat16") or "bfloat16"
+        transfer = "bfloat16" if compute == "bfloat16" else "float32"
+    return "" if transfer == "float32" else transfer
+
+
+def host_copy(state):
+    """Numpy copies of a ``state_dict``'s tensors: never views of them,
+    so a later in-place update cannot reach the copy."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            for k, v in state.items()}
+
+
+def stage_batch(batch, device, compute_dtype="bfloat16"):
+    """A host batch of ``make_batch`` as tensors on ``device``.
+    Observations arrive in their wire format (bfloat16 as uint16 bit
+    patterns, viewed on the device; uint8 planes) and leave in the
+    compute dtype; every other leaf keeps its dtype."""
+    obs_dtype = getattr(torch, compute_dtype)
+
+    def obs(a):
+        if a.dtype == np.uint16:
+            t = torch.from_numpy(a.view(np.int16)).to(device).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t.to(obs_dtype)
+
+    staged = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+              for k, v in batch.items() if k != "observation"}
+    staged["observation"] = tree_map_leaves(obs, batch["observation"])
+    return staged
+
+
+class _Timers:
+    """Host seconds per named section, reset at each snapshot."""
+
+    def __init__(self):
+        self.sec = {}
+
+    @contextmanager
+    def section(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.sec[name] = self.sec.get(name, 0.0) + (
+                time.perf_counter() - t0)
+
+    def snapshot(self):
+        out, self.sec = self.sec, {}
+        return out
+
+
+# ---------------------------------------------------------------------
+# the host batcher path (device_replay: off)
+# ---------------------------------------------------------------------
+
+def _batch_worker(conn, bid, cfg):
+    """Batcher child process: decompress + assemble numpy batches."""
+    from .batch import set_columnar_cache_mb
+
+    set_columnar_cache_mb(cfg.get("columnar_cache_mb"))
+    print(f"started batcher {bid}")
+    try:
+        while True:
+            episodes = conn.recv()
+            conn.send(make_batch(episodes, cfg))
+    except (ConnectionResetError, BrokenPipeError, EOFError, OSError):
+        pass  # the learner is gone: exit quietly
+
+
+class Batcher:
+    """Parallel batch construction over ``num_batchers`` processes.
+    The parent samples episode windows (recency-biased) and ships them
+    to children that assemble fixed-shape numpy batches."""
+
+    def __init__(self, args, episodes):
+        self.args = args
+        self.episodes = episodes
+        cfg = {k: args[k] for k in (
+            "turn_based_training", "observation", "forward_steps",
+            "burn_in_steps", "compress_steps", "columnar_cache_mb",
+        ) if k in args}
+        transfer = resolve_transfer_dtype(args)
+        if transfer:
+            cfg["transfer_dtype"] = transfer
+        self.executor = MultiProcessJobExecutor(
+            _batch_worker, self._selector(), self.args["num_batchers"],
+            args_func=lambda i: (i, cfg))
+
+    def _selector(self):
+        while True:
+            yield [self.select_episode()
+                   for _ in range(self.args["batch_size"])]
+
+    def run(self):
+        self.executor.start()
+
+    def select_episode(self):
+        """Recency-biased sampling: triangular acceptance over buffer
+        index, then a random training window with burn-in backoff and
+        block slicing."""
+        while True:
+            ep_count = min(len(self.episodes),
+                           self.args["maximum_episodes"])
+            ep_idx = random.randrange(ep_count)
+            accept_rate = 1 - (ep_count - 1 - ep_idx) / ep_count
+            if random.random() >= accept_rate:
+                continue
+            try:
+                ep = self.episodes[ep_idx]
+                break
+            except IndexError:
+                continue
+        turn_candidates = 1 + max(
+            0, ep["steps"] - self.args["forward_steps"])
+        train_st = random.randrange(turn_candidates)
+        st = max(0, train_st - self.args["burn_in_steps"])
+        ed = min(train_st + self.args["forward_steps"], ep["steps"])
+        cmp = self.args["compress_steps"]
+        st_block, ed_block = st // cmp, (ed - 1) // cmp + 1
+        return {
+            "args": ep["args"], "outcome": ep["outcome"],
+            "moment": ep["moment"][st_block:ed_block],
+            "base": st_block * cmp,
+            "start": st, "end": ed, "train_start": train_st,
+            "total": ep["steps"],
+        }
+
+    def batch(self, timeout=None):
+        return self.executor.recv(timeout=timeout)
+
+    def shutdown(self):
+        self.executor.shutdown()
+
+
+# ---------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------
+
+class Trainer:
+    """Owns the training device's state: the net, Adam, the replay ring
+    and the step.  Everything here runs on the trainer thread, except
+    :meth:`update`, the learner's epoch handshake."""
+
+    def __init__(self, args, model, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        # the host path's replay buffer, trimmed to maximum_episodes
+        self.episodes = deque(maxlen=args["maximum_episodes"])
+        self.args = args
+        self.loss_cfg = LossConfig.from_config(args)
+        self.compute_dtype = args.get("compute_dtype") or "bfloat16"
+        self.default_lr = DEFAULT_LR
+        self.data_cnt_ema = args["batch_size"] * args["forward_steps"]
+        self.epoch = args.get("restart_epoch", 0)
+        self.steps = 0
+        self.update_flag = False
+        self.shutdown_flag = False
+        self.failure = None
+        self.checkpoint_checksum = bool(
+            args.get("checkpoint_checksum", True))
+        self.last_state_digest = ""
+        self.last_metrics = {}
+        self.update_queue = queue.Queue(maxsize=1)
+        self.updates_cap = int(args.get("updates_per_epoch", 0) or 0)
+        self.timers = _Timers()
+
+        self.spec = model.spec
+        self.module = build_module(self.spec, self.device).train()
+        self.module.load_state_dict(model.module.state_dict())
+        self.optimizer = make_optimizer(
+            self.module.parameters(), self.default_lr * self.data_cnt_ema)
+        self.impact = self.loss_cfg.update_algorithm == "impact"
+        self.target_module = None
+        if self.impact:
+            # the IMPACT target network starts as a copy of the params
+            self.target_module = build_module(self.spec, self.device)
+            self.target_module.load_state_dict(self.module.state_dict())
+        self._maybe_restore_train_state()
+        self.update_step = UpdateStep(
+            self.module, self.loss_cfg, self.optimizer, self.compute_dtype,
+            target_module=self.target_module)
+        self.update_step.count = self.steps
+        print(f"compute dtype: {self.compute_dtype}; training on "
+              f"{self.device}")
+
+        self.device_replay = self._maybe_device_replay()
+        self._replay_step = None
+        self.batcher = None
+        if self.device_replay is not None:
+            # seeded from the config seed and the resumed step count, so
+            # a restart draws a fresh, reproducible stream
+            self._replay_step = make_replay_update_step(
+                self.device_replay, self.update_step,
+                batch_size=args["batch_size"],
+                seed=int(args.get("seed", 0)) * 1_000_003 + self.steps)
+        else:
+            print("WARNING: device_replay is off — training from the "
+                  "host batcher path (batches assembled on the CPU and "
+                  "copied to the device every step)")
+            self.batcher = Batcher(self.args, self.episodes)
+
+    def _maybe_device_replay(self):
+        """The replay ring on the training device (``device_replay``
+        auto or on), or None for the host batcher path (off)."""
+        mode = self.args.get("device_replay", "auto") or "auto"
+        if mode == "off":
+            return None
+        cfg = {
+            "turn_based_training": self.args["turn_based_training"],
+            "observation": self.args.get("observation", False),
+            "forward_steps": self.args["forward_steps"],
+            "burn_in_steps": self.args.get("burn_in_steps", 0),
+            "transfer_dtype": resolve_transfer_dtype(self.args),
+            "compute_dtype": self.compute_dtype,
+        }
+        capacity = (self.args.get("device_replay_episodes", 0)
+                    or self.args["maximum_episodes"])
+        max_bytes = (self.args.get("device_replay_mb", 4096) or 4096) << 20
+        return DeviceReplay(cfg, capacity, max_bytes, self.device)
+
+    # -- train state ----------------------------------------------------
+
+    def _maybe_restore_train_state(self):
+        """Resume the optimizer on restart: Adam moments, step count
+        and the lr EMA, from ``train_state.ckpt`` when it verifies
+        against the manifest digest and belongs to the restart epoch;
+        otherwise the optimizer cold-starts, loudly."""
+        restart_epoch = self.args.get("restart_epoch", 0)
+        if not isinstance(restart_epoch, int) or restart_epoch <= 0:
+            return
+        try:
+            state = read_verified(
+                train_state_path(),
+                expect_digest=self.args.get("_resume_state_digest") or None)
+        except OSError:
+            return  # missing: cold-start the optimizer
+        except CorruptCheckpointError as exc:
+            print(f"WARNING: train state failed verification ({exc}); "
+                  "cold-starting the optimizer")
+            return
+        if state.get("epoch") != restart_epoch:
+            print("train state is for epoch %s, not %d: cold-starting"
+                  % (state.get("epoch"), restart_epoch))
+            return
+        try:
+            opt_state = state["opt_state"]
+            # the saved hyper-parameters, with this run's choice of
+            # implementation (fused on the card, foreach on the CPU)
+            impl = ("fused", "foreach", "capturable", "differentiable")
+            groups = [dict(saved, **{k: now[k] for k in impl if k in now})
+                      for saved, now in zip(opt_state["param_groups"],
+                                            self.optimizer.param_groups)]
+            self.optimizer.load_state_dict({
+                "state": {int(i): {k: torch.from_numpy(np.asarray(v))
+                                   for k, v in s.items()}
+                          for i, s in opt_state["state"].items()},
+                "param_groups": groups})
+            if self.target_module is not None \
+                    and state.get("target_params") is not None:
+                self.target_module.load_state_dict(
+                    {k: torch.from_numpy(v)
+                     for k, v in state["target_params"].items()})
+        except (ValueError, TypeError, KeyError, RuntimeError):
+            print("train state does not match the current model: "
+                  "cold-starting the optimizer")
+            return
+        self.steps = state["steps"]
+        self.data_cnt_ema = state["data_cnt_ema"]
+        print(f"restored optimizer state at step {self.steps}")
+
+    def save_train_state(self, epoch):
+        """``train_state.ckpt``: the port's own format (the torch
+        optimizer ``state_dict`` with numpy leaves), not optax's."""
+        sd = self.optimizer.state_dict()
+        state = {
+            "opt_state": {
+                "state": {i: host_copy(s) for i, s in sd["state"].items()},
+                "param_groups": sd["param_groups"]},
+            "steps": self.steps,
+            "data_cnt_ema": self.data_cnt_ema,
+            "epoch": epoch,
+        }
+        if self.target_module is not None:
+            state["target_params"] = host_copy(
+                self.target_module.state_dict())
+        self.last_state_digest = write_checksummed(
+            train_state_path(), state, checksum=self.checkpoint_checksum)
+
+    def snapshot(self):
+        """A CPU model holding a host copy of the live parameters."""
+        model = TorchModel(build_module(self.spec, "cpu"), device="cpu")
+        model.load_params(host_copy(self.module.state_dict()))
+        return model
+
+    # -- epochs ---------------------------------------------------------
+
+    def update(self):
+        """Called by the learner: finish the epoch, get a snapshot.
+        Returns ``(None, steps)`` if the training thread has died."""
+        self.update_flag = True
+        while True:
+            try:
+                return self.update_queue.get(timeout=1)
+            except queue.Empty:
+                if self.failure is not None or self.shutdown_flag:
+                    return None, self.steps
+
+    def _epoch_loop_local(self):
+        """Host batcher path: one staged batch per step."""
+        cap = self.updates_cap
+        batch_cnt, metric_acc = 0, []
+        while batch_cnt == 0 or not self.update_flag:
+            if self.shutdown_flag:
+                return None
+            if cap and batch_cnt >= cap:
+                time.sleep(0.01)
+                continue
+            try:
+                with self.timers.section("batch_wait"):
+                    batch = self.batcher.batch(timeout=0.3)
+            except queue.Empty:
+                continue
+            with self.timers.section("update"):
+                batch = stage_batch(batch, self.device, self.compute_dtype)
+                metric_acc.append(self.update_step(batch))
+            self.steps += 1
+            batch_cnt += 1
+        return batch_cnt, metric_acc
+
+    def _epoch_loop_device(self):
+        """Device-ring path: draw + gather + update on the device, the
+        host only draining newly arrived episodes into the ring."""
+        replay = self.device_replay
+        cap = self.updates_cap
+        batch_cnt, metric_acc = 0, []
+        state = None
+        while batch_cnt == 0 or not self.update_flag:
+            if self.shutdown_flag:
+                return None
+            with self.timers.section("ingest"):
+                replay.ingest(max_episodes=8)
+            if cap and batch_cnt >= cap:
+                time.sleep(0.01)
+                continue
+            if state is None or replay.state_dirty:
+                state = replay.device_state()
+            with self.timers.section("update"):
+                metric_acc.append(self._replay_step(state))
+            self.steps += 1
+            batch_cnt += 1
+        return batch_cnt, metric_acc
+
+    def train(self):
+        if self.device_replay is not None:
+            result = self._epoch_loop_device()
+        else:
+            result = self._epoch_loop_local()
+        if result is None:
+            return None
+        batch_cnt, metric_acc = result
+
+        # ONE device->host copy for the epoch's per-step metrics
+        keys = sorted(metric_acc[0])
+        host = torch.stack([torch.stack([m[k].float() for k in keys])
+                            for m in metric_acc]).cpu().numpy()
+        metrics = {k: host[:, i] for i, k in enumerate(keys)}
+        data_cnt = float(metrics["dcnt"].sum())
+        loss_sum = {k: float(metrics[k].sum())
+                    for k in ("p", "v", "r", "ent", "total") if k in metrics}
+        print("loss = %s" % " ".join(
+            k + ":" + "%.3f" % (v / data_cnt) for k, v in loss_sum.items()))
+
+        self.data_cnt_ema = (self.data_cnt_ema * 0.8
+                             + data_cnt / (1e-2 + batch_cnt) * 0.2)
+        lr = self.default_lr * self.data_cnt_ema / (1 + self.steps * 1e-5)
+        set_learning_rate(self.optimizer, lr)
+        # the snapshot is a host copy taken on this thread: the next
+        # step updates the live tensors in place
+        snapshot = self.snapshot()
+
+        prof = self.timers.snapshot()
+        record = {k: v / data_cnt for k, v in loss_sum.items()}
+        record.update({f"profile_{k}_sec": v for k, v in prof.items()})
+        record.update(
+            epoch_steps=batch_cnt, lr=lr,
+            grad_norm_mean=float(metrics["grad_norm"].mean()),
+            nonfinite_steps=int(metrics["nonfinite"].sum()),
+            is_clip_frac=round(float(metrics["clip_frac"].mean()), 4))
+        replay = self.device_replay
+        if replay is not None:
+            record.update(replay="device", replay_device=str(replay.device),
+                          replay_episodes=replay.episodes_seen,
+                          replay_size=replay.size,
+                          replay_dropped=replay.dropped,
+                          replay_mib=round(replay.nbytes / 2 ** 20, 3))
+        else:
+            record["replay"] = "host"
+        self.last_metrics = record
+        self.epoch += 1
+        try:
+            os.makedirs(_models_dir(), exist_ok=True)
+            self.save_train_state(self.epoch)
+        except OSError as exc:
+            print(f"WARNING: train state not saved ({exc!r})")
+        return snapshot
+
+    def request_shutdown(self):
+        self.shutdown_flag = True
+
+    def stop_feeds(self):
+        if self.batcher is not None:
+            self.batcher.shutdown()
+
+    def run(self):
+        print("waiting training")
+        try:
+            if self.device_replay is not None:
+                # warm the ring itself: episodes stream in as they
+                # arrive; a ring smaller than minimum_episodes starts
+                # once it is full
+                replay = self.device_replay
+                while replay.size < self.args["minimum_episodes"]:
+                    if self.shutdown_flag:
+                        return
+                    replay.ingest()
+                    if replay.size and replay.size >= replay.capacity:
+                        print(f"device replay ring ({replay.capacity}) is"
+                              f" smaller than minimum_episodes "
+                              f"({self.args['minimum_episodes']}): "
+                              f"starting with a full ring")
+                        break
+                    time.sleep(0.05)
+            else:
+                while len(self.episodes) < self.args["minimum_episodes"]:
+                    if self.shutdown_flag:
+                        return
+                    time.sleep(0.2)
+                self.batcher.run()
+            print("started training")
+            while not self.shutdown_flag:
+                model = self.train()
+                if model is None:
+                    break
+                self.update_flag = False
+                while not self.shutdown_flag:
+                    try:
+                        self.update_queue.put((model, self.steps),
+                                              timeout=0.3)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as exc:
+            # record before dying so Learner.update() cannot wait
+            # forever on a snapshot this thread will never produce
+            import traceback
+
+            traceback.print_exc()
+            self.failure = exc
+
+
+class RunningScore:
+    """Streaming count/mean/std accumulator for outcome streams."""
+
+    __slots__ = ("n", "total", "total_sq")
+
+    def __init__(self):
+        self.n = 0
+        self.total = 0.0
+        self.total_sq = 0.0
+
+    def add(self, x):
+        self.n += 1
+        self.total += x
+        self.total_sq += x * x
+
+    @property
+    def mean(self):
+        return self.total / (self.n + 1e-6)
+
+    @property
+    def std(self):
+        return max(0.0, self.total_sq / (self.n + 1e-6)
+                   - self.mean ** 2) ** 0.5
+
+    @property
+    def win_rate(self):
+        """Outcome in [-1, 1] mapped to a win probability."""
+        return (self.mean + 1) / 2
+
+
+# ---------------------------------------------------------------------
+# the learner
+# ---------------------------------------------------------------------
+
+class Learner:
+    """Central conductor: serves worker requests, feeds the trainer,
+    reports stats, and checkpoints every epoch."""
+
+    def __init__(self, args, net=None, device=DEFAULT_DEVICE):
+        from .config import Config
+
+        self.device = resolve_device(device)
+        cfg = Config.from_dict(args)
+        train_args = cfg.train_args.to_dict()
+        env_args = dict(cfg.env_args)
+        train_args["env"] = env_args
+        self.args = train_args
+        random.seed(self.args["seed"])
+
+        self._run_t0 = time.monotonic()
+        self._epoch_t = self._run_t0
+        self.max_policy_lag = int(self.args.get("max_policy_lag", 0) or 0)
+        self.episodes_rejected_stale = 0
+        self._rejected_epoch = 0
+        self.env = make_env(env_args)
+        self.eval_rate = cfg.train_args.effective_eval_rate
+        self.shutdown_flag = False
+
+        self.manifest = CheckpointManifest(_models_dir())
+        self.checkpoint_checksum = bool(
+            self.args.get("checkpoint_checksum", True))
+        self._resume = resolve_restart(_models_dir(),
+                                       self.args.get("restart_epoch", 0))
+        self.args["restart_epoch"] = self._resume.epoch
+        # the manifest-recorded digest of the train state that pairs
+        # with the resumed params (a runtime key, not config)
+        self.args["_resume_state_digest"] = self._resume.train_state_digest
+        if self.args.get("wal_enabled", True):
+            print("note: the episode WAL is not ported yet; a restart "
+                  "re-generates its replay backlog")
+
+        self.model_epoch = self.args["restart_epoch"]
+        self.model = self._initial_model(net)
+
+        self.generation_stats = {}
+        self.eval_stats = {}
+        self.eval_stats_by_opponent = {}
+        self.eval_stats_by_seat = {}
+        self.jobs_generated = 0
+        self.jobs_evaluated = 0
+        self.episodes_received = 0
+        self.episodes_shm = 0
+        self.episodes_spilled = 0
+        self._shm_epoch = 0
+        self._spilled_epoch = 0
+
+        self.worker = WorkerCluster(self.args)
+        self.trainer = Trainer(self.args, self.model, device=self.device)
+        self.metrics_path = self.args.get("metrics_path") or ""
+
+        # the batched inference service answers every local worker's
+        # forward on the training device and receives their finished
+        # trajectories over shared memory
+        from .pipeline import InferenceService, PipelineConfig
+
+        self.infer_service = None
+        pipeline_cfg = PipelineConfig.from_config(
+            self.args.get("pipeline") or {})
+        if pipeline_cfg.enabled:
+            self.infer_service = InferenceService(
+                self.model, pipeline_cfg, epoch=self.model_epoch,
+                device=self.device)
+            self.infer_service.start()
+
+    def _initial_model(self, net):
+        """The epoch-0 model (seeded init) or the resumed checkpoint's,
+        as a CPU snapshot."""
+        module = net if net is not None else self.env.net()
+        model = TorchModel(module, device="cpu")
+        if self.model_epoch > 0:
+            src = self._resume.model_file or model_path(self.model_epoch)
+            model.load_params(from_flax(read_verified(src)["params"],
+                                        model.module))
+        else:
+            model.init_params(seed=self.args["seed"])
+        return model
+
+    # -- checkpointing ----------------------------------------------
+    def _prune_checkpoints(self):
+        """Keep the newest ``checkpoint_keep_last`` epoch files plus
+        every ``checkpoint_keep_every``-th (0 = keep all)."""
+        keep_last = int(self.args.get("checkpoint_keep_last", 0) or 0)
+        if keep_last <= 0:
+            return
+        keep_every = int(self.args.get("checkpoint_keep_every", 0) or 0)
+        boundary = self.model_epoch - keep_last + 1
+        removed = []
+        for epoch in range(getattr(self, "_pruned_below", 1), boundary):
+            if keep_every > 0 and epoch % keep_every == 0:
+                continue
+            try:
+                os.remove(model_path(epoch))
+            except OSError:
+                pass
+            removed.append(epoch)
+        self._pruned_below = max(getattr(self, "_pruned_below", 1),
+                                 boundary)
+        if removed:
+            self.manifest.forget(removed)
+
+    def update_model(self, model, steps):
+        print("updated model(%d)" % steps)
+        self.model_epoch += 1
+        self.model = model
+        if self.infer_service is not None:
+            # hot-swap the serving snapshot BEFORE jobs labelled with
+            # the new epoch go out
+            self.infer_service.set_model(model, self.model_epoch)
+        os.makedirs(_models_dir(), exist_ok=True)
+        # the JAX package's checkpoint format: both packages read it
+        state = {"params": to_flax(model.module), "steps": steps,
+                 "epoch": self.model_epoch}
+        digest = write_checksummed(model_path(self.model_epoch), state,
+                                   checksum=self.checkpoint_checksum)
+        write_checksummed(latest_model_path(), state,
+                          checksum=self.checkpoint_checksum)
+        # the manifest is the commit point of the epoch
+        self.manifest.commit(
+            self.model_epoch, model_path(self.model_epoch), digest, steps,
+            train_state_digest=self.trainer.last_state_digest)
+        self._prune_checkpoints()
+
+    # -- episode / result intake ------------------------------------
+    def _episode_lag(self, episode):
+        """Policy-version lag: learner epoch now minus the snapshot
+        epoch that generated the episode."""
+        gen = episode.get("gen_model_epoch")
+        if gen is None:
+            job = episode["args"]
+            labels = [job["model_id"][p] for p in job["player"]]
+            gen = max([label for label in labels if label >= 0],
+                      default=self.model_epoch)
+        return max(0, self.model_epoch - gen)
+
+    def feed_episodes(self, episodes):
+        arrived = [e for e in episodes if e is not None]
+        for episode in arrived:
+            if episode.pop("shm_spilled", False):
+                self.episodes_spilled += 1
+                self._spilled_epoch += 1
+        kept = arrived
+        if self.max_policy_lag > 0:
+            # admission control: past-budget episodes are counted and
+            # dropped; they still tick the intake clock below
+            kept = [e for e in arrived
+                    if self._episode_lag(e) <= self.max_policy_lag]
+            self.episodes_rejected_stale += len(arrived) - len(kept)
+            self._rejected_epoch += len(arrived) - len(kept)
+        for episode in kept:
+            job = episode["args"]
+            # trained seats credit the epoch that actually finished the
+            # episode (the pool may swap snapshots mid-flight)
+            final = episode.get("final_model_epoch")
+            for p in job["player"]:
+                label = job["model_id"][p]
+                if final is not None and label >= 0:
+                    label = final
+                self.generation_stats.setdefault(
+                    label, RunningScore()).add(episode["outcome"][p])
+        before = self.episodes_received
+        self.episodes_received += len(arrived)
+        for mark in range(before // 100 + 1,
+                          self.episodes_received // 100 + 1):
+            print(mark * 100, end=" ", flush=True)
+        if self.trainer.device_replay is not None:
+            self.trainer.device_replay.offer(kept)
+        else:
+            self.trainer.episodes.extend(kept)
+
+    def feed_results(self, results):
+        players = self.env.players()
+        for result in results:
+            if result is None:
+                continue
+            job, opponent = result["args"], result["opponent"]
+            for p in job["player"]:
+                model_id = job["model_id"][p]
+                score = result["result"][p]
+                self.eval_stats.setdefault(model_id, RunningScore()
+                                           ).add(score)
+                self.eval_stats_by_opponent.setdefault(model_id, {}) \
+                    .setdefault(opponent, RunningScore()).add(score)
+                self.eval_stats_by_seat.setdefault(model_id, {}) \
+                    .setdefault(players.index(p), RunningScore()).add(score)
+
+    # -- epoch boundary ---------------------------------------------
+    def _report_win_rates(self, record):
+        overall = self.eval_stats.get(self.model_epoch)
+        if overall is None:
+            print("win rate = Nan (0)")
+            return
+
+        def line(tag, score):
+            label = " (%s)" % tag if tag else ""
+            print("win rate%s = %.3f (%.1f / %d)"
+                  % (label, score.win_rate,
+                     (score.total + score.n) / 2, score.n))
+            record["win_rate" + ("_" + tag if tag else "")] = score.win_rate
+
+        by_opp = self.eval_stats_by_opponent.get(self.model_epoch, {})
+        if (len(self.args.get("eval", {}).get("opponent", [])) <= 1
+                and len(by_opp) <= 1):
+            line("", overall)
+        else:
+            line("total", overall)
+            for name in sorted(by_opp):
+                line(name, by_opp[name])
+        record["eval_games"] = overall.n
+        by_seat = self.eval_stats_by_seat.get(self.model_epoch, {})
+        if len(by_seat) > 1:
+            print("win rate by seat = " + " ".join(
+                "%d:%.3f(%d)" % (s, by_seat[s].win_rate, by_seat[s].n)
+                for s in sorted(by_seat)))
+            for s, score in by_seat.items():
+                record[f"win_rate_seat_{s}"] = score.win_rate
+
+    def _report_generation(self, record):
+        stats = self.generation_stats.get(self.model_epoch)
+        if stats is None:
+            print("generation stats = Nan (0)")
+            return
+        print("generation stats = %.3f +- %.3f" % (stats.mean, stats.std))
+        record["generation_mean"] = stats.mean
+        record["generation_std"] = stats.std
+
+    def update(self):
+        print()
+        print("epoch %d" % self.model_epoch)
+        # the epoch field is stamped at epoch START (before
+        # update_model increments it)
+        record = {"epoch": self.model_epoch}
+        now = time.monotonic()
+        record["time_sec"] = round(now - self._run_t0, 3)
+        record["epoch_wall_sec"] = round(now - self._epoch_t, 3)
+        record["episodes_received"] = self.episodes_received
+        record["episodes_rejected_stale"] = self._rejected_epoch
+        self._rejected_epoch = 0
+        self._epoch_t = now
+        self._report_win_rates(record)
+        self._report_generation(record)
+
+        model, steps = self.trainer.update()
+        if model is None:
+            # keep serving the last snapshot, but say so LOUDLY
+            if self.trainer.failure is not None:
+                print("WARNING: trainer thread failed "
+                      f"({self.trainer.failure!r}); serving the last "
+                      "model unchanged")
+            model = self.model
+        self.update_model(model, steps)
+        record["steps"] = steps
+        record.update(self.trainer.last_metrics)
+        if self.infer_service is not None:
+            record.update(self.infer_service.epoch_stats())
+            record["infer_param_loads"] = self.infer_service.param_loads
+            record["episodes_shm"] = self._shm_epoch
+            record["episodes_spilled"] = self._spilled_epoch
+            self._shm_epoch = self._spilled_epoch = 0
+        if self.metrics_path:
+            with open(self.metrics_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    # -- control plane ----------------------------------------------
+    def _on_args(self, requests):
+        if self.shutdown_flag:
+            return [None for _ in requests]
+        return [self._assign_job() for _ in requests]
+
+    def _on_episode(self, episodes):
+        self.feed_episodes(episodes)
+        return [None for _ in episodes]
+
+    def _on_result(self, results):
+        self.feed_results(results)
+        return [None for _ in results]
+
+    def _on_model(self, model_ids):
+        return [self._serve_model(mid) for mid in model_ids]
+
+    def _on_shm(self, specs):
+        """The shm handshake: rings + a client slot per asking worker;
+        None refuses (pipeline off, or shutting down) and the worker
+        keeps local inference."""
+        replies = []
+        for spec in specs:
+            if (self.infer_service is None or self.shutdown_flag
+                    or not isinstance(spec, dict)):
+                replies.append(None)
+                continue
+            try:
+                replies.append(self.infer_service.attach(spec))
+            except (OSError, ValueError, KeyError) as exc:
+                print(f"WARNING: shm attach failed ({exc!r}); "
+                      "the peer keeps local inference")
+                replies.append(None)
+        return replies
+
+    def _pipeline_tick(self):
+        """Drain the shm trajectory rings into episode intake; a dead
+        service is fatal here (the port has no respawn supervisor)."""
+        svc = self.infer_service
+        if svc is None:
+            return
+        episodes = svc.drain_trajectories(max_episodes=512)
+        if episodes:
+            self.episodes_shm += len(episodes)
+            self._shm_epoch += len(episodes)
+            self.feed_episodes(episodes)
+        if svc.failure is not None:
+            raise RuntimeError(
+                f"the inference service died: {svc.failure!r}")
+
+    def server(self):
+        print("started server")
+        handlers = {
+            "args": self._on_args,
+            "episode": self._on_episode,
+            "result": self._on_result,
+            "model": self._on_model,
+            "shm": self._on_shm,
+        }
+        next_epoch_at = (self.args["minimum_episodes"]
+                         + self.args["update_episodes"])
+        while self.worker.connection_count() > 0 or not self.shutdown_flag:
+            try:
+                conn, (verb, payload) = self.worker.recv(timeout=0.3)
+            except queue.Empty:
+                conn = None  # epoch checks below still run on idle
+            self._pipeline_tick()
+            if conn is not None:
+                batched = isinstance(payload, list)
+                handler = handlers.get(verb)
+                if handler is None:
+                    print(f"WARNING: unknown control-plane verb {verb!r}")
+                    self.worker.send(conn, [] if batched else None)
+                    continue
+                replies = handler(payload if batched else [payload])
+                self.worker.send(conn, replies if batched else replies[0])
+            # episodes drained after shutdown still land in the buffer
+            # but start no extra epoch
+            if (self.episodes_received >= next_epoch_at
+                    and not self.shutdown_flag):
+                next_epoch_at += self.args["update_episodes"]
+                self.update()
+                if 0 <= self.args["epochs"] <= self.model_epoch:
+                    self.shutdown_flag = True
+        print("finished server")
+
+    def _assign_job(self):
+        """Split worker jobs between generation and evaluation so that
+        evaluation keeps pace at ``eval_rate`` of the episode stream."""
+        players = self.env.players()
+        if self.jobs_evaluated < self.eval_rate * self.jobs_generated:
+            trained = [players[self.jobs_evaluated % len(players)]]
+            self.jobs_evaluated += 1
+            role = "e"
+        else:
+            trained = list(players)
+            self.jobs_generated += 1
+            role = "g"
+        model_id = {p: self.model_epoch if p in trained else -1
+                    for p in players}
+        return {"role": role, "player": trained, "model_id": model_id}
+
+    def _serve_model(self, model_id):
+        model = self.model
+        if model_id != self.model_epoch and model_id > 0:
+            try:
+                params = read_verified(model_path(model_id))["params"]
+                model = TorchModel(build_module(self.model.spec, "cpu"),
+                                   device="cpu")
+                model.load_params(from_flax(params, model.module))
+            except (OSError, CorruptCheckpointError):
+                pass  # missing/corrupt snapshot: serve the latest model
+        return pickle.dumps(model)
+
+    def run(self):
+        trainer_thread = threading.Thread(target=self.trainer.run,
+                                          daemon=True)
+        trainer_thread.start()
+        self.worker.run()
+        try:
+            self.server()
+        finally:
+            # stop device work before interpreter teardown
+            self.trainer.request_shutdown()
+            trainer_thread.join(timeout=30)
+            self.trainer.stop_feeds()
+            self.worker.shutdown()
+            if self.infer_service is not None:
+                print("inference service stats = "
+                      + json.dumps(self.infer_service.stats(),
+                                   sort_keys=True), flush=True)
+                # workers are gone: unmap and unlink every ring
+                self.infer_service.close()
+
+
+def train_main(args, device=DEFAULT_DEVICE):
+    """``--train``: one local learner with its worker fleet."""
+    resolve_device(device)  # fail before any work when the card is absent
+    prepare_env(args["env_args"])
+    Learner(args=args, device=device).run()

@@ -12,7 +12,9 @@ module maps that tree onto the port's modules, name by name:
   * GroupNorm ``scale``/``bias`` become ``weight``/``bias``, and a conv
     bias stays a vector.
 
-Any missing, left-over or mis-shaped key raises: a silently skipped
+:func:`to_flax` maps back, so the port's checkpoints are the JAX
+package's format and both packages read them.  Any missing, left-over
+or mis-shaped key raises: a silently skipped
 tensor would leave torch's random init in the net and every output
 wrong.  :func:`random_flax_params` builds a seeded tree of exactly the
 Flax layout with numpy alone, for runs that have no JAX.
@@ -111,6 +113,36 @@ def from_flax(params, module):
         raise KeyError(f"torch params left unset: "
                        f"{sorted(set(target) - set(state))}")
     return state
+
+
+def _to_flax_array(tensor, kind):
+    a = (tensor.detach().to("cpu", torch.float32, copy=True).numpy()
+         if torch.is_tensor(tensor) else np.array(tensor, np.float32))
+    if kind == CONV:
+        a = a.transpose(2, 3, 1, 0)
+    elif kind == DENSE:
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
+def state_to_flax(state, module):
+    """A Flax-layout numpy tree from a ``{torch_name: tensor}`` mapping
+    laid out like ``module``'s parameters (a ``state_dict``, or the
+    gradients by parameter name).  Always a copy: the arrays never
+    share memory with the tensors they came from."""
+    layout = flax_layout(module)
+    missing = sorted({name for _, name, _ in layout} - set(state))
+    if missing:
+        raise KeyError(f"state lacks {missing} of {type(module).__name__}")
+    return unflatten_params({path: _to_flax_array(state[name], kind)
+                             for path, name, kind in layout})
+
+
+def to_flax(module):
+    """The inverse of :func:`from_flax`: ``module``'s parameters as the
+    JAX package's Flax-named numpy tree, the format of its checkpoints
+    (``{"params": tree, ...}``)."""
+    return state_to_flax(module.state_dict(), module)
 
 
 def random_flax_params(module, seed=0):

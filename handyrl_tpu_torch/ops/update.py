@@ -1,0 +1,146 @@
+"""The training step: forward, backward, clip, Adam.
+
+The counterpart of ``handyrl_tpu.ops.update``.  The JAX package
+compiles ``update_step(params, opt_state, batch)`` into one XLA program
+and donates its state; here the step is an eager PyTorch sequence that
+updates the module's parameters and the optimizer state in place:
+
+  loss + ``backward()`` -> global-norm clip 4.0 -> L2 1e-5 added to the
+  clipped gradient -> Adam (b1 0.9, b2 0.999, eps 1e-8 outside the
+  sqrt) -> scaled by the learning rate.
+
+That is the optax chain ``clip_by_global_norm(4.0) ->
+add_decayed_weights(1e-5) -> scale_by_adam() -> scale_by_learning_rate``
+term for term: ``torch.optim.Adam(weight_decay=...)`` adds the L2 term
+to the (already clipped) gradient before its moments, and its
+``lr * m_hat / (sqrt(v_hat) + eps)`` is optax's.  The clip is written
+out rather than ``clip_grad_norm_``, which divides by ``norm + 1e-6``;
+optax scales by ``4.0 / norm`` only where ``norm >= 4.0``.  The norm is
+computed on the device and never read back, so a step does no
+host-device synchronisation.
+
+The learning rate is ``3e-8 * data_count_ema / (1 + steps * 1e-5)``,
+set on the optimizer's ``param_groups`` between epochs.
+"""
+
+import torch
+
+from .losses import LossConfig, compute_loss
+
+DEFAULT_LR = 3e-8
+GRAD_CLIP_NORM = 4.0
+WEIGHT_DECAY = 1e-5
+
+
+def make_optimizer(params, learning_rate):
+    """Adam with the optax chain's L2 term and epsilon.  On the card
+    the fused implementation updates every tensor in one launch."""
+    params = list(params)
+    fused = bool(params) and params[0].device.type == "cuda"
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=WEIGHT_DECAY,
+                            fused=fused or None)
+
+
+def set_learning_rate(optimizer, lr):
+    """Anneal the learning rate between epochs."""
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+def make_apply_fn(module, compute_dtype="float32"):
+    """The net's forward for the update step: ``obs -> outputs``.
+
+    With ``compute_dtype: bfloat16`` only the forward runs in low
+    precision: it runs under ``torch.autocast`` (convolutions and
+    matmuls in bf16; autocast keeps GroupNorm, softmax and reductions
+    in float32), the parameters stay float32, and every output comes
+    back as float32, so the loss math and the Adam state keep full
+    precision."""
+    low = str(compute_dtype) == "bfloat16"
+    if not low and str(compute_dtype) != "float32":
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+
+    def apply_fn(obs):
+        if low:
+            with torch.autocast(obs.device.type, dtype=torch.bfloat16):
+                out = module(obs.to(torch.bfloat16))
+        else:
+            out = module(obs.float())
+        return {k: v.float() for k, v in out.items() if v is not None}
+
+    return apply_fn
+
+
+@torch.no_grad()
+def refresh_target(module, target_module, count, cfg: LossConfig):
+    """Refresh the IMPACT target network in place after optimizer step
+    ``count`` (1-based): Polyak averaging when ``target_update_tau > 0``,
+    else a hard copy every ``target_update_interval`` steps; with
+    neither the target stays frozen."""
+    params = list(module.parameters())
+    target = list(target_module.parameters())
+    if cfg.target_update_tau > 0.0:
+        torch._foreach_add_(target, torch._foreach_sub(params, target),
+                            alpha=cfg.target_update_tau)
+    elif (cfg.target_update_interval > 0
+            and count % cfg.target_update_interval == 0):
+        torch._foreach_copy_(target, params)
+
+
+class UpdateStep:
+    """One optimizer step on a batch: ``step(batch) -> metrics``.
+
+    ``metrics`` holds 0-dim device tensors (the loss components,
+    ``dcnt``, ``clip_frac``, ``grad_norm`` before the clip, and
+    ``nonfinite``: 1.0 when the loss or the gradient norm is NaN/Inf).
+    As in the JAX step, a nonfinite step is not skipped.  Under
+    ``update_algorithm: impact`` the target module refreshes in place
+    after each step; ``count`` is the optimizer step count it keys on
+    (the trainer restores it on resume)."""
+
+    def __init__(self, module, cfg: LossConfig, optimizer,
+                 compute_dtype="float32", target_module=None):
+        self.module = module
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.params = [p for p in module.parameters() if p.requires_grad]
+        self.apply_fn = make_apply_fn(module, compute_dtype)
+        self.target_module = target_module
+        self.target_apply_fn = (
+            None if target_module is None
+            else make_apply_fn(target_module, compute_dtype))
+        self.count = 0
+
+    def loss_and_grads(self, batch):
+        """Forward + backward; the gradients land in ``param.grad``."""
+        self.optimizer.zero_grad(set_to_none=True)
+        losses, dcnt = compute_loss(self.apply_fn, batch, None, self.cfg,
+                                    target_apply_fn=self.target_apply_fn)
+        losses["total"].backward()
+        return losses, dcnt
+
+    def apply_grads(self):
+        """Clip the gradients in ``param.grad``, step Adam, refresh the
+        target network; returns the gradient norm before the clip."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        gnorm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(gnorm < GRAD_CLIP_NORM,
+                            torch.ones_like(gnorm), GRAD_CLIP_NORM / gnorm)
+        torch._foreach_mul_(grads, scale)
+        self.optimizer.step()
+        self.count += 1
+        if self.target_module is not None:
+            refresh_target(self.module, self.target_module, self.count,
+                           self.cfg)
+        return gnorm
+
+    def __call__(self, batch):
+        losses, dcnt = self.loss_and_grads(batch)
+        gnorm = self.apply_grads()
+        finite = torch.isfinite(losses["total"]) & torch.isfinite(gnorm)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics.update(dcnt=dcnt.detach(), grad_norm=gnorm.detach(),
+                       nonfinite=1.0 - finite.float())
+        return metrics

@@ -14,5 +14,6 @@ from .service import InferenceService  # noqa: F401
 from .client import (  # noqa: F401
     PipelineClient,
     ServedModel,
+    attach_pipeline,
     build_obs_spec,
 )

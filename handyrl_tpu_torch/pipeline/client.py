@@ -15,9 +15,9 @@ row the local model answers, for whatever reason, in ``local_rows``,
 so a run can show that the service did the work.
 
 Recurrent models are never wrapped: their hidden state lives on the
-worker.  The handshake over the learner's control plane
-(``attach_pipeline``) and the chaos-driven surge brownout come with
-the learner.
+worker.  A training worker finds the service with
+:func:`attach_pipeline`, a handshake over the learner's control plane.
+The chaos-driven surge brownout comes with the resilience item.
 """
 
 import time
@@ -41,6 +41,35 @@ def build_obs_spec(env, rows_max):
         "example": obs,
         "rows_max": int(rows_max),
     }
+
+
+def attach_pipeline(conn, env, args):
+    """The shm handshake over the control plane (verb ``"shm"``,
+    forwarded by the gather): send this worker's observation schema;
+    the learner's inference service allocates the rings and replies
+    with an attach descriptor.  Returns a :class:`PipelineClient`, or
+    None — pipeline off, the learner refused (shutting down), or the
+    rings could not be mapped — and the worker keeps local inference."""
+    from ..connection import send_recv
+    from .config import PipelineConfig
+
+    cfg = PipelineConfig.from_config(args.get("pipeline") or {})
+    if not cfg.enabled:
+        return None
+    lockstep = int(args.get("lockstep_episodes", 1) or 1)
+    rows_max = max(1, lockstep) * len(env.players())
+    try:
+        desc = send_recv(conn, ("shm", build_obs_spec(env, rows_max)))
+    except (ConnectionError, EOFError, OSError):
+        return None
+    if not desc:
+        return None
+    try:
+        return PipelineClient(desc, cfg)
+    except (FileNotFoundError, OSError, ValueError) as exc:
+        print(f"pipeline attach failed ({exc!r}); "
+              "falling back to local inference")
+        return None
 
 
 class PipelineClient:

@@ -341,7 +341,9 @@ class InferenceService:
         if pending is None:
             return
         self._model, self._epoch = pending
-        self._fwd_loaded = None  # copy the new params at next dispatch
+        # copy the new params onto the device now, between batches:
+        # the first request after a swap does not wait for the copy
+        self._ensure_forward(self._model)
 
     def _ensure_forward(self, model):
         """The service-owned device module holding ``model``'s params:

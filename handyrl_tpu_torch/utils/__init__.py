@@ -1,5 +1,6 @@
 from .tree import (  # noqa: F401
     softmax_np,
+    stack_time_player,
     tree_flatten,
     tree_leaves,
     tree_map,

@@ -39,6 +39,16 @@ def tree_stack(trees, axis=0):
     return np.stack([np.asarray(t) for t in trees], axis=axis)
 
 
+def stack_time_player(moment_rows, template):
+    """Build ``(T, P, ...)`` leaf arrays from a ``[T][P]`` nested list of
+    observation trees, zero-filling ``None`` entries from ``template``."""
+    def fill(entry):
+        return template if entry is None else entry
+
+    return tree_stack(
+        [tree_stack([fill(p) for p in row]) for row in moment_rows])
+
+
 # -- jax.tree_util-compatible flattening ---------------------------------
 #
 # A treedef is a hashable nested tuple, so two structures compare with

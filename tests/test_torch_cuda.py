@@ -98,3 +98,106 @@ def test_card_service_answers_like_the_local_forward(cuda_device):
     finally:
         svc.close()
         client.close()
+
+
+RING = {"turn_based_training": False, "observation": False,
+        "forward_steps": 8, "burn_in_steps": 0,
+        "transfer_dtype": "bfloat16", "compute_dtype": "float32"}
+LOSS = {"turn_based_training": False, "observation": False,
+        "burn_in_steps": 0, "lambda": 0.7, "gamma": 0.8,
+        "policy_target": "TD", "value_target": "TD",
+        "entropy_regularization": 0.1,
+        "entropy_regularization_decay": 0.1}
+
+
+def test_card_ring_and_update_steps_match_cpu(cuda_device):
+    """The replay ring gathers the same batch on the card as on the CPU
+    (exactly), and two float32 update steps with TF32 off give the same
+    losses (1e-4 relative) and parameters (0.05 x lr per step, where the
+    gradient exceeds 1e-6)."""
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+    from handyrl_tpu_torch.staging import DeviceReplay
+    from torchfix import make_episodes
+
+    episodes, _ = make_episodes("HungryGeese", 4, seed=3)
+    rings = {}
+    for dev in (cuda_device, "cpu"):
+        rings[dev] = DeviceReplay(RING, 8, 1 << 30, dev)
+        rings[dev].offer(episodes)
+        rings[dev].ingest()
+    rng = np.random.default_rng(0)
+    idx = [torch.from_numpy(a) for a in (
+        rng.integers(0, 4, 16), rng.integers(0, 20, 16),
+        rng.integers(0, 4, 16))]
+    batches = {dev: rings[dev].gather(*[a.to(dev) for a in idx])
+               for dev in rings}
+    for key, value in batches[cuda_device].items():
+        assert torch.equal(value.cpu(), batches["cpu"][key]), key
+
+    lr = 1e-3
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = random_flax_params(GeeseNet(), seed=4)
+        steps = {}
+        for dev in rings:
+            net = TorchModel.from_flax(GeeseNet(), params, device=dev).module
+            steps[dev] = UpdateStep(net, LossConfig.from_config(LOSS),
+                                    make_optimizer(net.parameters(), lr))
+        for _ in range(2):
+            before = {d: [p.detach().cpu().clone()
+                          for p in steps[d].module.parameters()]
+                      for d in steps}
+            metrics = {d: steps[d](batches[d]) for d in steps}
+            for key in ("p", "v", "ent", "total"):
+                ref = float(metrics["cpu"][key])
+                assert abs(float(metrics[cuda_device][key]) - ref) \
+                    <= 1e-4 * max(abs(ref), 1.0), key
+            for pc, ph, bc, bh in zip(steps[cuda_device].module.parameters(),
+                                      steps["cpu"].module.parameters(),
+                                      before[cuda_device], before["cpu"]):
+                moved = ph.grad.abs() > 1e-6
+                err = ((pc.detach().cpu() - bc) - (ph.detach() - bh)).abs()
+                if moved.any():
+                    assert float(err[moved].max()) <= 0.05 * lr
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def test_fused_replay_step_never_syncs_the_host(cuda_device):
+    """Steady-state fused steps (device draw, gather, bf16 update) make
+    no synchronizing CUDA call — no ``.item()``, no device-to-host read,
+    no blocking upload: torch's sync debug mode raises on one."""
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+    from handyrl_tpu_torch.staging import (
+        DeviceReplay,
+        make_replay_update_step,
+    )
+    from torchfix import make_episodes
+
+    episodes, _ = make_episodes("HungryGeese", 4, seed=5)
+    ring = DeviceReplay(dict(RING, compute_dtype="bfloat16"), 8, 1 << 30,
+                        cuda_device)
+    ring.offer(episodes)
+    ring.ingest()
+    net = TorchModel.from_flax(GeeseNet(), random_flax_params(GeeseNet()),
+                               device=cuda_device).module
+    update = UpdateStep(net, LossConfig.from_config(LOSS),
+                        make_optimizer(net.parameters(), 1e-4), "bfloat16")
+    step = make_replay_update_step(ring, update, batch_size=16, seed=0)
+    state = ring.device_state()
+    step(state)  # first call: library setup may synchronize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = [step(state) for _ in range(3)]
+        with pytest.raises(RuntimeError):  # the mode is armed: a read
+            float(metrics[-1]["total"])    # back to the host raises
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(float(m["nonfinite"]) == 0 for m in metrics)

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no Flax, nothing of ``handyrl_tpu``.
 
 A fresh interpreter imports the port, serves one batch on the CPU
-through the inference service, and plays one ``--eval`` game through
-the CLI; afterwards no ``jax*``/``flax*``/``optax*`` or
+through the inference service, plays one ``--eval`` game through the
+CLI, and imports every module of the training slice and trains three
+steps from the replay ring; afterwards no ``jax*``/``flax*``/``optax*`` or
 ``handyrl_tpu.*`` module may be loaded.  An AST scan of the package
 finds no such import anywhere, lazy ones included.  And the card is
 never replaced by the CPU behind the caller's back.
@@ -64,6 +65,32 @@ CHILD = textwrap.dedent("""
         f.write("env_args:\\n    env: HungryGeese\\n")
     assert main(["--eval", "m.ckpt", "1", "1", "--device", "cpu"]) == 0
 
+    # the training slice: every module it added, and three ring steps
+    import handyrl_tpu_torch.batch, handyrl_tpu_torch.config
+    import handyrl_tpu_torch.connection, handyrl_tpu_torch.learner
+    import handyrl_tpu_torch.ops.losses, handyrl_tpu_torch.ops.targets
+    import handyrl_tpu_torch.ops.update, handyrl_tpu_torch.staging
+    import handyrl_tpu_torch.worker
+    from handyrl_tpu_torch.generation import Generator
+
+    args = handyrl_tpu_torch.config.Config.from_dict(
+        {"env_args": {"env": "HungryGeese"},
+         "train_args": {"turn_based_training": False, "batch_size": 4,
+                        "forward_steps": 4, "maximum_episodes": 8}}
+    ).train_args.to_dict()
+    gen = Generator(env, {"observation": False, "gamma": 0.8,
+                          "compress_steps": 4})
+    job = {"player": env.players(),
+           "model_id": {p: 1 for p in env.players()}}
+    trainer = handyrl_tpu_torch.learner.Trainer(args, model, device="cpu")
+    episodes = [gen.generate({p: model for p in env.players()}, job)
+                for _ in range(2)]
+    trainer.device_replay.offer(episodes)
+    trainer.device_replay.ingest()
+    state = trainer.device_replay.device_state()
+    metrics = [trainer._replay_step(state) for _ in range(3)]
+    assert all(float(m["nonfinite"]) == 0 for m in metrics)
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -113,13 +140,15 @@ def test_asking_for_the_card_without_one_raises():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--eval", "none.ckpt", "1", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--train"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
 
 
 def test_cli_refuses_modes_that_are_not_ported(capsys):
-    assert cli_main(["--train"]) == 2
+    assert cli_main(["--train-server"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli_main(["--bogus"]) == 1
     assert cli_main([]) == 1
