@@ -29,7 +29,18 @@ from a seed:
   7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml cut to 3 epochs, the port's ``--eval`` of
                  ``models/3.ckpt``, and a restart from epoch 3 that
-                 restores the optimizer and trains a fourth epoch.
+                 restores the optimizer, replays the episode WAL into
+                 the ring on the card and trains a fourth epoch;
+  8. resilience — (a) ``--train`` with chaos (a gather kill, the
+                 inference service killed at epoch 1): both respawn;
+                 SIGTERM after two epochs lands an emergency checkpoint,
+                 a ``restart_epoch: auto`` relaunch resumes it through
+                 the WAL and trains epoch 3, ``--eval`` reads it back;
+                 (b) ``--train-server`` under ``supervise_learner`` with
+                 ``chaos.learner_kill_epoch: 2`` and ``--worker 6`` in a
+                 second process: the guard relaunches the SIGKILLed
+                 learner, the worker machine re-enters its session, and
+                 training reaches epoch 3; no worker initializes CUDA.
 
 Every phase prints one ``phaseN {json}`` line and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
@@ -819,8 +830,15 @@ def run_training(cmd, cwd, config, timeout=420):
         yaml.safe_dump(config, f)
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
-                          text=True, timeout=timeout)
+    # a session of its own, swept afterwards: no worker outlives a run
+    child = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             start_new_session=True)
+    try:
+        out, err = child.communicate(timeout=timeout)
+    finally:
+        _stop(child)
+    proc = subprocess.CompletedProcess(cmd, child.returncode, out, err)
     wall = time.perf_counter() - t0
     records = []
     path = os.path.join(cwd, "metrics.jsonl")
@@ -833,10 +851,12 @@ def run_training(cmd, cwd, config, timeout=420):
 def epoch_rows(records, steps=0):
     """Per-epoch rows of a metrics.jsonl; ``steps`` and the episode
     count are cumulative in the records (from ``steps`` and 0 at the
-    run's start)."""
+    run's start, the count from 0 again in a relaunched learner)."""
     rows, received = [], 0
     for r in records:
         new = r.get("episodes_received", received) - received
+        if new < 0:  # a relaunched learner counts from 0 again
+            new = r["episodes_received"]
         received = r.get("episodes_received", received)
         rows.append({
             "epoch": r["epoch"], "win_rate": r.get("win_rate"),
@@ -923,19 +943,291 @@ def _train_entry(cwd):
     if not any("win rate" in line for line in out["eval_3"]):
         raise AssertionError("--eval of models/3.ckpt printed no result")
 
-    # restart from epoch 3: the optimizer state resumes, one more epoch
+    # restart from epoch 3: the optimizer state resumes, the WAL refills
+    # the ring on the card, one more epoch
     steps = records[-1]["steps"]
     proc2, records2, wall2 = run_training(
         train, cwd, train_config(dict(TRAIN_CUTS, epochs=4,
                                       restart_epoch=3)))
     _check_run(proc2, "train_restart")
     out["restart"] = {"wall_s": wall2, "epochs": epoch_rows(
-        records2[len(records):], steps=steps)}
+        records2[len(records):], steps=steps),
+        "wal": wal_replay(proc2.stdout),
+        "first_step_s": records2[-1].get("first_step_sec"),
+        "training_started_s": records2[-1].get("training_started_sec"),
+        "startup_s": startup(records2[len(records):])}
     if f"restored optimizer state at step {steps}" not in proc2.stdout:
         raise AssertionError("the restart did not restore the optimizer")
+    if not out["restart"]["wal"]["replayed"]:
+        raise AssertionError("the restart replayed no WAL episode")
     if records2[-1]["epoch"] != 3 or not os.path.exists(
             os.path.join(cwd, "models", "4.ckpt")):
         raise AssertionError("the restart trained no further epoch")
+    return out
+
+
+def startup(records):
+    """The first record's ``startup_<stage>_sec`` keys: host seconds of
+    the learner's start-up stages (resume, CUDA context, trainer build,
+    WAL replay, service start)."""
+    return {k[len("startup_"):-len("_sec")]: v
+            for k, v in (records[0] if records else {}).items()
+            if k.startswith("startup_")}
+
+
+def wal_replay(stdout):
+    """The learner's ``wal: replayed N of M ... in T s (read R s,
+    ingest I s)`` line: episodes replayed into the ring and the ingest
+    time per episode."""
+    m = re.search(r"wal: replayed (\d+) of (\d+) logged episode\(s\) "
+                  r"into the backlog.* in ([\d.]+) s \(read ([\d.]+) s, "
+                  r"ingest ([\d.]+) s\)", stdout)
+    if m is None:
+        return {"replayed": 0}
+    n = int(m.group(1))
+    return {"replayed": n, "logged": int(m.group(2)),
+            "replay_s": float(m.group(3)), "read_s": float(m.group(4)),
+            "ingest_s": float(m.group(5)),
+            "ingest_ms_per_episode": 1e3 * float(m.group(5)) / max(n, 1)}
+
+
+# ---------------------------------------------------------------------
+# phase 8: the resilience layer — chaos drills, SIGTERM, remote workers
+# ---------------------------------------------------------------------
+
+# 8a: a gather kill at start-up and the service killed at epoch 1; the
+# smoke's SIGTERM lands after two epochs (models/2.ckpt)
+DRILL_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+              "chaos": {"kill_prob": 0.2, "max_kills": 1,
+                        "infer_kill_epoch": 1}}
+# 8b: max_respawns 1 makes the worker machine's gather breaker trip on
+# the first refused re-dial, so the machine re-enters its session
+# through the entry port instead of a lone gather re-dialling
+REMOTE_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+               "supervise_learner": True, "max_respawns": 1,
+               "chaos": {"learner_kill_epoch": 2}}
+WORKER_LINE = re.compile(r"closed worker (\d+): cuda initialized (\w+)")
+
+
+def _popen(cmd, cwd, tag):
+    """``cmd`` in a session of its own (so ``_stop`` reaches every
+    process it starts), stdout and stderr into OUT_DIR."""
+    log = open(os.path.join(OUT_DIR, f"{tag}_stdout.txt"), "w")
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=log,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONPATH=ROOT),
+                            start_new_session=True)
+    return proc, log
+
+
+def _read(log):
+    log.close()
+    with open(log.name) as f:
+        return f.read()
+
+
+def _records(cwd):
+    path = os.path.join(cwd, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        # a line still being written has no newline yet
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def _stop(proc, timeout=60):
+    """SIGTERM to the leader, then SIGKILL to whatever of its session is
+    left: the smoke leaves no process behind."""
+    import signal
+
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _workers(stdout):
+    return [(int(w), c == "True") for w, c in WORKER_LINE.findall(stdout)]
+
+
+def resilience_entry():
+    import shutil
+
+    out = {}
+    for tag, fn in (("drills", _drills), ("remote", _remote)):
+        cwd = tempfile.mkdtemp(prefix=f"resilience_{tag}_")
+        try:
+            out[tag] = fn(cwd)
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+    return out
+
+
+def _drills(cwd):
+    import yaml
+
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(train_config(DRILL_CUTS), f)
+    proc, log = _popen(train, cwd, "drill")
+    t0 = time.perf_counter()
+    try:
+        # two epochs landed, and an epoch closed after the service's
+        # respawn (a burst of queued episodes can close an epoch inside
+        # the respawn backoff)
+        while len(_records(cwd)) < 2 or not _records(cwd)[-1].get(
+                "infer_respawns"):
+            if proc.poll() is not None:
+                raise RuntimeError(f"the drill run exited {proc.returncode}"
+                                   f" before two epochs:\n"
+                                   f"{_read(log)[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                raise TimeoutError("two epochs did not land in 300 s")
+            time.sleep(0.05)
+        t_kill = time.perf_counter()
+        proc.terminate()  # SIGTERM: the preemption notice
+        code = proc.wait(timeout=120)
+        exit_s = time.perf_counter() - t_kill
+    finally:
+        _stop(proc)
+    stdout = _read(log)
+    records = _records(cwd)
+    landed = re.search(r"emergency checkpoint landed \(epoch (\d+), step "
+                       r"(\d+)\)", stdout)
+    save_ms = re.search(r"SIGTERM: emergency save done ([\d.]+) ms",
+                        stdout)
+    with open(os.path.join(cwd, "models", "manifest.json")) as f:
+        latest = json.load(f)["latest"]
+    stats = [json.loads(line.split("=", 1)[1]) for line in
+             stdout.splitlines()
+             if line.startswith("inference service stats =")]
+    out = {"exit_code": code, "sigterm_to_exit_s": exit_s,
+           "emergency_save_ms": float(save_ms.group(1)) if save_ms else None,
+           "emergency": latest,
+           "gather_respawns": stdout.count("supervisor: respawned slot"),
+           "chaos_gather_kills": stdout.count("(chaos kill #"),
+           "service_respawns": stdout.count("inference service respawned"),
+           "service": stats[-1] if stats else None,
+           "epochs": epoch_rows(records),
+           "workers": _workers(stdout)}
+    if code == 0 or landed is None or not latest.get("emergency"):
+        raise AssertionError(f"no emergency checkpoint on SIGTERM: {out}")
+    epoch, step = int(landed.group(1)), int(landed.group(2))
+    if (latest["epoch"], latest["steps"]) != (epoch, step):
+        raise AssertionError(f"manifest latest {latest} is not the "
+                             f"emergency save ({epoch}, {step})")
+    if not out["gather_respawns"] or not out["service_respawns"] or (
+            stats and stats[-1]["respawns"] < 1):
+        raise AssertionError(f"a killed gather or service did not "
+                             f"respawn: {out}")
+    if any(cuda for _, cuda in out["workers"]):
+        raise AssertionError("a CPU worker initialized CUDA")
+
+    # relaunch: resume the emergency point through the WAL, epoch 3
+    cuts = {k: v for k, v in DRILL_CUTS.items() if k != "chaos"}
+    proc2, records2, wall2 = run_training(
+        train, cwd, train_config(dict(cuts, restart_epoch="auto")))
+    _check_run(proc2, "drill_relaunch")
+    out["relaunch"] = {
+        "wall_s": wall2, "wal": wal_replay(proc2.stdout),
+        "first_step_s": records2[-1].get("first_step_sec"),
+        "training_started_s": records2[-1].get("training_started_sec"),
+        "startup_s": startup(records2[len(records):]),
+        "epochs": epoch_rows(records2[len(records):], steps=step)}
+    if f"resume: epoch {epoch} from models/latest.ckpt (emergency" \
+            not in proc2.stdout:
+        raise AssertionError("the relaunch did not resume the emergency "
+                             "checkpoint")
+    if f"restored optimizer state at step {step}" not in proc2.stdout:
+        raise AssertionError("the relaunch did not restore the optimizer "
+                             f"at step {step}")
+    if not out["relaunch"]["wal"]["replayed"]:
+        raise AssertionError("the relaunch replayed no WAL episode")
+    if records2[-1]["epoch"] != 2 or not os.path.exists(
+            os.path.join(cwd, "models", "3.ckpt")):
+        raise AssertionError("the relaunch did not train epoch 3")
+    proc_eval = subprocess.run(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
+         "models/3.ckpt", "40", "2", *CLI_DEVICE], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    _check_run(proc_eval, "drill_eval")
+    out["eval_3"] = [line for line in proc_eval.stdout.splitlines()
+                     if line.startswith("agent ")]
+    if not any("win rate" in line for line in out["eval_3"]):
+        raise AssertionError("--eval of the drill's 3.ckpt printed no "
+                             "result")
+    return out
+
+
+def _remote(cwd):
+    import yaml
+
+    config = train_config(REMOTE_CUTS)
+    config["worker_args"] = {"server_address": "127.0.0.1",
+                             "num_parallel": 6}
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    machine, mlog = _popen(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--worker", "6"], cwd,
+        "remote_worker")
+    try:
+        t0 = time.perf_counter()
+        server, slog = _popen(
+            [sys.executable, "-m", "handyrl_tpu_torch", "--train-server",
+             *CLI_DEVICE], cwd, "remote_server")
+        try:
+            code = server.wait(timeout=480)
+        finally:
+            _stop(server)
+        wall = time.perf_counter() - t0
+    finally:
+        _stop(machine)
+    stdout = _read(slog)
+    if code != 0:
+        raise RuntimeError(f"--train-server exited {code}:\n"
+                           f"{stdout[-3000:]}")
+    worker_out = _read(mlog)
+    records = _records(cwd)
+    out = {"wall_s": wall, "machine_exit": machine.returncode,
+           "epochs": epoch_rows(records),
+           "wal": wal_replay(stdout),
+           "first_step_s": records[-1].get("first_step_sec"),
+           "training_started_s": records[-1].get("training_started_sec"),
+           "startup_s": startup(records[-1:]),
+           "guard_relaunches": stdout.count(
+               "learner guard: learner exited"),
+           "session_reentries": worker_out.count(
+               "gather fleet lost; re-entering the session"),
+           "workers": _workers(worker_out)}
+    for line in ("CHAOS: SIGKILL of the learner at epoch 2",
+                 "learner guard: training finished after 1 relaunch(es)",
+                 "learner guard: cuda initialized False"):
+        if line not in stdout:
+            raise AssertionError(f"--train-server printed no {line!r}")
+    if [r["epoch"] for r in records] != [0, 1, 2] or not os.path.exists(
+            os.path.join(cwd, "models", "3.ckpt")):
+        raise AssertionError(f"remote training did not reach epoch 3: "
+                             f"{records}")
+    if not out["wal"]["replayed"]:
+        raise AssertionError("the relaunched learner replayed no WAL")
+    if out["session_reentries"] < 1:
+        raise AssertionError("the worker machine did not re-enter")
+    if len(out["workers"]) < 12 or any(c for _, c in out["workers"]):
+        raise AssertionError(f"worker reports {out['workers']}: expected "
+                             f"two sessions of 6, none on CUDA")
+    for r in records:
+        if r.get("replay") != "device" or not str(
+                r.get("replay_device")).startswith(DEV):
+            raise AssertionError(f"not the ring path on the card: {r}")
     return out
 
 
@@ -1102,6 +1394,20 @@ def main():
     # 7. --train on the shipped config, then a restart
     report["phase7"] = train_entry()
     emit("phase7", report["phase7"])
+
+    # 8. resilience: chaos drills and SIGTERM, then remote workers
+    report["phase8"] = p8 = resilience_entry()
+    emit("phase8", p8)
+    a, b = p8["drills"], p8["remote"]
+    print(f"resilience: gather respawns {a['gather_respawns']}, service "
+          f"respawns {a['service_respawns']}, emergency save "
+          f"{a['emergency_save_ms']} ms after SIGTERM; WAL replayed "
+          f"{a['relaunch']['wal']['replayed']} episodes at "
+          f"{a['relaunch']['wal']['ingest_ms_per_episode']:.3f} ms each "
+          f"on the card, first step {a['relaunch']['first_step_s']} s "
+          f"after the learner started; remote: {b['guard_relaunches']} "
+          f"guard relaunch, {b['session_reentries']} session re-entry, "
+          f"{len(b['workers'])} worker reports, none on CUDA", flush=True)
 
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel

@@ -9,11 +9,18 @@ quantities the learner reads (``effective_eval_rate``,
 Keys of layers the port does not have yet are parsed and refused with
 a "not ported yet" error when set, never silently ignored: ``mesh``,
 ``distributed`` (multihost), ``anakin``, ``serving``, ``router``,
-``chaos``, ``supervise_learner``, ``generation_opponent`` (league),
-``status_port`` and ``perf``.  The guard and telemetry switches
-(``host_transfer_guard``, ``numerics_guard``, ``telemetry``, ...) and
-the episode WAL keys keep their defaults for schema compatibility and
-have no effect in the port yet (the learner says so for the WAL).
+``generation_opponent`` (league), ``status_port`` and ``perf``; and,
+inside ``chaos``, the shm-plane and serving-replica keys (``shm_*``,
+``serve_kill_epoch``).  The resilience keys take effect as in the JAX
+package: the episode WAL (``wal_enabled``, ``wal_flush_interval``,
+``wal_segment_mb``, ``wal_keep_episodes``), ``preempt_grace_seconds``,
+``heartbeat_interval``/``heartbeat_timeout``, ``max_respawns``,
+``respawn_backoff``, ``max_frame_bytes``, ``supervise_learner`` and
+the rest of ``chaos``.  The guard and telemetry switches
+(``host_transfer_guard``, ``numerics_guard``, ``stall_watchdog``,
+``lock_order_guard``, ``resource_ledger``, ``telemetry``, ...) keep
+their defaults for schema compatibility and have no effect in the
+port yet.
 """
 
 from __future__ import annotations
@@ -32,8 +39,7 @@ UPDATE_ALGORITHMS = ("standard", "impact")
 
 # train_args keys whose layer is not ported: refused when set
 NOT_PORTED = ("mesh", "distributed", "anakin", "serving", "router",
-              "chaos", "supervise_learner", "generation_opponent",
-              "status_port", "perf")
+              "generation_opponent", "status_port", "perf")
 
 
 def _is_set(value):
@@ -223,6 +229,11 @@ class TrainConfig:
         if self.heartbeat_timeout <= self.heartbeat_interval:
             raise ValueError(
                 "heartbeat_timeout must exceed heartbeat_interval")
+        # chaos keys and ranges validate in the dataclass the injector
+        # runs with (which also refuses the unported shm/serving keys)
+        from .resilience.chaos import ChaosConfig
+
+        ChaosConfig.from_config(self.chaos)
         PipelineConfig.from_config(self.pipeline)
         if self.device_replay not in ("auto", "on", "off"):
             raise ValueError(

@@ -1,10 +1,12 @@
 """Control-plane messaging between the learner and its CPU children.
 
-The counterpart of the pipe half of ``handyrl_tpu.connection``: pickle
-messages over ``multiprocessing`` pipes between the learner, its
-gather processes, their workers and the batcher farm.  The socket
-transport (remote workers) comes with the remote-worker item, and the
-port carries no telemetry envelope yet.
+The counterpart of ``handyrl_tpu.connection``: pickle messages between
+the learner, its gather processes, their workers and the batcher farm,
+over ``multiprocessing`` pipes on one machine and over length-framed
+TCP sockets (:class:`FramedConnection`) to remote worker machines.
+The wire format is the JAX package's (4-byte big-endian length +
+pickle payload), so a worker machine of either package frames alike.
+The port carries no telemetry envelope yet.
 
 Child processes are SPAWNED, not forked: a parent that holds a CUDA
 context cannot fork it into a child, so children start from a fresh
@@ -13,12 +15,133 @@ the device their caller names (the CPU for workers, batchers and
 evaluation children).
 """
 
+import io
 import multiprocessing as mp
 import multiprocessing.connection  # noqa: F401  (mp.connection.wait)
+import pickle
 import queue
+import socket
+import struct
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable
+
+CHUNK = 1 << 14  # 16 KiB send granularity
+
+# Ceiling on one control-plane frame: a corrupt 4-byte header must not
+# demand a ~4 GiB allocation before the first payload byte arrives.
+# Configurable per connection (the ``max_frame_bytes`` config key).
+DEFAULT_MAX_FRAME_BYTES = 1 << 30  # 1 GiB
+
+
+class FrameError(ConnectionError):
+    """Corrupt, truncated, or oversized control-plane frame.
+
+    A ``ConnectionError``, so every dead-peer handler treats the peer
+    as gone: a byte stream that can no longer be trusted is dead."""
+
+
+class FramedConnection:
+    """Length-prefixed pickle messaging over a stream socket, with the
+    duck type of an ``mp.Pipe`` connection (``send``/``recv``/
+    ``close``/``fileno``)."""
+
+    def __init__(self, sock: socket.socket,
+                 max_frame_bytes: int = DEFAULT_MAX_FRAME_BYTES):
+        self.sock = sock
+        self.max_frame_bytes = int(max_frame_bytes
+                                   or DEFAULT_MAX_FRAME_BYTES)
+
+    def fileno(self):
+        return self.sock.fileno()
+
+    def close(self):
+        if self.sock is not None:
+            self.sock.close()
+            self.sock = None
+
+    def send(self, data: Any):
+        payload = pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL)
+        buf = memoryview(struct.pack("!I", len(payload)) + payload)
+        while buf:
+            sock = self.sock
+            if sock is None:
+                # closed under us (kill/teardown race): a typed
+                # dead-peer error, not an AttributeError on None
+                raise ConnectionResetError("connection closed")
+            n = sock.send(buf[:CHUNK])
+            buf = buf[n:]
+
+    def _recv_exact(self, n: int, what: str = "frame") -> bytes:
+        chunks = io.BytesIO()
+        remaining = n
+        while remaining:
+            sock = self.sock
+            if sock is None:
+                raise ConnectionResetError("connection closed")
+            data = sock.recv(remaining)
+            if not data:
+                got = n - remaining
+                if got:
+                    # mid-frame close: the stream is corrupt, not
+                    # merely finished
+                    raise FrameError(
+                        f"truncated {what}: peer closed after "
+                        f"{got} of {n} bytes")
+                raise ConnectionResetError("peer closed")
+            chunks.write(data)
+            remaining -= len(data)
+        return chunks.getvalue()
+
+    def recv(self) -> Any:
+        (length,) = struct.unpack("!I", self._recv_exact(4, "header"))
+        if length > self.max_frame_bytes:
+            # validate BEFORE allocating
+            raise FrameError(
+                f"frame length {length} exceeds max_frame_bytes "
+                f"{self.max_frame_bytes} (corrupt header?)")
+        return pickle.loads(self._recv_exact(length, "payload"))
+
+
+# -- TCP helpers --------------------------------------------------------
+
+def find_free_port() -> int:
+    """An OS-assigned free TCP port."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def open_socket_connection(address: str, port: int,
+                           max_frame_bytes=DEFAULT_MAX_FRAME_BYTES):
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.connect((address, port))
+    return FramedConnection(sock, max_frame_bytes=max_frame_bytes)
+
+
+def accept_socket_connections(port: int, timeout=None, backlog=128,
+                              max_frame_bytes=DEFAULT_MAX_FRAME_BYTES):
+    """Generator of connections; yields None on accept timeout so the
+    caller's loop can check for shutdown.  Accepts forever: workers
+    are elastic, and live-connection bookkeeping belongs to the
+    consumer.  The listening socket closes with the generator."""
+    server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        server.bind(("", port))
+        server.listen(backlog)
+        server.settimeout(timeout)
+        while True:
+            try:
+                sock, _ = server.accept()
+                yield FramedConnection(
+                    sock, max_frame_bytes=max_frame_bytes)
+            except socket.timeout:
+                yield None
+    finally:
+        server.close()
+
 
 _mp = mp.get_context("spawn")
 
@@ -112,13 +235,19 @@ class QueueCommunicator:
 
     Receives from every registered connection into ``input_queue`` as
     ``(conn, data)`` pairs; ``output_queue`` drains in a writer thread.
-    Dead peers (reset/EOF) are dropped."""
+    Dead peers (reset/EOF) are dropped and counted: replies dropped
+    because their peer died first (``send_drops``), disconnects, and
+    requests whose verb no handler knows (``unknown_verbs``), which the
+    learner's ``FleetRegistry`` reports per epoch."""
 
     def __init__(self, conns: Iterable = ()):
         self.input_queue = queue.Queue(maxsize=256)
         self.output_queue = queue.Queue(maxsize=256)
         self.conns: Dict[Any, bool] = {}
         self._lock = threading.Lock()
+        self.send_drops = 0
+        self.disconnects = 0
+        self.unknown_verbs: Dict[str, int] = {}
         for conn in conns:
             self.add_connection(conn)
         self.shutdown_flag = False
@@ -135,11 +264,47 @@ class QueueCommunicator:
     def connection_count(self):
         return len(self.conns)
 
+    def live_connections(self):
+        with self._lock:
+            return list(self.conns)
+
     def recv(self, timeout=None):
         return self.input_queue.get(timeout=timeout)
 
     def send(self, conn, send_data):
         self.output_queue.put((conn, send_data))
+
+    def note_unknown_verb(self, verb):
+        """Count a request whose verb no handler knows (version skew or
+        a stray client); logged once per verb name."""
+        verb = str(verb)
+        with self._lock:
+            count = self.unknown_verbs.get(verb, 0)
+            self.unknown_verbs[verb] = count + 1
+        if count == 0:
+            print(f"WARNING: unknown control-plane verb {verb!r} "
+                  f"(version skew or a stray client?); replying empty "
+                  f"— further occurrences counted silently")
+
+    def drop_stats(self) -> Dict[str, int]:
+        """Drop counters, read under their lock as one snapshot."""
+        with self._lock:
+            return {"send_drops": self.send_drops,
+                    "disconnects": self.disconnects,
+                    "unknown_verbs": sum(self.unknown_verbs.values())}
+
+    def fleet_stats(self) -> Dict[str, int]:
+        """Fleet-health contribution to the per-epoch metrics record;
+        supervised subclasses add respawn/alive counts."""
+        return self.drop_stats()
+
+    def begin_drain(self):
+        """Shutdown is coming: child exits are expected from here on.
+        No-op here; supervised subclasses stop respawning."""
+
+    def report_stale(self, conn):
+        """A peer missed its heartbeats.  No-op here; subclasses evict
+        the wedged child or sever its socket."""
 
     def _send_loop(self):
         while not self.shutdown_flag:
@@ -149,11 +314,15 @@ class QueueCommunicator:
                 continue
             with self._lock:
                 live = conn in self.conns
+                if not live:
+                    self.send_drops += 1  # the peer died after asking
             if not live:
-                continue  # the peer died after the request
+                continue
             try:
                 conn.send(send_data)
             except (ConnectionResetError, BrokenPipeError, OSError):
+                with self._lock:
+                    self.send_drops += 1
                 self.disconnect(conn)
 
     def add_connection(self, conn):
@@ -162,7 +331,8 @@ class QueueCommunicator:
 
     def disconnect(self, conn):
         with self._lock:
-            self.conns.pop(conn, None)
+            if self.conns.pop(conn, None) is not None:
+                self.disconnects += 1
         try:
             conn.close()
         except OSError:

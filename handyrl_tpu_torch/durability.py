@@ -6,8 +6,11 @@ footer after the payload, ``#hrlck:<hexdigest>``.  ``pickle.load``
 reads exactly one stream and ignores the footer, so footer-less legacy
 files load too.  :class:`CheckpointManifest` indexes the landed
 checkpoints and :func:`resolve_restart` turns ``restart_epoch`` (an
-epoch or ``"auto"``) into a verified resume point.  The episode WAL
-comes with the resilience item.
+epoch or ``"auto"``) into a verified resume point.  :class:`EpisodeWAL`
+logs admitted episodes so a restarted learner replays its backlog
+into the replay ring instead of re-generating it; its segments are the
+JAX package's byte for byte, so either package replays the other's
+``models/wal/``.
 
 Reading a checkpoint never imports JAX.  The JAX learner's snapshots
 hold numpy leaves in plain dicts, but a params tree pickled straight
@@ -18,14 +21,23 @@ to numpy arrays and plain dicts.
 """
 
 import hashlib
+import io
 import json
 import os
 import pickle
+import struct
 import time
+import zlib
 
 CKPT_MAGIC = b"#hrlck:"
 MANIFEST_NAME = "manifest.json"
 _FOOTER_LEN = len(CKPT_MAGIC) + 64  # magic + sha256 hexdigest
+
+# WAL record framing: payload length, crc32 of the payload, and a
+# monotonically increasing per-WAL sequence number (the dedup key that
+# makes double replay of a sealed segment idempotent)
+_WAL_REC = struct.Struct("!IIQ")
+_WAL_SUFFIX = ".wal"
 
 
 class CorruptCheckpointError(Exception):
@@ -345,3 +357,259 @@ def resolve_restart(models_dir, requested, latest_name="latest.ckpt"):
     raise CorruptCheckpointError(
         f"restart_epoch {epoch}: no valid checkpoint at {path} and "
         "no valid manifest entry to fall back to")
+
+
+class EpisodeWAL:
+    """Segmented, checksummed write-ahead log of admitted episodes.
+
+    Appends happen on the learner's server thread at intake, BEFORE
+    the episode enters the replay ring (write-ahead).  Each record is
+    framed ``(len, crc32, seq)`` and written with ONE ``write()`` call
+    so a signal handler (or a preemption) can interleave only at
+    record boundaries; fsync happens on the ``flush_interval`` cadence
+    (0 = every append).  ``roll()`` cuts the active segment when a
+    checkpoint lands, and ``retire(keep_episodes)`` drops the oldest
+    sealed segments once the newer ones alone cover the replay
+    buffer's capacity.
+
+    Replay (:meth:`replay`) verifies every record's crc: a torn or
+    corrupt record ends THAT segment's replay with a notice (the tail
+    after a bad record is untrusted) and continues with the next
+    segment.  The per-record ``seq`` makes replay idempotent: pass one
+    ``seen`` set across calls and each episode is yielded once."""
+
+    def __init__(self, wal_dir, segment_bytes=8 << 20,
+                 flush_interval=1.0, clock=time.monotonic):
+        self.dir = wal_dir
+        self.segment_bytes = max(1, int(segment_bytes))
+        self.flush_interval = max(0.0, float(flush_interval))
+        self.clock = clock
+        self._f = None
+        self._f_path = None
+        self._f_bytes = 0
+        self._f_count = 0
+        self._dirty = False
+        self._last_flush = 0.0
+        self.appended = 0          # cumulative for this process
+        self.flushes = 0
+        self._seg_counts = {}      # sealed segment -> episode count
+        self.seq = 0
+        self._scan_existing()
+
+    # -- bookkeeping --------------------------------------------------
+    def _scan_existing(self):
+        """Recover the sequence counter and per-segment episode counts
+        from a previous incarnation's segments: frames and crcs only,
+        no unpickling (the replay pass deserializes every record
+        anyway)."""
+        for path in self.segments():
+            count = 0
+            for seq, _ in _iter_records(path, notice=False,
+                                        payloads=False):
+                self.seq = max(self.seq, seq)
+                count += 1
+            self._seg_counts[path] = count
+
+    def segments(self):
+        """Segment paths, oldest first (index-ordered filenames)."""
+        try:
+            names = [n for n in os.listdir(self.dir)
+                     if n.endswith(_WAL_SUFFIX)]
+        except OSError:
+            return []
+        return [os.path.join(self.dir, n)
+                for n in sorted(names, key=_seg_index)]
+
+    def episode_count(self):
+        return sum(self._seg_counts.values()) + self._f_count
+
+    # -- append path --------------------------------------------------
+    def _open_segment(self):
+        os.makedirs(self.dir, exist_ok=True)
+        segs = self.segments()
+        index = _seg_index(os.path.basename(segs[-1])) + 1 if segs else 0
+        self._f_path = os.path.join(
+            self.dir, f"seg-{index:06d}{_WAL_SUFFIX}")
+        self._f = open(self._f_path, "ab")
+        self._f_bytes = 0
+        self._f_count = 0
+
+    def append(self, episode):
+        """Log one admitted episode; returns its sequence number."""
+        if self._f is None:
+            self._open_segment()
+        self.seq += 1
+        payload = pickle.dumps(episode, protocol=pickle.HIGHEST_PROTOCOL)
+        record = _WAL_REC.pack(
+            len(payload), zlib.crc32(payload), self.seq) + payload
+        self._f.write(record)  # ONE write: interleave-safe boundary
+        self._f_bytes += len(record)
+        self._f_count += 1
+        self.appended += 1
+        self._dirty = True
+        if self._f_bytes >= self.segment_bytes:
+            self.roll()
+        else:
+            self.maybe_flush()
+        return self.seq
+
+    def maybe_flush(self, now=None):
+        """fsync the active segment if the cadence says so."""
+        if not self._dirty or self._f is None:
+            return False
+        if now is None:
+            now = self.clock()
+        if (self.flush_interval > 0
+                and now - self._last_flush < self.flush_interval):
+            return False
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._dirty = False
+        self._last_flush = now
+        self.flushes += 1
+        return True
+
+    def seal(self):
+        """Force-fsync the active segment (SIGTERM grace window)."""
+        if self._f is None:
+            return
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._dirty = False
+        self.flushes += 1
+
+    def roll(self):
+        """Cut the active segment: it becomes a sealed, retirable unit
+        and the next append opens a fresh one.  No-op while empty."""
+        if self._f is None or self._f_count == 0:
+            return
+        self.seal()
+        self._f.close()
+        self._seg_counts[self._f_path] = self._f_count
+        self._f = None
+        self._f_path = None
+        self._f_bytes = 0
+        self._f_count = 0
+
+    def retire(self, keep_episodes):
+        """Drop the oldest SEALED segments whose episodes the newer
+        ones already cover: a segment retires only when the segments
+        after it hold >= ``keep_episodes`` episodes.  Returns the paths
+        removed."""
+        keep_episodes = max(0, int(keep_episodes))
+        sealed = [p for p in self.segments() if p in self._seg_counts
+                  and p != self._f_path]
+        removed = []
+        for i, path in enumerate(sealed):
+            newer = sum(self._seg_counts[p] for p in sealed[i + 1:])
+            newer += self._f_count
+            if newer < keep_episodes:
+                break
+            try:
+                os.remove(path)
+            except OSError:
+                break
+            removed.append(path)
+            del self._seg_counts[path]
+        if removed:
+            print(f"wal: retired {len(removed)} segment(s) "
+                  f"({self.episode_count()} episodes retained)")
+        return removed
+
+    def checkpoint_landed(self, keep_episodes):
+        """Epoch-boundary hook: roll the active segment, then retire
+        what the landed checkpoint made dead weight."""
+        self.roll()
+        self.retire(keep_episodes)
+
+    def close(self):
+        if self._f is not None:
+            self.seal()
+            self._f.close()
+            self._f = None
+
+    # -- replay -------------------------------------------------------
+    def replay(self, seen=None):
+        """Yield ``(seq, episode)`` for every intact logged record,
+        oldest first, deduplicated against ``seen``."""
+        if seen is None:
+            seen = set()
+        for path in self.segments():
+            for seq, episode in _iter_records(path, notice=True):
+                if seq in seen:
+                    continue
+                seen.add(seq)
+                yield seq, episode
+
+    def stats(self):
+        return {
+            "wal_appended": self.appended,
+            "wal_flushes": self.flushes,
+            "wal_segments": len(self.segments()),
+            "wal_episodes": self.episode_count(),
+        }
+
+
+def _seg_index(name):
+    base = os.path.basename(name)
+    try:
+        return int(base[len("seg-"):-len(_WAL_SUFFIX)])
+    except ValueError:
+        return -1
+
+
+class _RecordUnpickler(pickle.Unpickler):
+    """A WAL record's loader: episodes are numpy arrays, bytes and
+    plain containers, so a record naming a JAX or Flax global is
+    refused (it fails that record) instead of importing either."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise pickle.UnpicklingError(
+                f"WAL record needs {module}.{name}, which the port does "
+                f"not read")
+        return super().find_class(module, name)
+
+
+def _iter_records(path, notice=True, payloads=True):
+    """Records of one segment; stops at the first torn/corrupt record
+    (the rest of that segment is untrusted).  ``payloads=False`` walks
+    frames and checks crcs without unpickling (yielding ``(seq,
+    None)``)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return
+    name = os.path.basename(path)
+    offset = 0
+    while offset + _WAL_REC.size <= len(data):
+        length, crc, seq = _WAL_REC.unpack_from(data, offset)
+        start = offset + _WAL_REC.size
+        payload = data[start:start + length]
+        if len(payload) < length:
+            if notice:
+                print(f"wal: {name}: torn record at byte {offset} "
+                      "(crash tail); replay of this segment stops here")
+            return
+        if zlib.crc32(payload) != crc:
+            if notice:
+                print(f"WARNING: wal: {name}: crc mismatch at byte "
+                      f"{offset}; dropping the segment's remaining "
+                      "records")
+            return
+        episode = None
+        if payloads:
+            try:
+                episode = _RecordUnpickler(io.BytesIO(payload)).load()
+            except Exception:  # garbage pickle streams raise a zoo
+                if notice:
+                    print(f"WARNING: wal: {name}: unreadable record at "
+                          f"byte {offset}; dropping the segment's "
+                          "remaining records")
+                return
+        yield seq, episode
+        offset = start + length
+    if offset < len(data) and notice:
+        print(f"wal: {name}: {len(data) - offset} trailing bytes (torn "
+              "header) ignored")

@@ -19,22 +19,46 @@ The counterpart of the local single-process path of
   * ``device_replay: off`` trains from host batches assembled by
     batcher processes instead, and says so loudly.
 
+The resilience layer is the JAX package's:
+
+  * the episode WAL (:class:`~.durability.EpisodeWAL`) logs every
+    admitted episode at intake; a restart replays the newest
+    ``wal_keep_episodes`` of them straight into the ring on the
+    device (``DeviceReplay.warm_start``) before the trainer starts;
+  * SIGTERM is a preemption notice: the handler seals the WAL and asks
+    the trainer thread for an emergency checkpoint (params and Adam
+    state taken between steps, the only consistent point), then tears
+    the local fleet down and exits nonzero;
+  * the gather fleet is supervised (``WorkerCluster``), every message
+    timestamps its peer in a ``FleetRegistry`` and silent peers are
+    evicted; a dead inference service is respawned behind
+    ``respawn_backoff`` and a windowed circuit breaker;
+  * ``supervise_learner`` runs the learner under a ``LearnerGuard``
+    that relaunches it with ``restart_epoch: auto``; chaos drills
+    (gather kills and surges, frame faults, the learner SIGKILL, the
+    service kill) drive all of it;
+  * ``--train-server`` serves remote worker machines
+    (``WorkerServer``); it runs no inference service, because shared
+    memory does not cross machines.
+
 The stdout log format (``updated model(N)``, ``epoch N``, ``win rate``,
 ``loss = ...``, ``generation stats``) is the JAX package's, so its plot
 scripts read either.
 
 Left for later items: telemetry and attribution, the runtime guards
 (retrace, sharding, numerics, lock order, stall), the resource ledger,
-the fleet registry and heartbeats, the episode WAL, chaos drills, the
-serving frontend and router, the status server, Anakin, meshes and
-multihost, league opponents and remote workers (``--train-server``).
+the serving frontend and router, the status server, Anakin, meshes and
+multihost, and league opponents.
 """
 
+import functools
 import json
 import os
 import pickle
 import queue
 import random
+import signal
+import sys
 import threading
 import time
 from collections import deque
@@ -49,6 +73,7 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .durability import (
     CheckpointManifest,
     CorruptCheckpointError,
+    EpisodeWAL,
     read_verified,
     resolve_restart,
     write_checksummed,
@@ -64,9 +89,11 @@ from .ops.update import (
     make_optimizer,
     set_learning_rate,
 )
+from .resilience import ChaosConfig, FleetRegistry, LearnerKillSwitch
+from .resilience.supervisor import FailureWindow
 from .staging import DeviceReplay, make_replay_update_step
 from .utils.tree import tree_map_leaves
-from .worker import WorkerCluster
+from .worker import WorkerCluster, WorkerServer
 
 
 def _models_dir():
@@ -255,6 +282,10 @@ class Trainer:
         self.update_queue = queue.Queue(maxsize=1)
         self.updates_cap = int(args.get("updates_per_epoch", 0) or 0)
         self.timers = _Timers()
+        self.emergency = None      # threading.Event armed by SIGTERM
+        self.manifest = None       # set by the Learner
+        self.started_at = None     # monotonic: training loop entered
+        self.first_step_at = None  # monotonic: first step enqueued
 
         self.spec = model.spec
         self.module = build_module(self.spec, self.device).train()
@@ -378,6 +409,38 @@ class Trainer:
         self.last_state_digest = write_checksummed(
             train_state_path(), state, checksum=self.checkpoint_checksum)
 
+    def _maybe_emergency_save(self):
+        """SIGTERM grace window: the handler (``Learner._preempt_save``)
+        armed ``self.emergency`` and is waiting on it.  Land a
+        CONSISTENT mid-epoch checkpoint: the current params as
+        ``latest.ckpt`` plus the matching optimizer state, and re-point
+        the manifest at it as an emergency resume point.  Runs on the
+        trainer thread between steps, the only thread that touches the
+        parameters and Adam state; the copies to the host wait for the
+        last step's work on the stream.  Skipped (the event still set)
+        before the first completed epoch: resume keys on epoch >= 1."""
+        event = self.emergency
+        if event is None or event.is_set():
+            return
+        try:
+            if self.epoch < 1 or self.steps <= 0:
+                return
+            state = {"params": to_flax(self.module), "steps": self.steps,
+                     "epoch": self.epoch}
+            os.makedirs(_models_dir(), exist_ok=True)
+            digest = write_checksummed(latest_model_path(), state,
+                                       checksum=self.checkpoint_checksum)
+            self.save_train_state(self.epoch)
+            if self.manifest is not None:
+                self.manifest.commit(
+                    self.epoch, latest_model_path(), digest, self.steps,
+                    train_state_digest=self.last_state_digest,
+                    emergency=True)
+            print(f"emergency checkpoint landed (epoch {self.epoch}, "
+                  f"step {self.steps})", flush=True)
+        finally:
+            event.set()
+
     def snapshot(self):
         """A CPU model holding a host copy of the live parameters."""
         model = TorchModel(build_module(self.spec, "cpu"), device="cpu")
@@ -404,6 +467,7 @@ class Trainer:
         while batch_cnt == 0 or not self.update_flag:
             if self.shutdown_flag:
                 return None
+            self._maybe_emergency_save()
             if cap and batch_cnt >= cap:
                 time.sleep(0.01)
                 continue
@@ -415,6 +479,8 @@ class Trainer:
             with self.timers.section("update"):
                 batch = stage_batch(batch, self.device, self.compute_dtype)
                 metric_acc.append(self.update_step(batch))
+            if self.first_step_at is None:
+                self.first_step_at = time.monotonic()
             self.steps += 1
             batch_cnt += 1
         return batch_cnt, metric_acc
@@ -429,6 +495,7 @@ class Trainer:
         while batch_cnt == 0 or not self.update_flag:
             if self.shutdown_flag:
                 return None
+            self._maybe_emergency_save()
             with self.timers.section("ingest"):
                 replay.ingest(max_episodes=8)
             if cap and batch_cnt >= cap:
@@ -438,6 +505,8 @@ class Trainer:
                 state = replay.device_state()
             with self.timers.section("update"):
                 metric_acc.append(self._replay_step(state))
+            if self.first_step_at is None:
+                self.first_step_at = time.monotonic()
             self.steps += 1
             batch_cnt += 1
         return batch_cnt, metric_acc
@@ -514,6 +583,7 @@ class Trainer:
                 while replay.size < self.args["minimum_episodes"]:
                     if self.shutdown_flag:
                         return
+                    self._maybe_emergency_save()
                     replay.ingest()
                     if replay.size and replay.size >= replay.capacity:
                         print(f"device replay ring ({replay.capacity}) is"
@@ -526,15 +596,20 @@ class Trainer:
                 while len(self.episodes) < self.args["minimum_episodes"]:
                     if self.shutdown_flag:
                         return
+                    self._maybe_emergency_save()
                     time.sleep(0.2)
                 self.batcher.run()
-            print("started training")
+            print("started training", flush=True)
+            self.started_at = time.monotonic()
             while not self.shutdown_flag:
                 model = self.train()
                 if model is None:
                     break
                 self.update_flag = False
                 while not self.shutdown_flag:
+                    # a SIGTERM can land while the learner thread is
+                    # busy and will not drain this queue
+                    self._maybe_emergency_save()
                     try:
                         self.update_queue.put((model, self.steps),
                                               timeout=0.3)
@@ -588,7 +663,7 @@ class Learner:
     """Central conductor: serves worker requests, feeds the trainer,
     reports stats, and checkpoints every epoch."""
 
-    def __init__(self, args, net=None, device=DEFAULT_DEVICE):
+    def __init__(self, args, net=None, device=DEFAULT_DEVICE, remote=False):
         from .config import Config
 
         self.device = resolve_device(device)
@@ -601,6 +676,9 @@ class Learner:
 
         self._run_t0 = time.monotonic()
         self._epoch_t = self._run_t0
+        # host seconds of the start-up stages, reported once in the
+        # first metrics record (a relaunch's time-to-train, split)
+        self._startup = _Timers()
         self.max_policy_lag = int(self.args.get("max_policy_lag", 0) or 0)
         self.episodes_rejected_stale = 0
         self._rejected_epoch = 0
@@ -611,18 +689,16 @@ class Learner:
         self.manifest = CheckpointManifest(_models_dir())
         self.checkpoint_checksum = bool(
             self.args.get("checkpoint_checksum", True))
-        self._resume = resolve_restart(_models_dir(),
-                                       self.args.get("restart_epoch", 0))
-        self.args["restart_epoch"] = self._resume.epoch
-        # the manifest-recorded digest of the train state that pairs
-        # with the resumed params (a runtime key, not config)
-        self.args["_resume_state_digest"] = self._resume.train_state_digest
-        if self.args.get("wal_enabled", True):
-            print("note: the episode WAL is not ported yet; a restart "
-                  "re-generates its replay backlog")
-
-        self.model_epoch = self.args["restart_epoch"]
-        self.model = self._initial_model(net)
+        with self._startup.section("resume"):
+            self._resume = resolve_restart(
+                _models_dir(), self.args.get("restart_epoch", 0))
+            self.args["restart_epoch"] = self._resume.epoch
+            # the manifest-recorded digest of the train state that pairs
+            # with the resumed params (a runtime key, not config)
+            self.args["_resume_state_digest"] = \
+                self._resume.train_state_digest
+            self.model_epoch = self.args["restart_epoch"]
+            self.model = self._initial_model(net)
 
         self.generation_stats = {}
         self.eval_stats = {}
@@ -636,23 +712,161 @@ class Learner:
         self._shm_epoch = 0
         self._spilled_epoch = 0
 
-        self.worker = WorkerCluster(self.args)
-        self.trainer = Trainer(self.args, self.model, device=self.device)
+        self.worker = WorkerServer(self.args) if remote \
+            else WorkerCluster(self.args)
+        # fleet health: every control-plane message timestamps its
+        # peer; silence past heartbeat_timeout is a counted miss and an
+        # eviction
+        self.fleet = FleetRegistry(heartbeat_timeout=float(
+            self.args.get("heartbeat_timeout", 30.0) or 30.0))
+        self._last_sweep = 0.0
+        with self._startup.section("device"):
+            # the CUDA context and a first kernel: an empty tensor alone
+            # would leave both to the trainer's build
+            torch.zeros(1, device=self.device).add_(1)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        with self._startup.section("trainer"):
+            self.trainer = Trainer(self.args, self.model, device=self.device)
+        self.trainer.manifest = self.manifest
         self.metrics_path = self.args.get("metrics_path") or ""
+
+        # the episode WAL: admitted episodes are logged at intake, and a
+        # resumed learner replays its backlog into the ring now, on
+        # this thread, before the trainer thread starts
+        self.wal = None
+        self.episodes_replayed = 0
+        if self.args.get("wal_enabled", True):
+            self.wal = EpisodeWAL(
+                os.path.join(_models_dir(), "wal"),
+                segment_bytes=int(
+                    self.args.get("wal_segment_mb", 8) or 8) << 20,
+                flush_interval=float(
+                    self.args.get("wal_flush_interval", 1.0)))
+            if self._resume.epoch > 0:
+                with self._startup.section("wal_replay"):
+                    self._replay_wal()
+        chaos = ChaosConfig.from_config(self.args.get("chaos") or {})
+        self._kill_switch = None
+        if chaos.learner_kill_enabled:
+            self._kill_switch = LearnerKillSwitch(
+                chaos, os.path.join(_models_dir(), "chaos_learner_killed"))
 
         # the batched inference service answers every local worker's
         # forward on the training device and receives their finished
-        # trajectories over shared memory
+        # trajectories over shared memory (never across machines: a
+        # remote learner runs none).  A dead service is respawned
+        # behind respawn_backoff and a windowed breaker
         from .pipeline import InferenceService, PipelineConfig
 
         self.infer_service = None
+        self._infer_kill_epoch = chaos.infer_kill_epoch
+        self._infer_killed = False
+        self._infer_respawns = 0
+        self._infer_respawn_at = 0.0
+        self._infer_disabled = False
+        self._infer_window = FailureWindow(
+            int(self.args.get("max_respawns", 5)), 60.0)
         pipeline_cfg = PipelineConfig.from_config(
             self.args.get("pipeline") or {})
-        if pipeline_cfg.enabled:
-            self.infer_service = InferenceService(
-                self.model, pipeline_cfg, epoch=self.model_epoch,
-                device=self.device)
-            self.infer_service.start()
+        if pipeline_cfg.enabled and not remote:
+            with self._startup.section("service"):
+                self.infer_service = InferenceService(
+                    self.model, pipeline_cfg, epoch=self.model_epoch,
+                    device=self.device)
+                self.infer_service.start()
+
+        # SIGTERM = preemption notice (main thread only: a learner
+        # built off the main thread has no preemption hook); the
+        # previous handler comes back when the learner shuts down
+        self._sigterm_prev = None
+        try:
+            self._sigterm_prev = signal.signal(signal.SIGTERM,
+                                               self._on_sigterm)
+        except ValueError:
+            pass
+
+    # -- durability ---------------------------------------------------
+    def _wal_keep_episodes(self):
+        return (int(self.args.get("wal_keep_episodes", 0) or 0)
+                or self.args["maximum_episodes"])
+
+    def _replay_wal(self):
+        """Restore the backlog from the episode WAL (resume path, before
+        any thread starts): the newest ``wal_keep_episodes`` admitted
+        episodes go into the ring on the device, or the host deque.
+        Replayed episodes do NOT tick ``episodes_received``: epoch
+        cadence tracks fresh arrivals.  The staleness budget still
+        applies."""
+        t0 = time.perf_counter()
+        restored = deque(maxlen=self._wal_keep_episodes())
+        scanned = stale = 0
+        for _seq, episode in self.wal.replay():
+            scanned += 1
+            if (self.max_policy_lag > 0
+                    and self._episode_lag(episode) > self.max_policy_lag):
+                stale += 1
+                continue
+            restored.append(episode)
+        restored = list(restored)
+        t1 = time.perf_counter()
+        if self.trainer.device_replay is not None:
+            self.episodes_replayed = \
+                self.trainer.device_replay.warm_start(restored)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        else:
+            self.trainer.episodes.extend(restored)
+            self.episodes_replayed = len(restored)
+        t2 = time.perf_counter()
+        if scanned:
+            print(f"wal: replayed {self.episodes_replayed} of {scanned} "
+                  f"logged episode(s) into the backlog"
+                  + (f" ({stale} past the staleness budget)"
+                     if stale else "")
+                  + f" in {t2 - t0:.3f} s (read {t1 - t0:.3f} s, "
+                  f"ingest {t2 - t1:.3f} s)", flush=True)
+
+    def _on_sigterm(self, signum, frame):
+        try:
+            self._preempt_save()
+        except Exception:  # a failed save must not block the exit
+            import traceback
+
+            traceback.print_exc()
+        sys.exit(1)
+
+    def _preempt_save(self):
+        """SIGTERM: durable state inside the grace window, in rescue
+        order.  Seal the WAL (this thread owns it), ask the trainer
+        thread for an emergency checkpoint and wait for it with a
+        deadline (``Event.wait`` releases the GIL to the trainer), then
+        tear the local fleet down so no orphan competes with the
+        relaunch.  Runs on the main (server) thread."""
+        t0 = time.perf_counter()
+        print("SIGTERM: preemption grace window — sealing WAL and "
+              "requesting an emergency checkpoint", flush=True)
+        if self.wal is not None:
+            try:
+                self.wal.seal()
+            except Exception as exc:  # e.g. mid-roll: file just closed
+                print(f"WARNING: WAL seal failed ({exc!r})")
+        grace = float(self.args.get("preempt_grace_seconds", 5.0) or 0.0)
+        if grace > 0:
+            event = threading.Event()
+            self.trainer.emergency = event
+            if event.wait(grace):
+                print(f"SIGTERM: emergency save done "
+                      f"{1e3 * (time.perf_counter() - t0):.1f} ms after "
+                      "the signal", flush=True)
+            else:
+                print("WARNING: emergency checkpoint did not land "
+                      f"inside the {grace:.1f}s grace window; resume "
+                      "falls back to the last epoch boundary")
+        try:
+            self.worker.terminate_fleet()
+        except Exception as exc:  # teardown must not block the exit
+            print(f"WARNING: fleet teardown failed ({exc!r})")
 
     def _initial_model(self, net):
         """The epoch-0 model (seeded init) or the resumed checkpoint's,
@@ -694,10 +908,20 @@ class Learner:
         print("updated model(%d)" % steps)
         self.model_epoch += 1
         self.model = model
+        self.worker.note_epoch(self.model_epoch)  # chaos surge clock
         if self.infer_service is not None:
             # hot-swap the serving snapshot BEFORE jobs labelled with
             # the new epoch go out
             self.infer_service.set_model(model, self.model_epoch)
+            if (self._infer_kill_epoch > 0 and not self._infer_killed
+                    and self.model_epoch >= self._infer_kill_epoch):
+                # pipeline chaos: the service dies without a parting
+                # beat; workers bridge on local inference until the
+                # supervised respawn in _pipeline_tick
+                self._infer_killed = True
+                print(f"CHAOS: killing the inference service at epoch "
+                      f"{self.model_epoch}")
+                self.infer_service.inject_kill()
         os.makedirs(_models_dir(), exist_ok=True)
         # the JAX package's checkpoint format: both packages read it
         state = {"params": to_flax(model.module), "steps": steps,
@@ -711,6 +935,10 @@ class Learner:
             self.model_epoch, model_path(self.model_epoch), digest, steps,
             train_state_digest=self.trainer.last_state_digest)
         self._prune_checkpoints()
+        if self.wal is not None:
+            # the active segment rolls, and segments the buffer no
+            # longer covers retire
+            self.wal.checkpoint_landed(self._wal_keep_episodes())
 
     # -- episode / result intake ------------------------------------
     def _episode_lag(self, episode):
@@ -738,6 +966,11 @@ class Learner:
                     if self._episode_lag(e) <= self.max_policy_lag]
             self.episodes_rejected_stale += len(arrived) - len(kept)
             self._rejected_epoch += len(arrived) - len(kept)
+        if self.wal is not None:
+            # write-ahead: an admitted episode reaches the log before
+            # any stats or buffer touch it
+            for episode in kept:
+                self.wal.append(episode)
         for episode in kept:
             job = episode["args"]
             # trained seats credit the epoch that actually finished the
@@ -758,6 +991,10 @@ class Learner:
             self.trainer.device_replay.offer(kept)
         else:
             self.trainer.episodes.extend(kept)
+        if self._kill_switch is not None:
+            # durability chaos: the scheduled learner SIGKILL ticks on
+            # the intake clock (deterministically mid-window)
+            self._kill_switch.note(self.model_epoch, self.episodes_received)
 
     def feed_results(self, results):
         players = self.env.players()
@@ -828,6 +1065,11 @@ class Learner:
         record["episodes_rejected_stale"] = self._rejected_epoch
         self._rejected_epoch = 0
         self._epoch_t = now
+        # WAL-restored backlog of this incarnation (constant after
+        # start-up; > 0 proves a resume re-entered a warm ring)
+        record["episodes_replayed"] = self.episodes_replayed
+        if self.wal is not None:
+            record.update(self.wal.stats())
         self._report_win_rates(record)
         self._report_generation(record)
 
@@ -842,8 +1084,22 @@ class Learner:
         self.update_model(model, steps)
         record["steps"] = steps
         record.update(self.trainer.last_metrics)
+        if self.trainer.first_step_at is not None:
+            # seconds from this learner's construction to its training
+            # loop and to its first update step (a resume's
+            # time-to-train; the gap is the first step's own set-up)
+            record["training_started_sec"] = round(
+                self.trainer.started_at - self._run_t0, 3)
+            record["first_step_sec"] = round(
+                self.trainer.first_step_at - self._run_t0, 3)
+        if self._startup is not None:
+            record.update({f"startup_{k}_sec": round(v, 3) for k, v
+                           in self._startup.snapshot().items()})
+            self._startup = None
+        record.update(self._fleet_record())
         if self.infer_service is not None:
             record.update(self.infer_service.epoch_stats())
+            record["infer_respawns"] = self._infer_respawns
             record["infer_param_loads"] = self.infer_service.param_loads
             record["episodes_shm"] = self._shm_epoch
             record["episodes_spilled"] = self._spilled_epoch
@@ -852,7 +1108,77 @@ class Learner:
             with open(self.metrics_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
 
+    # -- fleet health -----------------------------------------------
+    def _fleet_record(self):
+        """Per-epoch fleet metrics (fleet_size, respawns,
+        heartbeat_misses, conn_drops, ...).  A shrunken fleet is loud
+        but not fatal: it slows intake, it does not stop training."""
+        self.fleet.record_drops(self.worker.drop_stats())
+        snap = self.fleet.snapshot()
+        stats = self.worker.fleet_stats()
+        snap["respawns"] = stats.get("respawns", 0)
+        # expected strength: the supervisor's slot count for a local
+        # fleet, the registry's sustained peak for a remote one
+        expected = stats.get("slots", self.fleet.peak_size)
+        if snap["fleet_size"] < expected:
+            print(f"WARNING: fleet degraded: {snap['fleet_size']} of "
+                  f"{expected} gathers responsive "
+                  f"({snap['respawns']} respawns, "
+                  f"{stats.get('slots_dead', 0)} slots dead); "
+                  "training continues on the surviving fleet")
+        return snap
+
+    def _sweep_fleet(self):
+        """Time-gated heartbeat expiry: newly stale peers are reported
+        to the communicator, which evicts them (a local gather is
+        killed and respawned, a remote socket is severed).  Also the
+        WAL's idle-tail fsync."""
+        now = time.monotonic()
+        if now - self._last_sweep < 1.0:
+            return
+        if self.wal is not None:
+            self.wal.maybe_flush(now)
+        # a much larger gap than the loop's ~0.3-1 s means THIS thread
+        # stalled (an epoch boundary, checkpoint I/O) while peer
+        # messages queued unread
+        stalled = self._last_sweep > 0.0 and now - self._last_sweep > 5.0
+        self._last_sweep = now
+        self._check_fleet_dead()
+        # peers whose connection the communicator already dropped are
+        # gone, not merely silent
+        live = set(self.worker.live_connections())
+        for peer in self.fleet.peers():
+            if peer not in live:
+                self.fleet.forget(peer)
+        if stalled:
+            # the silence was ours: refresh everyone instead of
+            # evicting a healthy fleet
+            self.fleet.pardon(now)
+            return
+        for conn in self.fleet.sweep(now):
+            self.worker.report_stale(conn)
+
+    def _check_fleet_dead(self):
+        """Every supervised gather slot circuit-broke: nothing can
+        rejoin a LOCAL fleet, so shut down instead of idling forever."""
+        stats = self.worker.fleet_stats()
+        slots = stats.get("slots", 0)
+        if (not slots or stats.get("fleet_alive", 1) > 0
+                or stats.get("slots_dead", 0) < slots
+                or self.shutdown_flag):
+            return
+        print("ERROR: the entire local gather fleet is dead (circuit "
+              "breaker tripped on every slot); shutting down — raise "
+              "max_respawns or fix the crash in the gather/worker logs")
+        self.shutdown_flag = True
+        self.worker.begin_drain()
+        self.trainer.request_shutdown()
+
     # -- control plane ----------------------------------------------
+    def _on_beat(self, beats):
+        # liveness was noted in the server loop; a beat needs an ack
+        return [None for _ in beats]
+
     def _on_args(self, requests):
         if self.shutdown_flag:
             return [None for _ in requests]
@@ -875,8 +1201,8 @@ class Learner:
         keeps local inference."""
         replies = []
         for spec in specs:
-            if (self.infer_service is None or self.shutdown_flag
-                    or not isinstance(spec, dict)):
+            if (self.infer_service is None or self._infer_disabled
+                    or self.shutdown_flag or not isinstance(spec, dict)):
                 replies.append(None)
                 continue
             try:
@@ -888,8 +1214,12 @@ class Learner:
         return replies
 
     def _pipeline_tick(self):
-        """Drain the shm trajectory rings into episode intake; a dead
-        service is fatal here (the port has no respawn supervisor)."""
+        """Drain the shm trajectory rings into episode intake, and
+        supervise the service thread: a dead service respawns behind
+        ``respawn_backoff`` (workers bridge on local inference), and a
+        windowed breaker trip disables pipelined inference for the rest
+        of the run instead of respawn-storming.  The ring and the
+        update step stay on the device either way."""
         svc = self.infer_service
         if svc is None:
             return
@@ -898,9 +1228,30 @@ class Learner:
             self.episodes_shm += len(episodes)
             self._shm_epoch += len(episodes)
             self.feed_episodes(episodes)
-        if svc.failure is not None:
-            raise RuntimeError(
-                f"the inference service died: {svc.failure!r}")
+        if svc.alive or self._infer_disabled or self.shutdown_flag:
+            return
+        now = time.monotonic()
+        if self._infer_respawn_at == 0.0:
+            if self._infer_window.record(now):
+                self._infer_disabled = True
+                print("ERROR: the inference service keeps dying "
+                      "(circuit breaker tripped); pipelined inference "
+                      "disabled for this run — workers continue on "
+                      "local CPU inference")
+                return
+            delay = float(self.args.get("respawn_backoff", 0.5) or 0.5)
+            self._infer_respawn_at = now + delay
+            print(f"WARNING: inference service died"
+                  + (f" ({svc.failure!r})" if svc.failure else "")
+                  + f"; respawning in {delay:.1f}s (workers fall back "
+                  "to local inference meanwhile)")
+        elif now >= self._infer_respawn_at:
+            self._infer_respawn_at = 0.0
+            self._infer_respawns += 1
+            svc.set_model(self.model, self.model_epoch)
+            svc.respawn()
+            print("inference service respawned "
+                  f"(incarnation {svc.board.generation})", flush=True)
 
     def server(self):
         print("started server")
@@ -909,6 +1260,7 @@ class Learner:
             "episode": self._on_episode,
             "result": self._on_result,
             "model": self._on_model,
+            "beat": self._on_beat,
             "shm": self._on_shm,
         }
         next_epoch_at = (self.args["minimum_episodes"]
@@ -918,12 +1270,14 @@ class Learner:
                 conn, (verb, payload) = self.worker.recv(timeout=0.3)
             except queue.Empty:
                 conn = None  # epoch checks below still run on idle
+            self._sweep_fleet()
             self._pipeline_tick()
             if conn is not None:
+                self.fleet.observe(conn, verb, payload)
                 batched = isinstance(payload, list)
                 handler = handlers.get(verb)
                 if handler is None:
-                    print(f"WARNING: unknown control-plane verb {verb!r}")
+                    self.worker.note_unknown_verb(verb)
                     self.worker.send(conn, [] if batched else None)
                     continue
                 replies = handler(payload if batched else [payload])
@@ -936,6 +1290,9 @@ class Learner:
                 self.update()
                 if 0 <= self.args["epochs"] <= self.model_epoch:
                     self.shutdown_flag = True
+                    # workers drain from here: gather exits are
+                    # completions, not crashes to respawn
+                    self.worker.begin_drain()
         print("finished server")
 
     def _assign_job(self):
@@ -985,10 +1342,58 @@ class Learner:
                                    sort_keys=True), flush=True)
                 # workers are gone: unmap and unlink every ring
                 self.infer_service.close()
+            if self.wal is not None:
+                self.wal.close()  # final fsync of the append tail
+            if self._sigterm_prev is not None:
+                try:
+                    signal.signal(signal.SIGTERM, self._sigterm_prev)
+                except ValueError:
+                    pass
+
+
+def _train_local(args, device=DEFAULT_DEVICE):
+    """One learner incarnation with its local fleet (module-level: the
+    supervised child's entry point, pickled by the spawn context)."""
+    prepare_env(args["env_args"])
+    Learner(args=args, device=device).run()
+
+
+def _train_remote(args, device=DEFAULT_DEVICE):
+    """One learner incarnation serving remote worker machines."""
+    prepare_env(args["env_args"])
+    Learner(args=args, device=device, remote=True).run()
+
+
+def _maybe_supervised(args, target):
+    """``supervise_learner: true`` runs the learner as a guarded child
+    process: a crash or preemption relaunches it with ``restart_epoch:
+    auto`` behind the fleet's backoff and circuit breaker.  The guard's
+    process never initializes CUDA; the child makes its own context.
+    Returns True when the guard ran (and has finished)."""
+    if not (args.get("train_args") or {}).get("supervise_learner"):
+        return False
+    from .resilience.guardian import LearnerGuard
+
+    code = LearnerGuard.from_args(target, args).run()
+    print(f"learner guard: cuda initialized {torch.cuda.is_initialized()}",
+          flush=True)
+    if code:
+        raise SystemExit(code)
+    return True
 
 
 def train_main(args, device=DEFAULT_DEVICE):
     """``--train``: one local learner with its worker fleet."""
     resolve_device(device)  # fail before any work when the card is absent
-    prepare_env(args["env_args"])
-    Learner(args=args, device=device).run()
+    target = functools.partial(_train_local, device=device)
+    if not _maybe_supervised(args, target):
+        target(args)
+
+
+def train_server_main(args, device=DEFAULT_DEVICE):
+    """``--train-server``: a learner serving remote worker machines on
+    the entry and worker ports; the ring and the step on ``device``."""
+    resolve_device(device)
+    target = functools.partial(_train_remote, device=device)
+    if not _maybe_supervised(args, target):
+        target(args)

@@ -21,6 +21,9 @@ JAX service, so the device sees a handful of shapes.
 
 Liveness is a heartbeat stamp on a shared ``ShmBoard``: workers watch
 its age and fall back to local inference when the service goes silent.
+The learner supervises the service thread: a dead one (a crash, or the
+``chaos.infer_kill_epoch`` drill's ``inject_kill``) is ``respawn``ed
+behind a backoff, with a new board generation.
 
 Counters: ``stats()`` is cumulative; ``epoch_stats()`` reduces the
 dispatches since its last call into ``infer_batch_size_{mean,p95}``,
@@ -28,7 +31,7 @@ dispatches since its last call into ``infer_batch_size_{mean,p95}``,
 clock around upload + forward + download of one dispatch).
 
 Not ported yet: the GSPMD/mesh dispatch, the retrace and sharding
-guards, chaos hooks, telemetry spans, and the network-plane
+guards, the shm chaos hooks, telemetry spans, and the network-plane
 ``submit`` with epoch-pinned routing.
 """
 
@@ -129,7 +132,9 @@ class InferenceService:
         self.board = ShmBoard.create()
         self._thread = None
         self._stop = False
+        self._kill = False           # chaos: die WITHOUT a parting beat
         self.failure = None          # exception that ended the loop
+        self.respawns = 0            # incarnations after the first
         # counters — epoch accumulators reset by epoch_stats()
         self._batch_rows = []
         self._dispatch_sec = []
@@ -190,15 +195,36 @@ class InferenceService:
         with self._lock:
             self._pending_model = (model, int(epoch))
 
+    def inject_kill(self):
+        """Chaos: the loop exits without a parting beat, as a killed
+        server process would look to the workers (stale board) and to
+        the learner (dead thread).  A forward in flight finishes first:
+        its replies copy back to the host before the loop looks at the
+        flag, so no device work outlives the incarnation."""
+        self._kill = True
+
     @property
     def alive(self):
         return self._thread is not None and self._thread.is_alive()
 
     def start(self):
+        self._kill = False
         self._stop = False
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="infer-service")
         self._thread.start()
+
+    def respawn(self):
+        """Relaunch after a death: same rings, same clients (their state
+        lives in shared memory), a fresh dispatch thread on the same
+        device.  The board's generation moves, so workers that degraded
+        to local inference attach to the new incarnation.  The caller
+        ``set_model``s the current snapshot first."""
+        if self.alive:
+            raise RuntimeError("respawn of a live inference service")
+        self.board.bump_generation()
+        self.respawns += 1
+        self.start()
 
     def stop(self):
         self._stop = True
@@ -270,6 +296,7 @@ class InferenceService:
             "alive": self.alive,
             "device": str(self.device),
             "generation": self.board.generation,
+            "respawns": self.respawns,
             "batches": self.batches,
             "requests": self.requests,
             "rows_served": self.rows_served,
@@ -530,6 +557,8 @@ class InferenceService:
         try:
             self.board.beat(epoch=self._epoch)
             while not self._stop:
+                if self._kill:
+                    return  # chaos death: no parting beat
                 self._adopt_model()
                 worked = self.step()
                 if not worked:

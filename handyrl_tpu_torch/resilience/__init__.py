@@ -1,0 +1,43 @@
+"""Fault tolerance for the actor fleet, the learner and the control plane.
+
+The counterpart of ``handyrl_tpu.resilience``, kept as the port's own
+copy (plain Python, no framework):
+
+  * :mod:`.supervisor` — child-process supervision: detect exits and
+    missed heartbeats, respawn with jittered exponential backoff, and
+    circuit-break a slot that keeps dying.
+  * :mod:`.health` — the learner-side :class:`FleetRegistry`:
+    per-gather last-seen / episode-rate / staleness bookkeeping behind
+    the ``fleet_size`` / ``respawns`` / ``heartbeat_misses`` metrics.
+  * :mod:`.chaos` — fault injection: kill gathers at configured
+    rates/points, delay/drop/truncate control-plane frames, SIGKILL the
+    learner itself (:class:`LearnerKillSwitch`).  The shm-plane hooks
+    are not ported yet; their keys are refused.
+  * :mod:`.guardian` — :class:`LearnerGuard` relaunches a crashed
+    learner with ``restart_epoch: auto`` behind the same backoff and
+    circuit breaker.
+
+Nothing here touches the device.
+"""
+
+from .chaos import (
+    ChaosConfig,
+    ChaosConnection,
+    ChaosMonkey,
+    LearnerKillSwitch,
+)
+from .guardian import LearnerGuard
+from .health import FleetRegistry
+from .supervisor import BackoffPolicy, SlotState, Supervisor
+
+__all__ = [
+    "BackoffPolicy",
+    "ChaosConfig",
+    "ChaosConnection",
+    "ChaosMonkey",
+    "FleetRegistry",
+    "LearnerGuard",
+    "LearnerKillSwitch",
+    "SlotState",
+    "Supervisor",
+]

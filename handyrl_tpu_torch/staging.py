@@ -182,6 +182,22 @@ class DeviceReplay:
                 self._append_run(run)
                 del cols[:len(run)]
 
+    def warm_start(self, episodes, chunk=64):
+        """Restore a replayed backlog (the episode WAL) straight into
+        the ring on the CALLER's thread, ``chunk`` episodes at a time
+        through the batched ``ingest`` (a chunk never reaches the
+        ``pending`` cap, so nothing is shed).  Must run before
+        the trainer thread starts: the ring has one writer thread.
+        Returns the number of episodes staged."""
+        count = 0
+        episodes = [e for e in episodes if e is not None]
+        for i in range(0, len(episodes), chunk):
+            part = episodes[i:i + chunk]
+            self.offer(part)
+            self.ingest(max_episodes=len(part))
+            count += len(part)
+        return count
+
     # -- buffer management -------------------------------------------
 
     def _step_bytes(self, col):

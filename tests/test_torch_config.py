@@ -4,7 +4,10 @@ package's.
   * the shipped ``config.yaml`` and a handful of variants parse to the
     same ``train_args`` dict in both packages (keys, defaults, derived
     values), and both refuse the same malformed values;
-  * keys of layers the port lacks are refused with "not ported yet";
+  * keys of layers the port lacks are refused with "not ported yet"
+    (inside ``chaos``, the shm-plane and serving-replica keys); the
+    resilience keys (``chaos``, ``supervise_learner``, the WAL) parse
+    as in the JAX package;
   * checkpoints the port writes and indexes resolve to the same resume
     point in both packages, auto and explicit, intact and corrupt;
   * an IMPACT trainer's optimizer and target network survive a
@@ -39,6 +42,12 @@ VARIANTS = {
                "value_target": "VTRACE", "rho_clip": 2.0},
     "pipeline-off": {"pipeline": {"mode": "off"}, "device_replay": "off",
                      "restart_epoch": "auto", "worker": {"num_parallel": 40}},
+    "resilience": {"supervise_learner": True, "wal_flush_interval": 0.5,
+                   "wal_keep_episodes": 300, "preempt_grace_seconds": 3.0,
+                   "max_respawns": 1, "heartbeat_timeout": 10.0,
+                   "chaos": {"kill_prob": 0.2, "max_kills": 1,
+                             "infer_kill_epoch": 1,
+                             "learner_kill_epoch": 2}},
 }
 
 
@@ -75,7 +84,7 @@ def test_both_packages_refuse_the_same_values(bad):
 @pytest.mark.parametrize("key,value", [
     ("mesh", {"dp": 2}), ("distributed", {"num_processes": 2}),
     ("anakin", {"mode": "auto"}), ("serving", {"mode": "on"}),
-    ("chaos", {"kill_interval": 5}), ("supervise_learner", True),
+    ("chaos", {"shm_tear_prob": 0.1}), ("perf", {"mode": "on"}),
     ("generation_opponent", {"past_epochs": 2}), ("status_port", 9000),
 ])
 def test_unported_layers_are_refused(key, value):

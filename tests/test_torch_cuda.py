@@ -201,3 +201,69 @@ def test_fused_replay_step_never_syncs_the_host(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(float(m["nonfinite"]) == 0 for m in metrics)
+
+
+def test_card_warm_start_and_emergency_save(cuda_device, tmp_path,
+                                            monkeypatch):
+    """``warm_start`` (the WAL replay) fills the ring on the card bit for
+    bit as on the CPU; and an emergency save, armed from another thread
+    the way the SIGTERM handler arms it, lands the parameters and Adam
+    state of exactly the step it reports, bit for bit."""
+    import threading
+
+    from handyrl_tpu_torch.config import Config
+    from handyrl_tpu_torch.durability import read_verified
+    from handyrl_tpu_torch.learner import Trainer
+    from handyrl_tpu_torch.models.convert import to_flax
+    from handyrl_tpu_torch.staging import DeviceReplay
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+    from torchfix import make_episodes
+
+    episodes, _ = make_episodes("HungryGeese", 5, seed=7)
+    rings = {dev: DeviceReplay(RING, 8, 1 << 30, dev)
+             for dev in (cuda_device, "cpu")}
+    for ring in rings.values():
+        assert ring.warm_start(episodes, chunk=2) == 5
+    for a, b in zip(tree_leaves(rings[cuda_device].buffers),
+                    tree_leaves(rings["cpu"].buffers)):
+        assert torch.equal(a.cpu(), b)
+
+    monkeypatch.chdir(tmp_path)
+    args = Config.from_dict(
+        {"env_args": {"env": "HungryGeese"},
+         "train_args": {"turn_based_training": False, "batch_size": 16,
+                        "forward_steps": 8, "maximum_episodes": 8,
+                        "compute_dtype": "bfloat16"}}).train_args.to_dict()
+    model = TorchModel(GeeseNet(), device="cpu")
+    model.init_params(seed=0)
+    trainer = Trainer(args, model, device=cuda_device)
+    trainer.device_replay.warm_start(episodes)
+    trainer.epoch = 1
+    state = trainer.device_replay.device_state()
+    after = {}   # step count -> host params after that step
+
+    def trainer_thread():
+        while trainer.steps < 40:
+            trainer._maybe_emergency_save()
+            trainer._replay_step(state)
+            trainer.steps += 1
+            after[trainer.steps] = to_flax(trainer.module)
+
+    thread = threading.Thread(target=trainer_thread)
+    thread.start()
+    while trainer.steps < 5:
+        time.sleep(0.001)
+    event = threading.Event()
+    trainer.emergency = event
+    assert event.wait(30)
+    thread.join(60)
+    saved = read_verified("models/latest.ckpt")
+    steps = saved["steps"]
+    assert 5 <= steps < 40 and saved["epoch"] == 1
+    ref = tree_leaves(after[steps])
+    got = tree_leaves(saved["params"])
+    assert len(ref) == len(got)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    train_state = read_verified("models/train_state.ckpt")
+    assert train_state["steps"] == steps and train_state["epoch"] == 1

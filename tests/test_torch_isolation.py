@@ -2,8 +2,9 @@
 
 A fresh interpreter imports the port, serves one batch on the CPU
 through the inference service, plays one ``--eval`` game through the
-CLI, and imports every module of the training slice and trains three
-steps from the replay ring; afterwards no ``jax*``/``flax*``/``optax*`` or
+CLI, imports every module of the training slice and trains three
+steps from the replay ring, and replays an episode WAL into the ring
+(the resilience slice); afterwards no ``jax*``/``flax*``/``optax*`` or
 ``handyrl_tpu.*`` module may be loaded.  An AST scan of the package
 finds no such import anywhere, lazy ones included.  And the card is
 never replaced by the CPU behind the caller's back.
@@ -91,6 +92,19 @@ CHILD = textwrap.dedent("""
     metrics = [trainer._replay_step(state) for _ in range(3)]
     assert all(float(m["nonfinite"]) == 0 for m in metrics)
 
+    # the resilience slice: the WAL replays into a ring, and every
+    # module it added imports
+    import handyrl_tpu_torch.resilience
+    from handyrl_tpu_torch.durability import EpisodeWAL
+
+    wal = EpisodeWAL("wal", flush_interval=0)
+    for ep in episodes:
+        wal.append(ep)
+    wal.close()
+    staged = trainer.device_replay.warm_start(
+        [ep for _, ep in EpisodeWAL("wal").replay()])
+    assert staged == 2
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -142,13 +156,23 @@ def test_asking_for_the_card_without_one_raises():
         cli_main(["--eval", "none.ckpt", "1", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--train"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--train-server"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
 
 
 def test_cli_refuses_modes_that_are_not_ported(capsys):
-    assert cli_main(["--train-server"]) == 2
+    assert cli_main(["--eval-server"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli_main(["--bogus"]) == 1
     assert cli_main([]) == 1
+
+
+def test_worker_mode_takes_no_device(capsys):
+    """``--worker`` starts only CPU processes: it refuses ``--device``
+    before reading any config."""
+    assert cli_main(["--worker", "2", "--device", "cuda"]) == 1
+    assert cli_main(["-w", "--device=cpu"]) == 1
+    assert "takes no --device" in capsys.readouterr().out
