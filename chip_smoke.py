@@ -23,9 +23,11 @@ from a seed:
                  device replay ring (and a CPU replica of it); at the
                  shipped train_args (128 windows x 16 steps, seat mode,
                  TD/TD): gather parity card vs CPU, three float32 steps
-                 with TF32 off card vs CPU (losses, gradients, parameter
-                 steps), three bf16 steps against them, then the fused
-                 replay step timed with CUDA events and profiled;
+                 card vs CPU against float64 (losses, gradients,
+                 parameter steps; the card's runs with the pinned
+                 algorithm set of ``pinned_f32``: TF32 and cuDNN off),
+                 three bf16 steps against them, then the fused replay
+                 step timed with CUDA events and profiled;
   7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml cut to 3 epochs, the port's ``--eval`` of
                  ``models/3.ckpt``, and a restart from epoch 3 that
@@ -40,7 +42,22 @@ from a seed:
                  ``chaos.learner_kill_epoch: 2`` and ``--worker 6`` in a
                  second process: the guard relaunches the SIGKILLed
                  learner, the worker machine re-enters its session, and
-                 training reaches epoch 3; no worker initializes CUDA.
+                 training reaches epoch 3; no worker initializes CUDA;
+  9. Geister   — GeisterNet (32 filters, DRC 3 x 3) training steps at
+                 the shipped batch (128 windows x (4 burn-in + 16)
+                 steps, turn mode, TD/TD): 64 Geister episodes from a
+                 CPU ``RolloutPool`` into the ring on the card; gather
+                 parity, float32 losses card (``pinned_f32``) vs CPU,
+                 the burn-in gate, bf16 against float32; the fused bf16
+                 step timed, profiled and split by layer;
+ 10. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
+                 config.yaml with ``env: 'Geister'`` and
+                 ``burn_in_steps: 4``, cut to 2 epochs, then ``--eval``
+                 of its checkpoint against ``random``;
+ 11. GRF       — GRFNet (32 filters, DRC 1 x 2) training steps on the
+                 (72, 96, 16) raster: 8 GRFProxy episodes of 256 steps
+                 into a uint8 ring, seat mode, UPGO/TD, 128 x (4 + 16);
+                 the same gates but burn-in, and the same readings.
 
 Every phase prints one ``phaseN {json}`` line and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
@@ -51,12 +68,19 @@ device record.  Exits non-zero, printing no result, where
 Run from the repository root:  python3 chip_smoke.py
 Full outputs land in chiprun_out/chip_smoke/.
 
+``python3 chip_smoke.py --grad-error [draws]`` instead studies phase 6's
+float32 gradient error on the card (ROADMAP C6): per draw, each
+tensor's error against float64 with cuDNN's default algorithms, with
+``cudnn.deterministic``, with the gates' pinned set (``pinned_f32``) and
+on the CPU, and the kernels each card run launches.
+
 ``python3 chip_smoke.py --jax-curve`` instead runs the JAX package's
 ``main.py --train`` on phase 7's config, on the CPU, in a subprocess
 (this script never imports JAX), and prints its per-epoch curve: the
 reference the port's curve is read against.  It needs JAX and no card.
 """
 
+import contextlib
 import json
 import os
 import queue
@@ -96,6 +120,17 @@ PIPELINE = {"mode": "on", "max_batch": 256, "batch_window": 0.002,
             "traj_slots": 4, "traj_slot_mb": 4}  # small shm footprint
 # H100 SXM data sheet: TF32 tensor-core peak and HBM3 bandwidth
 PEAK_TF32_FLOPS, PEAK_BYTES_PER_S = 495e12, 3.35e12
+
+
+def card_line():
+    """Print and return the card's name and power limit, as
+    ``nvidia-smi`` reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    return smi
 
 
 def emit(tag, record):
@@ -537,6 +572,64 @@ def _event_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def profile_steps(torch, step, steps, trace=None):
+    """Kernel launches, device busy time and host copies per ``step()``
+    over ``steps`` calls, from ``torch.profiler``; the chrome trace
+    lands in OUT_DIR/``trace`` when one is named."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    if trace is not None:
+        prof.export_chrome_trace(os.path.join(OUT_DIR, trace))
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    copies = {kind: sum(e.count for e in events if kind in e.key) / steps
+              for kind in ("Memcpy HtoD", "Memcpy DtoH")}
+    return {
+        "steps": steps,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "host_to_device_copies_per_step": copies["Memcpy HtoD"],
+        "device_to_host_copies_per_step": copies["Memcpy DtoH"],
+        "device_busy_ms_per_step": (device_us / steps / 1e3
+                                    if device_us else "not measured"),
+        "device_busy_share": (device_us / window_us if device_us
+                              else "not measured"),
+        "window_ms_per_step": window_us / steps / 1e3,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_us": e.self_device_time_total}
+                        for e in top]}
+
+
+@contextlib.contextmanager
+def pinned_f32(torch):
+    """The algorithm set of the card's float32 comparison runs: TF32
+    off, and cuDNN off, so every convolution is PyTorch's own im2col +
+    cuBLAS SGEMM, a direct sum per output as on the CPU.  With cuDNN
+    on, its heuristics pick FFT convolutions for GeeseNet's float32
+    backward (``fft2d_r2c_32x32``, ``fft2d_c2r_16x16`` ...), whose error
+    scales with the norms of the whole transform rather than of each
+    output's terms: the early blocks' weight gradients then err up to
+    3.3e-4 of their largest element against float64 where the CPU errs
+    6e-6 (``--grad-error``, ROADMAP C6).  The training path keeps
+    cuDNN."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _geese_update(torch, params, device, dtype):
     from handyrl_tpu_torch.models.convert import from_flax
     from handyrl_tpu_torch.models.geese_net import GeeseNet
@@ -558,7 +651,7 @@ def _geese_update(torch, params, device, dtype):
     if dtype == "float64":
         # the reference: the forward in float64 (the batch's float32
         # tensors promote to it in the loss)
-        step.apply_fn = lambda obs: net(obs.to(torch.float64))
+        step.apply_fn = lambda obs, hidden=None: net(obs.to(torch.float64))
     return step, lr
 
 
@@ -622,14 +715,10 @@ def train_steps(torch, episodes, params):
         raise AssertionError(f"card gather differs from the CPU's: "
                              f"{mismatched}")
 
-    # (b) three float32 steps with TF32 off from the same weights and
-    # batches on the card and on the CPU, both held against a float64
-    # CPU run of the same steps
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    # (b) three float32 steps from the same weights and batches on the
+    # card (the pinned algorithm set) and on the CPU, both held against
+    # a float64 CPU run of the same steps
+    with pinned_f32(torch):
         runs = {"card": _geese_update(torch, params, DEV, "float32")[0],
                 "cpu": _geese_update(torch, params, "cpu", "float32")[0],
                 "f64": _geese_update(torch, params, "cpu", "float64")[0]}
@@ -652,6 +741,8 @@ def train_steps(torch, episodes, params):
                           run.loss_and_grads(batch_of[d])[0].items()}
                       for d, run in runs.items()}
             grads = {d: _named(run, "grad") for d, run in runs.items()}
+            if k == 0:
+                grads0_f64 = grads["f64"]
             for run in runs.values():
                 run.apply_grads()
             after = {d: _named(run, "data") for d, run in runs.items()}
@@ -683,16 +774,22 @@ def train_steps(torch, episodes, params):
                 card_vs_cpu_loss = max(
                     abs(m[n] - losses["cpu"][n])
                     / max(abs(losses["cpu"][n]), 1e-12) for n in LOSS_KEYS)
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+    # for the record, not gated: the first step's gradients on the card
+    # with cuDNN's own float32 algorithms (TF32 off), against float64
+    with pinned_f32(torch), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        cudnn_run = _geese_update(torch, params, DEV, "float32")[0]
+        cudnn_run.loss_and_grads(batches["card"][0])
+    cudnn_grad_err = max(_rel_errors(_named(cudnn_run, "grad"),
+                                     grads0_f64).values())
     out["f32_parity"] = {
         "card_vs_cpu_loss_rel_max": card_vs_cpu_loss,
         "vs_float64": err, "factor": F64_FACTOR,
         "floors": {"loss": LOSS_RTOL, "grad": GRAD_TOL,
                    "delta": DELTA_TOL},
         "moved_rel": MOVED_REL,
-        "lr": lr, "f32_totals": f32_totals}
+        "lr": lr, "f32_totals": f32_totals,
+        "card_cudnn_grad_vs_float64": cudnn_grad_err}
     emit("phase6_parity", out["f32_parity"])
     if card_vs_cpu_loss > LOSS_RTOL:
         raise AssertionError(f"f32 losses differ: {out['f32_parity']}")
@@ -752,37 +849,8 @@ def train_steps(torch, episodes, params):
         raise AssertionError("a fused replay step was not finite")
 
     # launches per step and busy share, from torch.profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            fused(state)
-        torch.cuda.synchronize()
-        window_us = 1e6 * (time.perf_counter() - t0)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "train_step_trace.json"))
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    copies = {kind: sum(e.count for e in prof.key_averages()
-                        if kind in e.key) / PROFILED_STEPS
-              for kind in ("Memcpy HtoD", "Memcpy DtoH")}
-    out["profile"] = {
-        "steps": PROFILED_STEPS,
-        "kernel_launches_per_step":
-            sum(e.count for e in kernels) / PROFILED_STEPS,
-        "host_to_device_copies_per_step": copies["Memcpy HtoD"],
-        "device_to_host_copies_per_step": copies["Memcpy DtoH"],
-        "device_busy_ms_per_step": (device_us / PROFILED_STEPS / 1e3
-                                    if device_us else "not measured"),
-        "device_busy_share": (device_us / window_us if device_us
-                              else "not measured"),
-        "top_kernels": [{"name": e.key[:80], "count": e.count,
-                         "device_us": e.self_device_time_total}
-                        for e in top]}
+    out["profile"] = profile_steps(torch, lambda: fused(state),
+                                   PROFILED_STEPS, "train_step_trace.json")
 
     # per-layer times at the step's shapes (CUDA events, mean of 20)
     d = [a.to(DEV) for a in draws[0]]
@@ -836,6 +904,13 @@ def run_training(cmd, cwd, config, timeout=420):
                              start_new_session=True)
     try:
         out, err = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop(child)
+        out, err = child.communicate()
+        with open(os.path.join(OUT_DIR, "timed_out_stdout.txt"), "w") as f:
+            f.write(out + "\n--- stderr ---\n" + err)
+        raise RuntimeError(f"{cmd[3:]} passed its {timeout} s limit:\n"
+                           f"{out[-3000:]}") from None
     finally:
         _stop(child)
     proc = subprocess.CompletedProcess(cmd, child.returncode, out, err)
@@ -1231,6 +1306,585 @@ def _remote(cwd):
     return out
 
 
+# ---------------------------------------------------------------------
+# phases 9 and 11: recurrent training steps from the device replay ring
+# ---------------------------------------------------------------------
+
+GEISTER_EPISODES = 64                   # cut: not a filled ring
+GRF_EPISODES, GRF_MAX_STEPS = 8, 256    # cut: GRF episodes run 1,000
+RECURRENT_WARMUP, RECURRENT_BLOCKS, RECURRENT_BLOCK_STEPS = 5, 3, 8
+RECURRENT_PROFILED = 3
+# burn-in, on the card: the window's steps after the burn-in against a
+# window 4 steps later that starts from the carried hidden state (the
+# same operations on the same card: equal up to float32 rounding)
+BURN_TOL = 1e-5                         # x max(1, max |output|)
+BURN_ROWS = 32                          # windows the burn-in gate runs
+# GRFProxy training as tests/test_grf_proxy.py sets it, at the shipped
+# batch and window
+GRF_ARGS = {"turn_based_training": False, "observation": False,
+            "gamma": 0.993, "burn_in_steps": 4, "policy_target": "UPGO",
+            "value_target": "TD"}
+
+
+def geister_flops_per_row(filters=32, layers=3, repeats=3):
+    """Multiply-adds x 2 of one GeisterNet forward row: the stem, the
+    DRC's gate convs over [x, h], the move, set, value and return
+    heads (norms and elementwise ops add well under 1 %)."""
+    cells = 36
+    macs = cells * 9 * 25 * filters                        # stem
+    macs += layers * repeats * cells * 9 * 2 * filters * 4 * filters
+    macs += cells * 9 * filters * 8 + cells * 8 * 4 + 70   # move, set
+    macs += 2 * (cells * filters * 2 + cells * 2)          # value, return
+    return 2 * macs
+
+
+def grf_flops_per_row(filters=32, layers=1, repeats=2):
+    """The same for GRFNet at the (72, 96, 16) raster."""
+    macs = 36 * 48 * 9 * 16 * filters + 18 * 24 * 9 * filters * filters
+    macs += layers * repeats * 18 * 24 * 9 * 2 * filters * 4 * filters
+    macs += 2 * 18 * 24 * filters * 2 + 18 * 24 * 2 * (9 + 1)
+    return 2 * macs
+
+
+def recurrent_args(overrides):
+    """The shipped config.yaml's train_args with ``overrides``."""
+    args = train_config({})["train_args"]
+    args.update(overrides)
+    return args
+
+
+def pool_episodes(model, env_args, count, seed, lockstep=LOCKSTEP):
+    """``count`` episodes from a lockstep ``RolloutPool`` whose forwards
+    run on ``model``'s device."""
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.generation import RolloutPool
+
+    random.seed(seed)
+    envs = [make_env(env_args) for _ in range(lockstep)]
+    pool = RolloutPool(envs, GEN_ARGS)
+    players = envs[0].players()
+    job = {"role": "g", "player": players,
+           "model_id": {p: 1 for p in players}}
+    while pool.has_free_slot():
+        pool.assign(job, {p: model for p in players})
+    episodes = []
+    while len(episodes) < count:
+        for _verb, episode in pool.step():
+            if episode is None:
+                raise RuntimeError("env failure in generation")
+            episodes.append(episode)
+            pool.assign(job, {p: model for p in players})
+    return episodes
+
+
+def generator_episodes(model, env_args, count, seed):
+    """``count`` episodes from the sequential ``Generator``."""
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.generation import Generator
+
+    random.seed(seed)
+    env = make_env(env_args)
+    gen = Generator(env, GEN_ARGS)
+    players = env.players()
+    job = {"player": players, "model_id": {p: 1 for p in players}}
+    episodes = []
+    while len(episodes) < count:
+        episode = gen.generate({p: model for p in players}, job)
+        if episode is not None:
+            episodes.append(episode)
+    return episodes
+
+
+def _rows(tree, n):
+    """The first ``n`` windows of a batch."""
+    from handyrl_tpu_torch.utils.tree import tree_map_leaves
+
+    return tree_map_leaves(lambda a: a[:n], tree)
+
+
+def _time_slice(tree, lo, hi):
+    """Steps ``lo:hi`` of a batch (``outcome``, of one step, whole)."""
+    from handyrl_tpu_torch.utils.tree import tree_map_leaves
+
+    return {k: (tree_map_leaves(lambda a: a[:, lo:hi], v)
+                if k == "observation" or v.shape[1] > 1 else v)
+            for k, v in tree.items()}
+
+
+def _burn_in_gate(torch, step, batch):
+    """tests/test_burn_in.py's two semantics on the card, float32: the
+    window's steps after the burn-in give the outputs of a window that
+    starts ``b`` steps later from the hidden state carried over, and
+    no gradient reaches the initial hidden state through the burn-in
+    (with burn-in 0 the same check does find a path)."""
+    from handyrl_tpu_torch.ops.losses import (
+        forward_prediction,
+        recurrent_scan,
+    )
+
+    cfg = step.cfg
+    b = cfg.burn_in_steps
+    cfg0 = cfg._replace(burn_in_steps=0)
+    batch = _rows(batch, BURN_ROWS)
+    hidden = step.init_hidden(batch)
+    with torch.no_grad():
+        full = forward_prediction(step.apply_fn, hidden, batch, cfg)
+        _, carried = recurrent_scan(step.apply_fn, hidden,
+                                    _time_slice(batch, 0, b), cfg0)
+        later = forward_prediction(step.apply_fn, carried,
+                                   _time_slice(batch, b, None), cfg0)
+    value_err = max(
+        _max_diff(full[k][:, b:], later[k])
+        / max(1.0, float(later[k].abs().max())) for k in later)
+
+    def hidden_grad(c):
+        h0 = {k: (v + 0.1).requires_grad_()
+              for k, v in step.init_hidden(batch).items()}
+        out = forward_prediction(step.apply_fn, h0, batch, c)
+        # the value heads: the masked policy carries -1e32 entries
+        loss = sum((v[:, c.burn_in_steps:] ** 2).sum()
+                   for k, v in out.items() if k != "policy")
+        grads = torch.autograd.grad(loss, list(h0.values()),
+                                    allow_unused=True)
+        return float(sum(g.abs().sum() for g in grads if g is not None))
+
+    return {"burn_in_steps": b, "value_rel_err": value_err,
+            "tol": BURN_TOL, "hidden_grad_abs_sum": hidden_grad(cfg),
+            "hidden_grad_abs_sum_burn_in_0": hidden_grad(cfg0)}
+
+
+def recurrent_steps(torch, tag, net_cls, params, episodes, args, ring_cfg,
+                    flops_per_row, burn_gate):
+    """Phases 9 and 11: ``episodes`` into the ring on the card (and a
+    CPU replica); gather parity; float32 step-1 losses card vs CPU with
+    TF32 off; the burn-in gate (phase 9); bf16 against float32; then
+    the fused bf16 replay step timed in interleaved blocks, profiled,
+    and split by layer with CUDA events."""
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.ops.losses import LossConfig, compute_loss
+    from handyrl_tpu_torch.ops.targets import compute_target
+    from handyrl_tpu_torch.ops.update import (
+        DEFAULT_LR,
+        UpdateStep,
+        make_optimizer,
+    )
+    from handyrl_tpu_torch.staging import (
+        DeviceReplay,
+        make_replay_update_step,
+    )
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+
+    B, fwd = args["batch_size"], args["forward_steps"]
+    t_win = args["burn_in_steps"] + fwd
+    out = {"episodes": len(episodes),
+           "episode_steps_mean": statistics.mean(
+               e["steps"] for e in episodes),
+           "batch": B, "window": t_win, "rows_per_step": B * t_win}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = DeviceReplay(ring_cfg, len(episodes), 16384 << 20, DEV)
+    card.offer(episodes)
+    card.ingest(max_episodes=10 ** 6)
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    cpu = DeviceReplay(ring_cfg, len(episodes), 16384 << 20, "cpu")
+    cpu.offer(episodes)
+    cpu.ingest(max_episodes=10 ** 6)
+    out.update(ring_episodes=card.size, ring_t_max=card.t_max,
+               ring_mib=card.nbytes / 2 ** 20,
+               ring_obs_dtypes=[str(d) for d in card.obs_dtypes],
+               ring_device=str(card.buffers["ep_len"].device))
+    if not out["ring_device"].startswith(DEV):
+        raise AssertionError(f"{tag}: the ring is not on the card: {out}")
+
+    rng = np.random.default_rng(SEED)
+    slots = rng.integers(0, card.size, B)
+    cands = 1 + np.maximum(0, card.ep_len[slots] - fwd)
+    seats = (rng.integers(0, card.num_players, B) if card.mode == "seat"
+             else np.zeros(B, np.int64))
+    idx = [torch.from_numpy(np.asarray(a, np.int64))
+           for a in (slots, rng.integers(0, cands), seats)]
+    batch = {DEV: card.gather(*[a.to(DEV) for a in idx]),
+             "cpu": cpu.gather(*idx)}
+    out["gather_equal"] = all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves(batch[DEV]), tree_leaves(batch["cpu"])))
+    if not out["gather_equal"]:
+        raise AssertionError(f"{tag}: card gather differs from the CPU's")
+
+    lr = DEFAULT_LR * B * fwd
+
+    def make_step(device, dtype):
+        net = net_cls()
+        net.load_state_dict(from_flax(params, net))
+        net.to(device)
+        return UpdateStep(net, LossConfig.from_config(args),
+                          make_optimizer(net.parameters(), lr), dtype)
+
+    def losses_of(step, b):
+        with torch.no_grad():
+            losses, _ = compute_loss(step.apply_fn, b, step.init_hidden(b),
+                                     step.cfg)
+        return {k: float(v) for k, v in losses.items()}
+
+    # float32, card (pinned algorithm set) vs CPU: the first step's
+    # losses
+    t0 = time.perf_counter()
+    with pinned_f32(torch):
+        f32 = {d: make_step(d, "float32") for d in (DEV, "cpu")}
+        losses = {d: losses_of(f32[d], batch[d]) for d in f32}
+        keys = [k for k in ("p", "v", "r", "ent", "total")
+                if k in losses["cpu"]]
+        rel = {k: abs(losses[DEV][k] - losses["cpu"][k])
+               / max(abs(losses["cpu"][k]), 1e-12) for k in keys}
+        out["f32_parity"] = {"card": losses[DEV], "cpu": losses["cpu"],
+                             "rel": rel, "rtol": LOSS_RTOL}
+        emit(f"{tag}_parity", out["f32_parity"])
+        if max(rel.values()) > LOSS_RTOL:
+            raise AssertionError(f"{tag}: f32 losses differ: {rel}")
+        if burn_gate:
+            out["burn_in"] = _burn_in_gate(torch, f32[DEV], batch[DEV])
+            emit(f"{tag}_burn_in", out["burn_in"])
+            g = out["burn_in"]
+            if (g["value_rel_err"] > BURN_TOL or g["hidden_grad_abs_sum"]
+                    or not g["hidden_grad_abs_sum_burn_in_0"]):
+                raise AssertionError(f"{tag}: burn-in gate: {g}")
+    out["f32_gates_s"] = time.perf_counter() - t0
+    f32_card = losses[DEV]
+    del f32
+    torch.cuda.empty_cache()
+
+    # bf16 against float32 on the same batch
+    step = make_step(DEV, "bfloat16")
+    bf16 = losses_of(step, batch[DEV])
+    scale = (abs(f32_card["p"]) + abs(f32_card["v"])
+             + abs(f32_card.get("r", 0.0))
+             + args["entropy_regularization"] * abs(f32_card["ent"]))
+    out["bf16"] = {"total": bf16["total"], "f32_total": f32_card["total"],
+                   "rel_vs_f32": abs(bf16["total"] - f32_card["total"])
+                   / scale, "rtol": BF16_LOSS_RTOL}
+    if (not np.isfinite(bf16["total"])
+            or out["bf16"]["rel_vs_f32"] > BF16_LOSS_RTOL):
+        raise AssertionError(f"{tag}: bf16 vs f32: {out['bf16']}")
+
+    # steady state: the fused bf16 replay step, timed in blocks that
+    # interleave with the per-layer timings
+    fused = make_replay_update_step(card, step, B, seed=SEED)
+    state = card.device_state()
+    for _ in range(RECURRENT_WARMUP):
+        fused(state)
+    torch.cuda.synchronize()
+    values = torch.rand(B, fwd, batch[DEV]["value"].shape[2], 1,
+                        device=DEV)
+    ones = torch.ones_like(values)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    d = [a.to(DEV) for a in idx]
+    layers = {}
+    step_ms, finite, wall = [], True, 0.0
+    for _ in range(RECURRENT_BLOCKS):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(RECURRENT_BLOCK_STEPS)]
+        metrics = []
+        t0 = time.perf_counter()
+        for start, stop in events:
+            start.record()
+            metrics.append(fused(state))
+            stop.record()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        step_ms += [a.elapsed_time(b) for a, b in events]
+        finite &= all(float(m["nonfinite"]) == 0 for m in metrics)
+        for name, fn in (
+                ("draw", lambda: card.draw(state, gen, B)),
+                ("gather", lambda: card.gather(*d)),
+                ("forward_backward",
+                 lambda: step.loss_and_grads(batch[DEV])),
+                ("td_targets", lambda: compute_target(
+                    "TD", values, values, None, 0.7, 1.0, ones, ones,
+                    ones)),
+                ("clip_adam", step.apply_grads)):
+            layers.setdefault(name, []).append(_event_ms(torch, fn, 3))
+    if not finite:
+        raise AssertionError(f"{tag}: a fused replay step was not finite")
+    rows = out["rows_per_step"]
+    rows_bwd = B * fwd
+    flops = flops_per_row * (rows + 2 * rows_bwd)
+    median = statistics.median(step_ms)
+    out["steady"] = {
+        "steps": len(step_ms), "blocks": RECURRENT_BLOCKS,
+        "step_ms_median": median, "step_ms_p90": _percentile(step_ms, 0.9),
+        "block_medians_ms": [statistics.median(
+            step_ms[i:i + RECURRENT_BLOCK_STEPS]) for i in range(
+                0, len(step_ms), RECURRENT_BLOCK_STEPS)],
+        "steps_per_s": 1e3 / median, "rows_per_s": rows * 1e3 / median,
+        "wall_steps_per_s": len(step_ms) / wall,
+        "forward_flop_per_row": flops_per_row,
+        "model_flop_per_step": flops,
+        "bf16_bound_ms": 1e3 * flops / PEAK_BF16_FLOPS,
+        "bf16_peak_share": flops / (median / 1e3) / PEAK_BF16_FLOPS,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "finite": finite}
+    out["layers_ms"] = {k: statistics.median(v) for k, v in layers.items()}
+    out["layers_ms"]["ring_ingest_per_episode"] = (
+        1e3 * out["ingest_s"] / len(episodes))
+    # no chrome trace: ~10,000 launches a step make one of tens of MB
+    out["profile"] = profile_steps(torch, lambda: fused(state),
+                                   RECURRENT_PROFILED)
+    return out
+
+
+def geister_steps(torch, smi):
+    """Phase 9: GeisterNet (32 filters, DRC 3 x 3) at the shipped batch
+    with burn-in 4, turn mode, TD/TD, bf16."""
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geister_net import GeisterNet
+
+    params = random_flax_params(GeisterNet(), seed=SEED + 9)
+    t0 = time.perf_counter()
+    episodes = pool_episodes(
+        TorchModel.from_flax(GeisterNet(), params, device="cpu"),
+        {"env": "Geister"}, GEISTER_EPISODES, SEED + 9)
+    gen_s = time.perf_counter() - t0
+    args = recurrent_args({"burn_in_steps": 4})
+    ring_cfg = dict(args, transfer_dtype="bfloat16")
+    out = recurrent_steps(torch, "phase9", GeisterNet, params, episodes,
+                          args, ring_cfg, geister_flops_per_row(), True)
+    return dict(out, card=smi, generation_s=gen_s)
+
+
+def grf_steps(torch, smi):
+    """Phase 11: GRFNet (32 filters, DRC 1 x 2) on the (72, 96, 16) GRF
+    raster, uint8 ring, seat mode, UPGO/TD, bf16."""
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.models import RandomModel, TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.grf_net import GRFNet
+
+    env_args = {"env": "GRFProxy", "max_steps": GRF_MAX_STEPS}
+    env = make_env(env_args)
+    env.reset()
+    model = TorchModel(GRFNet(), device="cpu")
+    random_model = RandomModel(model, env.observation(0))
+    t0 = time.perf_counter()
+    episodes = generator_episodes(random_model, env_args, GRF_EPISODES,
+                                  SEED + 11)
+    gen_s = time.perf_counter() - t0
+    params = random_flax_params(GRFNet(), seed=SEED + 11)
+    args = recurrent_args(GRF_ARGS)
+    ring_cfg = dict(args, transfer_dtype="uint8")
+    out = recurrent_steps(torch, "phase11", GRFNet, params, episodes, args,
+                          ring_cfg, grf_flops_per_row(), False)
+    return dict(out, card=smi, generation_s=gen_s)
+
+
+# ---------------------------------------------------------------------
+# phase 10: python -m handyrl_tpu_torch --train on Geister
+# ---------------------------------------------------------------------
+
+# the shipped config.yaml with these two keys changed ...
+GEISTER_CONFIG = {"env": "Geister", "burn_in_steps": 4}
+# ... and what a bounded run forces
+GEISTER_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl"}
+GEISTER_EVAL_GAMES = 20
+
+
+def geister_train_entry(smi):
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="geister_train_")
+    try:
+        return dict(_geister_train_entry(cwd), card=smi)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def _geister_train_entry(cwd):
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    config = train_config(dict(GEISTER_CUTS, burn_in_steps=GEISTER_CONFIG[
+        "burn_in_steps"]))
+    config["env_args"]["env"] = GEISTER_CONFIG["env"]
+    proc, records, wall = run_training(train, cwd, config)
+    _check_run(proc, "geister_train")
+    epochs = config["train_args"]["epochs"]
+    out = {"config": GEISTER_CONFIG, "cuts": GEISTER_CUTS, "wall_s": wall,
+           "epochs": epoch_rows(records)}
+    if [r["epoch"] for r in records] != list(range(epochs)) or \
+            not os.path.exists(os.path.join(cwd, "models",
+                                            f"{epochs}.ckpt")):
+        raise AssertionError(f"{epochs} Geister epochs did not land: "
+                             f"{records}")
+    for r, row in zip(records, out["epochs"]):
+        if r.get("replay") != "device" or not str(
+                r.get("replay_device")).startswith(DEV):
+            raise AssertionError(f"not the ring path on the card: {r}")
+        if row["steps"] <= 0:
+            raise AssertionError(f"an epoch trained no step: {row}")
+        if not all(np.isfinite(r[k]) for k in ("p", "v", "r", "total")):
+            raise AssertionError(f"nonfinite losses: {r}")
+    workers = {int(w): {"cuda_initialized": c == "True",
+                        "fallbacks": int(f), "served_rows": int(s),
+                        "local_rows": int(loc)}
+               for w, c, f, s, loc in re.findall(
+                   r"closed worker (\d+): cuda initialized (\w+), pipeline "
+                   r"fallbacks (\d+), served rows (\d+), local rows (\d+)",
+                   proc.stdout)}
+    out["workers"] = workers
+    if len(workers) != config["train_args"]["worker"]["num_parallel"] or any(
+            w["cuda_initialized"] or w["fallbacks"]
+            for w in workers.values()):
+        raise AssertionError(f"worker fallbacks or CUDA in a worker: "
+                             f"{workers}")
+    proc_eval = subprocess.run(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
+         f"models/{epochs}.ckpt", str(GEISTER_EVAL_GAMES), "2",
+         *CLI_DEVICE], cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    _check_run(proc_eval, "geister_eval")
+    out["eval"] = {"exit": proc_eval.returncode,
+                   "games": GEISTER_EVAL_GAMES, "result_table": [
+                       line for line in proc_eval.stdout.splitlines()
+                       if line.startswith("agent ")]}
+    if not any("win rate" in line for line in out["eval"]["result_table"]):
+        raise AssertionError("--eval of the Geister checkpoint printed no "
+                             "result")
+    return out
+
+
+# ---------------------------------------------------------------------
+# --grad-error: what sets phase 6's float32 gradient error (ROADMAP C6)
+# ---------------------------------------------------------------------
+
+def _rel_errors(grads, ref):
+    """Each tensor's max |grad - ref| over its max |ref|."""
+    return {n: _max_diff(grads[n], g) / float(g.abs().max())
+            for n, g in ref.items()}
+
+
+def _conv_kernels(torch, fn):
+    """CUDA kernels of one ``fn()`` call, from ``torch.profiler``: name
+    (the cuDNN kernel names carry the algorithm), count, device us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return sorted(({"name": e.key[:160], "count": e.count,
+                    "device_us": e.self_device_time_total}
+                   for e in kernels), key=lambda k: -k["device_us"])
+
+
+def grad_error_study(draws=8):
+    """Phase 6's first float32 step (GeeseNet 32x12, 128 x 16 rows, TF32
+    off) on ``draws`` batches: each tensor's gradient error against a
+    float64 CPU run, on the card with cuDNN's default algorithm choice,
+    on the card with ``cudnn.deterministic`` (benchmark off), and on
+    the CPU; and the kernels each card run launches."""
+    import torch
+
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+    from handyrl_tpu_torch.staging import DeviceReplay
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    card_line()
+    params = random_flax_params(GeeseNet(FILTERS, BLOCKS), seed=SEED)
+    model = TorchModel.from_flax(GeeseNet(FILTERS, BLOCKS), params,
+                                 device=DEV)
+    episodes = pool_episodes(model, {"env": "HungryGeese"}, 128, SEED)
+    rings = {}
+    for dev in (DEV, "cpu"):
+        rings[dev] = DeviceReplay(RING_CFG, len(episodes), 4096 << 20, dev)
+        rings[dev].offer(episodes)
+        rings[dev].ingest(max_episodes=10 ** 6)
+    B = TRAIN_ARGS["batch_size"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the card's float32 runs: cuDNN's own choice, cuDNN restricted to
+    # deterministic algorithms, and the gate's pinned set (cuDNN off)
+    modes = {"card": contextlib.nullcontext,
+             "card_deterministic": lambda: torch.backends.cudnn.flags(
+                 enabled=True, deterministic=True, allow_tf32=False),
+             "card_pinned": lambda: pinned_f32(torch)}
+    runs = {name: _geese_update(torch, params, DEV, "float32")[0]
+            for name in modes}
+    runs["cpu"] = _geese_update(torch, params, "cpu", "float32")[0]
+    runs["f64"] = _geese_update(torch, params, "cpu", "float64")[0]
+    compared = (*modes, "cpu")
+    step_s = Counter()
+
+    def grads_of(name, batch):
+        with modes.get(name, contextlib.nullcontext)():
+            t0 = time.perf_counter()
+            runs[name].loss_and_grads(batch)
+            if name in modes:
+                torch.cuda.synchronize()
+            step_s[name] += time.perf_counter() - t0
+        return _named(runs[name], "grad")
+
+    rng = np.random.default_rng(SEED)
+    rows, worst = [], Counter()
+    for k in range(draws):
+        slots = rng.integers(0, rings[DEV].size, B)
+        cands = 1 + np.maximum(0, rings[DEV].ep_len[slots] - 16)
+        idx = [torch.from_numpy(np.asarray(a, np.int64)) for a in
+               (slots, rng.integers(0, cands), rng.integers(0, 4, B))]
+        batch = {dev: rings[dev].gather(*[a.to(dev) for a in idx])
+                 for dev in rings}
+        grads = {name: grads_of(name, batch[DEV if name in modes
+                                            else "cpu"])
+                 for name in runs}
+        row = {"draw": k}
+        for name in compared:
+            errs = _rel_errors(grads[name], grads["f64"])
+            top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            row[name] = {"max": top[0][1], "top": top}
+            worst[(name, top[0][0])] += 1
+        row["card_vs_cpu_max"] = max(_rel_errors(
+            grads["card"], grads["cpu"]).values())
+        rows.append(row)
+        emit("grad_error_draw", row)
+    kernels = {}
+    for name in modes:
+        def one_step(name=name):
+            grads_of(name, batch[DEV])
+        kernels[name] = _conv_kernels(torch, one_step)
+    summary = {
+        "draws": draws,
+        "worst_tensor_counts": {f"{a}:{b}": c for (a, b), c in
+                                worst.most_common()},
+        "max_over_draws": {name: max(r[name]["max"] for r in rows)
+                           for name in compared},
+        "median_over_draws": {name: statistics.median(
+            r[name]["max"] for r in rows) for name in compared},
+        "gate_fails": {name: sum(
+            r[name]["max"] > max(F64_FACTOR * r["cpu"]["max"], GRAD_TOL)
+            for r in rows) for name in modes},
+        "forward_backward_s_per_draw": {
+            name: step_s[name] / draws for name in compared},
+        "kernels": kernels,
+        "device": torch.cuda.get_device_name(0)}
+    with open(os.path.join(OUT_DIR, "grad_error.json"), "w") as f:
+        json.dump({"rows": rows, "summary": summary}, f, indent=1)
+    emit("grad_error_summary", {k: v for k, v in summary.items()
+                                if k != "kernels"})
+    for name, ks in kernels.items():
+        emit(f"grad_error_kernels_{name}", ks[:25])
+    return 0
+
+
 def jax_curve():
     """The JAX package's curve on the phase-7 config, on the CPU:
     ``main.py --train`` in a subprocess (this script imports no JAX)."""
@@ -1267,13 +1921,16 @@ def main():
 
     os.makedirs(OUT_DIR, exist_ok=True)
     report = {}
+    clock = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the previous phase ended."""
+        now = time.perf_counter()
+        elapsed, clock[0] = now - clock[0], now
+        return elapsed
 
     # 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
+    smi = card_line()
     report["phase1"] = {"nvidia_smi": smi,
                         "torch": torch.__version__,
                         "cuda": torch.version.cuda,
@@ -1282,6 +1939,7 @@ def main():
                         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                         "matmul_allow_tf32":
                             torch.backends.cuda.matmul.allow_tf32}
+    report["phase1"]["phase_s"] = lap()
     emit("phase1", report["phase1"])
 
     # 2. weights
@@ -1300,6 +1958,7 @@ def main():
     report["phase2"] = {"params": n_params, "filters": FILTERS,
                         "blocks": BLOCKS, "seed": SEED,
                         "setup_s": time.perf_counter() - t0}
+    report["phase2"]["phase_s"] = lap()
     emit("phase2", report["phase2"])
 
     # 3. forward parity + timing
@@ -1328,6 +1987,7 @@ def main():
             trace="forward_trace_64.json" if rows == 64 else None)
             for rows in BUCKETS],
     }
+    report["phase3"]["phase_s"] = lap()
     emit("phase3", report["phase3"])
     if not finite or shapes != {"policy": [PARITY_ROWS, 4],
                                 "value": [PARITY_ROWS, 1]}:
@@ -1361,6 +2021,7 @@ def main():
             served["served_vs_local_max_abs_diff"],
         "per_worker": served["workers"],
     }
+    report["phase4"]["phase_s"] = lap()
     emit("phase4", report["phase4"])
     for w in workers:
         if w["fallbacks"] or w["local_rows"]:
@@ -1385,18 +2046,22 @@ def main():
 
     # 5. --eval
     report["phase5"] = eval_entry(params)
+    report["phase5"]["phase_s"] = lap()
     emit("phase5", report["phase5"])
 
     # 6. GeeseNet training steps on the card
     report["phase6"] = train_steps(torch, drained, params)
+    report["phase6"]["phase_s"] = lap()
     emit("phase6", report["phase6"])
 
     # 7. --train on the shipped config, then a restart
     report["phase7"] = train_entry()
+    report["phase7"]["phase_s"] = lap()
     emit("phase7", report["phase7"])
 
     # 8. resilience: chaos drills and SIGTERM, then remote workers
     report["phase8"] = p8 = resilience_entry()
+    p8["phase_s"] = lap()
     emit("phase8", p8)
     a, b = p8["drills"], p8["remote"]
     print(f"resilience: gather respawns {a['gather_respawns']}, service "
@@ -1408,6 +2073,32 @@ def main():
           f"after the learner started; remote: {b['guard_relaunches']} "
           f"guard relaunch, {b['session_reentries']} session re-entry, "
           f"{len(b['workers'])} worker reports, none on CUDA", flush=True)
+
+    # 9. GeisterNet training steps on the card at full width
+    report["phase9"] = p9 = geister_steps(torch, smi)
+    p9["phase_s"] = lap()
+    emit("phase9", p9)
+
+    # 10. --train on Geister, then --eval of its checkpoint
+    report["phase10"] = p10 = geister_train_entry(smi)
+    p10["phase_s"] = lap()
+    emit("phase10", p10)
+
+    # 11. GRFNet training steps on the GRF raster
+    report["phase11"] = p11 = grf_steps(torch, smi)
+    p11["phase_s"] = lap()
+    emit("phase11", p11)
+    for tag, p in (("GeisterNet", p9), ("GRFNet", p11)):
+        st, prof = p["steady"], p["profile"]
+        print(f"{tag}: {st['step_ms_median']:.2f} ms/step median "
+              f"(p90 {st['step_ms_p90']:.2f}), "
+              f"{prof['kernel_launches_per_step']:.0f} launches and "
+              f"{prof['device_busy_ms_per_step']} kernel ms per step, "
+              f"peak {st['max_memory_allocated_bytes'] / 2 ** 30:.2f} GiB "
+              f"on {smi}", flush=True)
+    print("Geister --train: " + ", ".join(
+        f"epoch {r['epoch']} {r['steps']} steps {r['epoch_wall_s']:.1f} s "
+        f"win rate {r['win_rate']}" for r in p10["epochs"]), flush=True)
 
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
@@ -1425,4 +2116,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--jax-curve"]:
         sys.exit(jax_curve())
+    if sys.argv[1:2] == ["--grad-error"]:
+        sys.exit(grad_error_study(*map(int, sys.argv[2:3])))
     sys.exit(main())

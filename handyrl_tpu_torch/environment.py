@@ -14,8 +14,7 @@ with like:
     inside;
   * ``net()`` returns a ``torch.nn.Module`` of this package.
 
-The port registers the envs it has nets for; other envs (Geister,
-ParallelTicTacToe, GRFProxy) come with their nets in later slices.
+The registry names the same envs as the JAX package's.
 """
 
 import importlib
@@ -24,7 +23,10 @@ import importlib
 # mirroring HandyRL's handyrl/environment.py:17-36.
 ENV_REGISTRY = {
     "TicTacToe": "handyrl_tpu_torch.envs.tictactoe",
+    "ParallelTicTacToe": "handyrl_tpu_torch.envs.parallel_tictactoe",
+    "Geister": "handyrl_tpu_torch.envs.geister",
     "HungryGeese": "handyrl_tpu_torch.envs.kaggle.hungry_geese",
+    "GRFProxy": "handyrl_tpu_torch.envs.grf_proxy",
 }
 
 

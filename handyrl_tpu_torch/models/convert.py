@@ -25,18 +25,23 @@ import torch
 
 from ..utils.tree import flatten_params, unflatten_params
 from .geese_net import GeeseNet
+from .geister_net import GeisterNet
+from .grf_net import GRFNet
 from .tictactoe_net import TicTacToeNet
 
 CONV, DENSE, VECTOR = "conv", "dense", "vector"
 
 
+def _norm(flax, torch_name):
+    """GroupNorm: Flax ``scale``/``bias`` -> ``weight``/``bias``."""
+    return [(f"{flax}/scale", f"{torch_name}.weight", VECTOR),
+            (f"{flax}/bias", f"{torch_name}.bias", VECTOR)]
+
+
 def _conv_norm(flax, torch_prefix):
     """A conv without bias followed by GroupNorm (TorusConv, ConvBlock)."""
-    return [
-        (f"{flax}/Conv_0/kernel", f"{torch_prefix}.conv.weight", CONV),
-        (f"{flax}/GroupNorm_0/scale", f"{torch_prefix}.norm.weight", VECTOR),
-        (f"{flax}/GroupNorm_0/bias", f"{torch_prefix}.norm.bias", VECTOR),
-    ]
+    return ([(f"{flax}/Conv_0/kernel", f"{torch_prefix}.conv.weight", CONV)]
+            + _norm(f"{flax}/GroupNorm_0", f"{torch_prefix}.norm"))
 
 
 def _head(flax, torch_prefix):
@@ -46,6 +51,20 @@ def _head(flax, torch_prefix):
         (f"{flax}/Conv_0/bias", f"{torch_prefix}.conv.bias", VECTOR),
         (f"{flax}/Dense_0/kernel", f"{torch_prefix}.fc.weight", DENSE),
     ]
+
+
+def _drc(flax, torch_prefix, drc):
+    """DRC: one gate conv (kernel HWIO ``(k, k, cin + C, 4C)``, bias)
+    per ConvLSTM cell."""
+    entries = []
+    for i in range(len(drc.cells)):
+        cell = f"{flax}/ConvLSTMCell_{i}/Conv_0"
+        entries += [
+            (f"{cell}/kernel", f"{torch_prefix}.cells.{i}.conv.weight",
+             CONV),
+            (f"{cell}/bias", f"{torch_prefix}.cells.{i}.conv.bias",
+             VECTOR)]
+    return entries
 
 
 def flax_layout(module):
@@ -62,6 +81,27 @@ def flax_layout(module):
                    ("Conv_0/bias", "stem.bias", VECTOR)]
         for i in range(len(module.blocks)):
             entries += _conv_norm(f"ConvBlock_{i}", f"blocks.{i}")
+        entries += _head("PolicyHead_0", "policy")
+        entries += _head("ValueHead_0", "value")
+        return entries
+    if isinstance(module, GeisterNet):
+        entries = [("Conv_0/kernel", "stem.weight", CONV)]
+        entries += _norm("GroupNorm_0", "stem_norm")
+        entries += _drc("DRC_0", "drc", module.drc)
+        entries += [("Conv_1/kernel", "move_conv.weight", CONV)]
+        entries += _norm("GroupNorm_1", "move_norm")
+        entries += [("Conv_2/kernel", "move_out.weight", CONV),
+                    ("Dense_0/kernel", "set_head.weight", DENSE),
+                    ("Dense_0/bias", "set_head.bias", VECTOR)]
+        entries += _head("ValueHead_0", "value")
+        entries += _head("ValueHead_1", "ret")
+        return entries
+    if isinstance(module, GRFNet):
+        entries = []
+        for i in range(len(module.stem)):
+            entries += [(f"Conv_{i}/kernel", f"stem.{i}.weight", CONV)]
+            entries += _norm(f"GroupNorm_{i}", f"stem_norm.{i}")
+        entries += _drc("DRC_0", "drc", module.drc)
         entries += _head("PolicyHead_0", "policy")
         entries += _head("ValueHead_0", "value")
         return entries

@@ -25,7 +25,12 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..utils.tree import tree_leaves, tree_map_leaves
+from ..utils.tree import (
+    tree_flatten,
+    tree_leaves,
+    tree_map_leaves,
+    tree_unflatten,
+)
 from .convert import from_flax, random_flax_params
 
 
@@ -99,10 +104,14 @@ class TorchModel:
         return self
 
     def init_hidden(self, batch_shape=None):
-        """Zero hidden state, or None for feed-forward nets."""
-        if hasattr(self.module, "init_hidden"):
-            return self.module.init_hidden(tuple(batch_shape or ()))
-        return None
+        """Zero hidden state as float32 numpy leaves with leading
+        ``batch_shape`` dims (``None``/``[]``: no batch dim), or None
+        for feed-forward nets."""
+        if not self.is_recurrent:
+            return None
+        hidden = self.module.init_hidden(tuple(batch_shape or ()),
+                                         device="cpu")
+        return tree_map_leaves(lambda t: t.numpy(), hidden)
 
     @property
     def is_recurrent(self) -> bool:
@@ -110,7 +119,8 @@ class TorchModel:
 
     # -- forward ------------------------------------------------------
     def forward_numpy(self, obs, hidden=None) -> Dict[str, np.ndarray]:
-        """Batched forward: numpy leaves in, numpy dict out."""
+        """Batched forward: numpy leaves in, numpy dict out (a
+        recurrent net's new state under ``"hidden"``, float32)."""
         return forward_numpy(self.module, self.device, obs, hidden)
 
     def inference(self, obs, hidden=None) -> Dict[str, Any]:
@@ -150,22 +160,22 @@ def forward_numpy(module, device, obs, hidden=None):
 
 
 def _download(out):
-    """Move a dict of ``(N, ...)`` device tensors to numpy with one
-    device-to-host copy (float32 outputs packed side by side)."""
-    keys = sorted(out)
-    tensors = [out[k] for k in keys]
+    """Move a tree of ``(N, ...)`` device tensors (the heads, and a
+    recurrent net's hidden dict) to numpy with one device-to-host copy
+    (float32 leaves packed side by side)."""
+    tensors, treedef = tree_flatten(out)
     if any(t.dtype != torch.float32 for t in tensors):
-        return {k: out[k].cpu().numpy() for k in keys}
+        return tree_map_leaves(lambda t: t.cpu().numpy(), out)
     n = tensors[0].shape[0]
     flat = torch.cat([t.reshape(n, -1) for t in tensors], dim=1)
     host = flat.cpu().numpy()
-    result, lo = {}, 0
-    for k, t in zip(keys, tensors):
+    leaves, lo = [], 0
+    for t in tensors:
         width = int(np.prod(t.shape[1:], dtype=np.int64))
-        result[k] = np.ascontiguousarray(
-            host[:, lo:lo + width]).reshape(t.shape)
+        leaves.append(np.ascontiguousarray(
+            host[:, lo:lo + width]).reshape(t.shape))
         lo += width
-    return result
+    return tree_unflatten(treedef, leaves)
 
 
 class RandomModel:

@@ -2,6 +2,8 @@
 
 The counterpart of ``handyrl_tpu.ops.losses``:
   * feed-forward nets run one flattened forward over ``(B*T*P, ...)``;
+    recurrent nets step over T with observation-mask hidden blending,
+    turn-based hidden gathering and gradient-free burn-in;
   * losses: TD/MC/UPGO/V-Trace targets on detached values, importance
     ratios clipped at ``rho_clip``/``c_clip``, two-player zero-sum value
     symmetrization, terminal outcome bootstrap, entropy regularization
@@ -10,16 +12,19 @@ The counterpart of ``handyrl_tpu.ops.losses``:
     network's policy and swaps the policy loss for a two-sided
     surrogate clip.
 
-Where the JAX package calls ``lax.stop_gradient`` this module detaches.
-The recurrent branch of ``forward_prediction`` (the scan with burn-in
-and hidden blending) comes with the recurrent slice.
+Where the JAX package calls ``lax.stop_gradient`` this module detaches
+(or, for the burn-in steps of a recurrent net, runs under
+``torch.no_grad()``).  The JAX package's ``lax.scan`` over time is a
+Python loop here.
 """
 
+import contextlib
 from typing import Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.tree import tree_map_leaves
 from .targets import compute_target
 
 # reference defaults for the importance-ratio clips; the live values
@@ -77,21 +82,35 @@ class LossConfig(NamedTuple):
         )
 
 
+def _flatten_lead(tree, n):
+    return tree_map_leaves(
+        lambda a: a.reshape((-1,) + tuple(a.shape[n:])), tree)
+
+
 def forward_prediction(apply_fn: Callable, hidden, batch,
                        cfg: LossConfig) -> Dict[str, torch.Tensor]:
     """Run the net over a ``(B, T, P_in, ...)`` batch ->
     ``(B, T, P_in/P, ...)`` float32 outputs, masked.
 
-    ``apply_fn(obs_flat)`` is the net's forward on ``(N, ...)``
-    observations (see :func:`..ops.update.make_apply_fn`)."""
-    if hidden is not None:
-        raise NotImplementedError(
-            "recurrent nets are not ported yet (the recurrent slice)")
+    ``apply_fn(obs, hidden)`` is the net's forward on ``(N, ...)``
+    observation leaves (see :func:`..ops.update.make_apply_fn`).
+    ``hidden`` is the initial ``(B, P, ...)`` recurrent state or None.
+
+    A recurrent net runs step by step over T (the JAX package's
+    ``lax.scan``): the carried hidden is zeroed where the player did
+    not observe, so an episode start inside the window restarts the
+    recurrence; the net's new hidden is written into the observed
+    seats only; the first ``burn_in_steps`` steps run under
+    ``torch.no_grad()``, the JAX package's ``stop_gradient`` on their
+    outputs and next hidden."""
     observations = batch["observation"]
     B, T, P_in = batch["action"].shape[:3]
-    out = apply_fn(observations.reshape((-1,) + observations.shape[3:]))
-    outputs = {k: v.reshape((B, T, P_in) + v.shape[1:])
-               for k, v in out.items() if v is not None}
+    if hidden is None:
+        out = apply_fn(_flatten_lead(observations, 3), None)
+        outputs = {k: v.reshape((B, T, P_in) + v.shape[1:])
+                   for k, v in out.items() if v is not None}
+    else:
+        outputs, _ = recurrent_scan(apply_fn, hidden, batch, cfg)
 
     # mask heads: policy by turn, scalar heads by observation
     result = {}
@@ -105,6 +124,47 @@ def forward_prediction(apply_fn: Callable, hidden, batch,
         else:
             result[k] = o * batch["observation_mask"]
     return result
+
+
+def recurrent_scan(apply_fn, hidden, batch, cfg):
+    """The recurrent net stepped over the batch's T steps from the
+    ``(B, P, ...)`` state ``hidden``: ``(outputs, hidden after step
+    T)``, the outputs ``(B, T, P_in, ...)`` and not yet masked."""
+    observations = batch["observation"]
+    omask_full = batch["observation_mask"]  # (B, T, P, 1)
+    B, T, P_in = batch["action"].shape[:3]
+    # the single acting seat in turn-based mode, every player otherwise
+    gather_turn = cfg.turn_based_training and not cfg.observation
+    P_model = 1 if gather_turn else omask_full.shape[2]
+    steps = []
+    for t in range(T):
+        burn = t < cfg.burn_in_steps
+        with torch.no_grad() if burn else contextlib.nullcontext():
+            omask_t = omask_full[:, t]  # (B, P, 1)
+
+            def mask_like(h):
+                return omask_t.reshape(
+                    omask_t.shape[:2] + (1,) * (h.ndim - 2))
+
+            h_masked = {k: h * mask_like(h) for k, h in hidden.items()}
+            if gather_turn:
+                # only the turn player's hidden is non-zero: the P-sum
+                # gathers it into the single acting seat
+                h_in = {k: h.sum(dim=1) for k, h in h_masked.items()}
+            else:
+                h_in = _flatten_lead(h_masked, 2)  # (B*P, ...)
+            obs_t = tree_map_leaves(lambda a: a[:, t], observations)
+            out = apply_fn(_flatten_lead(obs_t, 2), h_in)
+            next_hidden = out.pop("hidden")
+            steps.append({k: v.reshape((B, P_in) + v.shape[1:])
+                          for k, v in out.items() if v is not None})
+            # write the new hidden into observed seats only
+            hidden = {
+                k: h * (1 - mask_like(h)) + next_hidden[k].reshape(
+                    (B, P_model) + next_hidden[k].shape[1:]) * mask_like(h)
+                for k, h in hidden.items()}
+    return ({k: torch.stack([o[k] for o in steps], dim=1)
+             for k in steps[0]}, hidden)
 
 
 def _huber(x):

@@ -25,6 +25,7 @@ set on the optimizer's ``param_groups`` between epochs.
 
 import torch
 
+from ..utils.tree import tree_leaves, tree_map_leaves
 from .losses import LossConfig, compute_loss
 
 DEFAULT_LR = 3e-8
@@ -49,25 +50,36 @@ def set_learning_rate(optimizer, lr):
 
 
 def make_apply_fn(module, compute_dtype="float32"):
-    """The net's forward for the update step: ``obs -> outputs``.
+    """The net's forward for the update step: ``(obs, hidden) ->
+    outputs``, observations and hidden as trees of ``(N, ...)``
+    tensors (``hidden`` None for a feed-forward net).
 
     With ``compute_dtype: bfloat16`` only the forward runs in low
     precision: it runs under ``torch.autocast`` (convolutions and
     matmuls in bf16; autocast keeps GroupNorm, softmax and reductions
     in float32), the parameters stay float32, and every output comes
     back as float32, so the loss math and the Adam state keep full
-    precision."""
+    precision.  As in the JAX step, the observations and the hidden
+    state are cast to bf16 on the way in and every output, the new
+    hidden included, back to float32 on the way out: a recurrent
+    net's carry is float32 between steps, and inside a step its
+    ConvLSTM gates (the conv's output, the sigmoids and tanhs and the
+    cell update) run in bf16."""
     low = str(compute_dtype) == "bfloat16"
     if not low and str(compute_dtype) != "float32":
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    dtype = torch.bfloat16 if low else torch.float32
 
-    def apply_fn(obs):
-        if low:
-            with torch.autocast(obs.device.type, dtype=torch.bfloat16):
-                out = module(obs.to(torch.bfloat16))
-        else:
-            out = module(obs.float())
-        return {k: v.float() for k, v in out.items() if v is not None}
+    def cast(tree):
+        return tree_map_leaves(lambda a: a.to(dtype), tree)
+
+    def apply_fn(obs, hidden=None):
+        device_type = tree_leaves(obs)[0].device.type
+        with torch.autocast(device_type, dtype=torch.bfloat16,
+                            enabled=low):
+            out = module(cast(obs), cast(hidden))
+        return {k: tree_map_leaves(lambda v: v.float(), v)
+                for k, v in out.items() if v is not None}
 
     return apply_fn
 
@@ -112,10 +124,20 @@ class UpdateStep:
             else make_apply_fn(target_module, compute_dtype))
         self.count = 0
 
+    def init_hidden(self, batch):
+        """A recurrent net's zero ``(B, P, ...)`` state for ``batch``,
+        built on the batch's device; None for a feed-forward net."""
+        if not hasattr(self.module, "init_hidden"):
+            return None
+        value = batch["value"]  # (B, T, P, 1)
+        return self.module.init_hidden((value.shape[0], value.shape[2]),
+                                       device=value.device)
+
     def loss_and_grads(self, batch):
         """Forward + backward; the gradients land in ``param.grad``."""
         self.optimizer.zero_grad(set_to_none=True)
-        losses, dcnt = compute_loss(self.apply_fn, batch, None, self.cfg,
+        losses, dcnt = compute_loss(self.apply_fn, batch,
+                                    self.init_hidden(batch), self.cfg,
                                     target_apply_fn=self.target_apply_fn)
         losses["total"].backward()
         return losses, dcnt

@@ -254,6 +254,13 @@ def _spawn_worker(conn, args, wid):
     # a gather that exits terminates its daemonic workers: unwind, so
     # the exit report (CUDA state, pipeline counters) still prints
     signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    # one intra-op thread per worker: the fleet is one process per
+    # core, and torch's default pool of a thread per core in every
+    # worker oversubscribes the host once workers run their own
+    # forwards (a recurrent net is never served)
+    import torch
+
+    torch.set_num_threads(1)
     Worker(args, conn, wid).run()
 
 

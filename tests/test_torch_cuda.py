@@ -267,3 +267,124 @@ def test_card_warm_start_and_emergency_save(cuda_device, tmp_path,
         assert a.dtype == b.dtype and np.array_equal(a, b)
     train_state = read_verified("models/train_state.ckpt")
     assert train_state["steps"] == steps and train_state["epoch"] == 1
+
+
+def _geister_obs(n, seed=0):
+    rng = np.random.default_rng(seed)
+    env = make_env({"env": "Geister"})
+    obs = []
+    while len(obs) < n:
+        env.reset()
+        for _ in range(int(rng.integers(0, 30))):
+            if env.terminal():
+                break
+            env.step({p: env.legal_actions(p)[int(rng.integers(
+                len(env.legal_actions(p))))] for p in env.turns()})
+        obs.extend(env.observation(p) for p in env.players())
+    return {k: np.stack([o[k] for o in obs[:n]]) for k in obs[0]}
+
+
+def test_card_recurrent_forward_matches_cpu(cuda_device):
+    """GeisterNet (32 filters, DRC 3 x 3) and GRFNet at the (72, 96, 16)
+    raster, from a non-zero hidden state, TF32 off: every head and every
+    new hidden leaf agree within 1e-4 of the output's magnitude."""
+    from handyrl_tpu_torch.models.geister_net import GeisterNet
+    from handyrl_tpu_torch.models.grf_net import GRFNet
+
+    rng = np.random.default_rng(1)
+    cases = [(GeisterNet(), _geister_obs(32)),
+             (GRFNet(), (rng.random((8, 72, 96, 16)) > 0.9).astype(
+                 np.float32))]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for module, obs in cases:
+            params = random_flax_params(module, seed=2)
+            card = TorchModel.from_flax(module, params, device=cuda_device)
+            cpu = TorchModel.from_flax(type(module)(), params, device="cpu")
+            n = len(next(iter(obs.values()))) if isinstance(obs, dict) \
+                else len(obs)
+            hidden = {k: (0.5 * rng.standard_normal(v.shape)).astype(
+                np.float32) for k, v in cpu.init_hidden([n]).items()}
+            ref = cpu.inference_batch(obs, hidden)
+            out = card.inference_batch(obs, hidden)
+            for key in ref:
+                pairs = (ref[key].items() if key == "hidden"
+                         else [(key, ref[key])])
+                got = out[key]
+                for name, value in pairs:
+                    have = got[name] if key == "hidden" else got
+                    assert have.dtype == np.float32
+                    scale = max(1.0, float(np.abs(value).max()))
+                    np.testing.assert_allclose(have, value, rtol=0,
+                                               atol=1e-4 * scale,
+                                               err_msg=name)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_card_recurrent_update_step_matches_cpu(cuda_device):
+    """One float32 GeisterNet step (turn mode, burn-in 4) from the ring
+    on the card and on the CPU, TF32 off: the ring gathers the same
+    batch exactly, the losses agree within 1e-4 relative and every
+    parameter moves the same within 0.05 x lr where the gradient
+    exceeds 1e-6."""
+    from handyrl_tpu_torch.models.geister_net import GeisterNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+    from handyrl_tpu_torch.staging import DeviceReplay
+    from torchfix import make_episodes
+
+    narrow = {"filters": 8, "drc_layers": 2, "drc_repeats": 2}
+    episodes, _ = make_episodes("Geister", 3, seed=3,
+                                net=GeisterNet(**narrow))
+    ring_cfg = {"turn_based_training": True, "observation": False,
+                "forward_steps": 8, "burn_in_steps": 4,
+                "transfer_dtype": "bfloat16", "compute_dtype": "float32"}
+    loss = dict(LOSS, turn_based_training=True, burn_in_steps=4)
+    rings = {}
+    for dev in (cuda_device, "cpu"):
+        rings[dev] = DeviceReplay(ring_cfg, 4, 1 << 30, dev)
+        rings[dev].offer(episodes)
+        rings[dev].ingest()
+    rng = np.random.default_rng(0)
+    idx = [torch.from_numpy(a) for a in (
+        rng.integers(0, 3, 16), rng.integers(0, 20, 16),
+        np.zeros(16, np.int64))]
+    batches = {dev: rings[dev].gather(*[a.to(dev) for a in idx])
+               for dev in rings}
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+    for a, b in zip(tree_leaves(batches[cuda_device]),
+                    tree_leaves(batches["cpu"])):
+        assert torch.equal(a.cpu(), b)
+
+    lr = 1e-3
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        params = random_flax_params(GeisterNet(**narrow), seed=4)
+        steps = {}
+        for dev in rings:
+            net = TorchModel.from_flax(GeisterNet(**narrow), params,
+                                       device=dev).module
+            steps[dev] = UpdateStep(net, LossConfig.from_config(loss),
+                                    make_optimizer(net.parameters(), lr))
+        before = {d: [p.detach().cpu().clone()
+                      for p in steps[d].module.parameters()] for d in steps}
+        metrics = {d: steps[d](batches[d]) for d in steps}
+        for key in ("p", "v", "r", "ent", "total"):
+            ref = float(metrics["cpu"][key])
+            assert abs(float(metrics[cuda_device][key]) - ref) \
+                <= 1e-4 * max(abs(ref), 1.0), key
+        for pc, ph, bc, bh in zip(steps[cuda_device].module.parameters(),
+                                  steps["cpu"].module.parameters(),
+                                  before[cuda_device], before["cpu"]):
+            moved = ph.grad.abs() > 1e-6
+            err = ((pc.detach().cpu() - bc) - (ph.detach() - bh)).abs()
+            if moved.any():
+                assert float(err[moved].max()) <= 0.05 * lr
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev

@@ -5,7 +5,9 @@ resets, food spawns, action draws), so with the same seed and the same
 weights they must play the same games: identical actions and
 observations at every step, and recorded behavior probabilities and
 values within ``1e-5`` (the forward tolerance of
-test_torch_models.py, carried through a float32 softmax).
+test_torch_models.py, carried through a float32 softmax).  The
+recurrent GeisterNet plays through both engines with its hidden state
+carried, with and without ``observation``.
 """
 
 import bz2
@@ -14,16 +16,19 @@ import random
 
 import jax
 import numpy as np
+import pytest
 
 from handyrl_tpu.environment import make_env as jax_make_env
 from handyrl_tpu.generation import Generator as JaxGenerator
 from handyrl_tpu.generation import RolloutPool as JaxRolloutPool
 from handyrl_tpu.models import TPUModel
 from handyrl_tpu.models.geese_net import GeeseNet as FlaxGeeseNet
+from handyrl_tpu.models.geister_net import GeisterNet as FlaxGeisterNet
 from handyrl_tpu_torch.environment import make_env
 from handyrl_tpu_torch.generation import Generator, RolloutPool
 from handyrl_tpu_torch.models import TorchModel
 from handyrl_tpu_torch.models.geese_net import GeeseNet
+from handyrl_tpu_torch.models.geister_net import GeisterNet
 from torchfix import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
@@ -40,10 +45,12 @@ def _models(env_name, flax_net, torch_net, seed=0):
     return jax_model, TorchModel.from_flax(torch_net, params, device="cpu")
 
 
-def _run_pool(pool_cls, env_factory, model, k, n, seed):
+def _run_pool(pool_cls, env_factory, model, k, n, seed,
+              env_args=None, args=ARGS):
     random.seed(seed)
-    envs = [env_factory({"env": "HungryGeese"}) for _ in range(k)]
-    pool = pool_cls(envs, ARGS)
+    envs = [env_factory(env_args or {"env": "HungryGeese"})
+            for _ in range(k)]
+    pool = pool_cls(envs, args)
     players = envs[0].players()
     job = {"role": "g", "player": players,
            "model_id": {p: 1 for p in players}}
@@ -79,7 +86,10 @@ def _assert_same_episodes(ours, theirs):
                 if obs is None:
                     assert mb["observation"][p] is None
                     continue
-                np.testing.assert_array_equal(obs, mb["observation"][p])
+                for x, y in zip(jax.tree.leaves(obs),
+                                jax.tree.leaves(mb["observation"][p]),
+                                strict=True):
+                    np.testing.assert_array_equal(x, y)
                 np.testing.assert_allclose(
                     ma["selected_prob"][p], mb["selected_prob"][p],
                     rtol=0, atol=TOL)
@@ -120,3 +130,47 @@ def test_generator_plays_the_jax_generators_games():
         episodes.append([gen.execute({p: model for p in range(4)}, job)
                          for _ in range(2)])
     assert _assert_same_episodes(*episodes) > 5
+
+
+# the recurrent net, narrowed: the pool carries a (K*P, ...) hidden
+# state, advances only the rows that observed, zeroes a slot's rows when
+# a new episode enters it; the Generator carries one per seat
+RECURRENT = {
+    "Geister": ({"env": "Geister"}, FlaxGeisterNet, GeisterNet,
+                {"filters": 8, "drc_layers": 2, "drc_repeats": 2}),
+}
+
+
+@pytest.mark.parametrize("observation", [False, True])
+@pytest.mark.parametrize("name", sorted(RECURRENT))
+def test_recurrent_rollout_pool_plays_the_jax_pools_games(name,
+                                                          observation):
+    env_args, flax_cls, torch_cls, kwargs = RECURRENT[name]
+    jax_model, torch_model = _models(env_args["env"], flax_cls(**kwargs),
+                                     torch_cls(**kwargs), seed=4)
+    args = dict(ARGS, observation=observation)
+    runs = [_run_pool(pool_cls, factory, model, k=3, n=4, seed=41,
+                      env_args=env_args, args=args)
+            for pool_cls, factory, model in (
+                (RolloutPool, make_env, torch_model),
+                (JaxRolloutPool, jax_make_env, jax_model))]
+    assert _assert_same_episodes(*runs) > 40
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT))
+def test_recurrent_generator_plays_the_jax_generators_games(name):
+    env_args, flax_cls, torch_cls, kwargs = RECURRENT[name]
+    jax_model, torch_model = _models(env_args["env"], flax_cls(**kwargs),
+                                     torch_cls(**kwargs), seed=5)
+    episodes = []
+    for env_factory, gen_cls, model in (
+            (make_env, Generator, torch_model),
+            (jax_make_env, JaxGenerator, jax_model)):
+        random.seed(51)
+        env = env_factory(env_args)
+        players = env.players()
+        job = {"player": players, "model_id": {p: 1 for p in players}}
+        gen = gen_cls(env, ARGS)
+        episodes.append([gen.execute({p: model for p in players}, job)
+                         for _ in range(2)])
+    assert _assert_same_episodes(*episodes) > 20

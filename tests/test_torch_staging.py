@@ -3,7 +3,9 @@
   * ``gather`` on injected ``(slots, tstarts, seats)`` equals the JAX
     ``DeviceReplay._gather_batch`` in all three modes (turn, seat,
     all) and with each observation wire dtype, exactly (the bf16
-    observations compared as their float32 values);
+    observations compared as their float32 values), also for Geister's
+    dict observations with burn-in 4 and the GRF raster in seat mode;
+    after a T_max growth (Geister) and under the byte budget (GRF);
   * FIFO eviction, T_max growth and the byte budget;
   * a batched ingest leaves the ring bit-identical to single appends;
   * a chi-squared check of the on-device draw: triangular recency over
@@ -17,13 +19,21 @@ import torch
 from scipy import stats
 
 from handyrl_tpu.staging import DeviceReplay as JaxReplay
+from handyrl_tpu_torch.models.geister_net import GeisterNet
+from handyrl_tpu_torch.models.grf_net import GRFNet
 from handyrl_tpu_torch.staging import DeviceReplay, make_replay_update_step
 from handyrl_tpu_torch.utils.tree import tree_leaves
 from torchfix import draws, make_episodes, one_torch_thread  # noqa: F401
 
 MODES = {"turn": ("TicTacToe", True, False),
          "all": ("TicTacToe", True, True),
-         "seat": ("HungryGeese", False, False)}
+         "seat": ("HungryGeese", False, False),
+         # the recurrent workloads: dict observations with burn-in 4, and
+         # the GRF raster in seat mode
+         "geister": ("Geister", True, False),
+         "grf": ("GRFProxy", False, False)}
+BURN_IN = {"turn": 2, "geister": 4, "grf": 4}
+ENV_ARGS = {"grf": {"max_steps": 24}}
 
 
 def _cfg(mode, transfer="bfloat16", compute="bfloat16", burn_in=0):
@@ -54,16 +64,45 @@ def _as_np(x):
                                               ("float32", "float32"),
                                               ("uint8", "bfloat16")])
 def test_gather_equals_jax(mode, transfer, compute):
-    cfg = _cfg(mode, transfer, compute, burn_in=2 if mode == "turn" else 0)
-    env_name = MODES[mode][0]
-    episodes, players = make_episodes(env_name, 5 if mode != "seat" else 3,
-                                      seed=1, observation=cfg["observation"])
+    cfg = _cfg(mode, transfer, compute, burn_in=BURN_IN.get(mode, 0))
+    episodes, players = _episodes(mode, 5 if mode != "seat" else 3, seed=1,
+                                  observation=cfg["observation"])
     picks = draws(episodes, cfg, 16, len(players), seed=2)
-    slots, tstarts, seats = (np.asarray(c) for c in zip(*picks))
     ring = _ring(cfg, episodes)
     jring = JaxReplay(cfg, capacity=len(episodes) + 2, max_bytes=1 << 30)
     jring.offer(episodes)
     jring.ingest(max_episodes=len(episodes))
+    tb = _assert_gathers_equal(ring, jring, picks)
+    for leaf in tree_leaves(tb["observation"]):
+        assert leaf.dtype == getattr(torch, compute)
+
+
+_EPISODES = {}
+
+
+def _episodes(mode, count, seed, observation=False):
+    """Cached per process: the rings only read the episodes.  The
+    recurrent workloads' episodes come from narrow nets (8 filters);
+    GRF's ship as raw pickle blocks (bz2 of its rasters is slow)."""
+    key = (mode, count, seed, observation)
+    if key not in _EPISODES:
+        net = None
+        if mode == "geister":
+            net = GeisterNet(filters=8, drc_layers=2, drc_repeats=2)
+        elif mode == "grf":
+            net = GRFNet(filters=8)
+        _EPISODES[key] = make_episodes(
+            MODES[mode][0], count, seed=seed, observation=observation,
+            env_args=ENV_ARGS.get(mode), net=net, compress=mode != "grf")
+    episodes, players = _EPISODES[key]
+    return list(episodes), players
+
+
+def _assert_gathers_equal(ring, jring, picks):
+    """The port's gather and the JAX ring's on the same ``(slot,
+    train start, seat)`` picks: every channel and observation leaf
+    equal, exactly.  Returns the port's batch."""
+    slots, tstarts, seats = (np.asarray(c) for c in zip(*picks))
     jb = jring._sample_fn(jring.buffers, jnp.asarray(slots, jnp.int32),
                           jnp.asarray(tstarts, jnp.int32),
                           jnp.asarray(seats, jnp.int32))
@@ -71,10 +110,63 @@ def test_gather_equals_jax(mode, transfer, compute):
                        for c in (slots, tstarts, seats)))
     assert sorted(jb) == sorted(tb)
     for key in jb:
-        j, t = _as_np(jb[key]), _as_np(tb[key])
-        assert j.shape == t.shape, key
-        np.testing.assert_array_equal(t, j.astype(t.dtype), err_msg=key)
-    assert tb["observation"].dtype == getattr(torch, compute)
+        jleaves, tleaves = tree_leaves(jb[key]), tree_leaves(tb[key])
+        assert len(jleaves) == len(tleaves), key
+        for j, t in zip(jleaves, tleaves):
+            j, t = _as_np(j), _as_np(t)
+            assert j.shape == t.shape, key
+            np.testing.assert_array_equal(t, j.astype(t.dtype), err_msg=key)
+    return tb
+
+
+def test_geister_gather_after_growth_equals_jax():
+    """Dict observations, burn-in 4 (windows that start before step 0
+    pad with observation mask 0), and a ring that grew T_max while it
+    held an episode, against a JAX ring that never grew."""
+    cfg = _cfg("geister", burn_in=4)
+    episodes, players = _episodes("geister", 5, seed=3)
+    episodes.sort(key=lambda e: e["steps"])
+    ring = DeviceReplay(cfg, 8, 1 << 30, device="cpu")
+    ring.offer(episodes[:1])
+    ring.ingest()
+    t_before = ring.t_max
+    ring.offer(episodes[1:])
+    ring.ingest()
+    assert ring.growths >= 1 and ring.t_max > t_before
+    jring = JaxReplay(cfg, capacity=8, max_bytes=1 << 30)
+    jring.offer(episodes)
+    jring.ingest(max_episodes=len(episodes))
+    picks = draws(episodes, cfg, 16, len(players), seed=4)
+    picks[:2] = [(0, 0, 0), (len(episodes) - 1, 1, 0)]
+    tb = _assert_gathers_equal(ring, jring, picks)
+    assert sorted(tb["observation"]) == ["board", "scalar"]
+    assert float(tb["observation_mask"][0, :4].sum()) == 0.0
+
+
+def test_grf_gather_under_the_byte_budget_equals_jax():
+    """uint8 GRF rasters in seat mode, the ring capped by
+    ``device_replay_mb``: it keeps the newest episodes, as a JAX ring
+    of the capped capacity does."""
+    cfg = _cfg("grf", transfer="uint8", burn_in=4)
+    episodes, players = _episodes("grf", 5, seed=1)
+    probe = _ring(cfg, episodes[:1])
+    per_slot = probe._per_step_bytes * probe.t_max
+    ring = DeviceReplay(cfg, 8, int(2.5 * per_slot), device="cpu",
+                        max_steps_hint=probe.t_max)
+    ring.offer(episodes)
+    ring.ingest()
+    assert ring.capacity == 2 and ring.size == 2
+    assert ring.buffers["obs"].dtype == torch.uint8
+    assert ring.buffers["obs"].shape[1] == 2 * 72 * 96 * 16
+    jring = JaxReplay(cfg, capacity=2, max_bytes=1 << 30)
+    jring.offer(episodes)
+    jring.ingest(max_episodes=len(episodes))
+    # the two newest episodes, in the slots five appends left them in
+    newest = episodes[-2:]
+    picks = [(len(episodes) - 2 + i, t, p) for i, t, p in
+             draws(newest, cfg, 8, len(players), seed=6)]
+    picks = [(i % 2, t, p) for i, t, p in picks]
+    _assert_gathers_equal(ring, jring, picks)
 
 
 def test_fifo_eviction_keeps_the_newest_episodes():

@@ -26,10 +26,12 @@ def one_torch_thread():
 
 
 def make_episodes(env_name, count, seed=0, observation=False,
-                  compress=True):
+                  compress=True, env_args=None, net=None):
     """``count`` self-play episodes of the port's env, from the port's
     ``Generator`` with a seeded random net on the CPU, so value heads
-    and behavior probabilities are not constant."""
+    and behavior probabilities are not constant.  ``env_args`` adds
+    env keys (``max_steps`` ...); ``net`` replaces the env's net (a
+    narrow one, for speed)."""
     import random
 
     from handyrl_tpu_torch.environment import make_env
@@ -37,8 +39,8 @@ def make_episodes(env_name, count, seed=0, observation=False,
     from handyrl_tpu_torch.models import TorchModel
 
     random.seed(seed)
-    env = make_env({"env": env_name})
-    model = TorchModel(env.net(), device="cpu")
+    env = make_env({"env": env_name, **(env_args or {})})
+    model = TorchModel(net if net is not None else env.net(), device="cpu")
     model.init_params(seed=seed)
     gen = Generator(env, {"observation": observation, "gamma": 0.8,
                           "compress_steps": 4,
@@ -83,7 +85,11 @@ def draws(episodes, cfg, n, num_players, seed):
 NETS = {"TicTacToe": ("tictactoe_net", "TicTacToeNet", {}),
         # GeeseNet narrowed for the CPU: 8 filters x 2 blocks
         "HungryGeese": ("geese_net", "GeeseNet",
-                        {"filters": 8, "blocks": 2})}
+                        {"filters": 8, "blocks": 2}),
+        # the recurrent nets narrowed: 8 filters, DRC 2 x 2 / 1 x 2
+        "Geister": ("geister_net", "GeisterNet",
+                    {"filters": 8, "drc_layers": 2, "drc_repeats": 2}),
+        "GRFProxy": ("grf_net", "GRFNet", {"filters": 8})}
 
 
 def twin_nets(env_name, seed=0):
@@ -109,13 +115,17 @@ def twin_nets(env_name, seed=0):
 
 
 def to_torch_batch(batch):
-    """A numpy batch of ``make_batch`` as CPU tensors (float32 obs)."""
+    """A numpy batch of ``make_batch`` as CPU tensors (float32 obs,
+    a dict of them for dict observations)."""
     import numpy as np
+
+    from handyrl_tpu_torch.utils.tree import tree_map_leaves
 
     out = {k: torch.from_numpy(np.ascontiguousarray(v))
            for k, v in batch.items() if k != "observation"}
-    out["observation"] = torch.from_numpy(
-        np.asarray(batch["observation"], np.float32))
+    out["observation"] = tree_map_leaves(
+        lambda a: torch.from_numpy(np.asarray(a, np.float32)),
+        batch["observation"])
     return out
 
 
