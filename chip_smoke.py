@@ -25,7 +25,9 @@ from a seed:
                  TD/TD): gather parity card vs CPU, three float32 steps
                  card vs CPU against float64 (losses, gradients,
                  parameter steps; the card's runs with the pinned
-                 algorithm set of ``pinned_f32``: TF32 and cuDNN off),
+                 algorithm set of ``pinned_f32``: TF32 and cuDNN off;
+                 all runs on the float64 run's ReLU pattern,
+                 ``relu_pattern``),
                  three bf16 steps against them, then the fused replay
                  step timed with CUDA events and profiled;
   7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
@@ -35,9 +37,11 @@ from a seed:
                  the ring on the card and trains a fourth epoch;
   8. resilience — (a) ``--train`` with chaos (a gather kill, the
                  inference service killed at epoch 1): both respawn;
-                 SIGTERM after two epochs lands an emergency checkpoint,
-                 a ``restart_epoch: auto`` relaunch resumes it through
-                 the WAL and trains epoch 3, ``--eval`` reads it back;
+                 SIGTERM, once two epochs and the respawned service
+                 have landed, lands an emergency checkpoint, a
+                 ``restart_epoch: auto`` relaunch resumes it through
+                 the WAL and trains the next epoch, ``--eval`` reads it
+                 back;
                  (b) ``--train-server`` under ``supervise_learner`` with
                  ``chaos.learner_kill_epoch: 2`` and ``--worker 6`` in a
                  second process: the guard relaunches the SIGKILLed
@@ -52,14 +56,29 @@ from a seed:
                  step timed, profiled and split by layer;
  10. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml with ``env: 'Geister'`` and
-                 ``burn_in_steps: 4``, cut to 2 epochs, then ``--eval``
-                 of its checkpoint against ``random``;
+                 ``burn_in_steps: 4``, cut to 2 epochs of 200 and 100
+                 episodes, then ``--eval`` of its checkpoint against
+                 ``random`` (10 games);
  11. GRF       — GRFNet (32 filters, DRC 1 x 2) training steps on the
                  (72, 96, 16) raster: 8 GRFProxy episodes of 256 steps
                  into a uint8 ring, seat mode, UPGO/TD, 128 x (4 + 16);
-                 the same gates but burn-in, and the same readings.
+                 the same gates but burn-in, and the same readings;
+ 12. league    — (a) ``--train`` on the shipped config with
+                 ``generation_opponent: {past_epochs: 3, prob: 0.5}``,
+                 4 epochs: league episodes in epochs 2-3, each
+                 ``league_opponent_mean`` key a past epoch whose
+                 checkpoint exists, no worker fallback, no worker on
+                 CUDA; (b) ``scripts.make_onnx_model`` of the last
+                 checkpoint and ``--eval`` of the ``.onnx``, then
+                 GeeseNet 32x12 and GeisterNet (DRC 3 x 3, 3 carried
+                 steps) exported from the card, the numpy runner against
+                 the card's pinned float32 forward within 1e-4 of the
+                 output; (c) ``scripts.aux_swa 1 4`` and ``--eval`` of
+                 ``swa.ckpt``; (d) ``--eval-server 10 1`` with two
+                 ``--eval-client`` processes whose seats run on the card.
 
-Every phase prints one ``phaseN {json}`` line and raises on failure.
+Every phase prints one ``phaseN {json}`` line (phase 12 one per part)
+and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
 device record.  Exits non-zero, printing no result, where
@@ -630,6 +649,54 @@ def pinned_f32(torch):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def relu_pattern(masks=None):
+    """GeeseNet's ReLUs (13 per forward) on a fixed on/off pattern.
+    With ``masks`` None the forward inside runs as it is and its
+    pattern is recorded into the yielded list; with ``masks`` (a
+    recorded list) each ReLU in call order becomes ``x * mask``, which
+    has ReLU's value and gradient wherever the pattern agrees with
+    ``x > 0``, and the yielded list receives the count of decisions the
+    pattern overrode.  A float32 forward decides a handful of the ~60 M
+    ReLUs of a 2,048-row float64 forward the other way (pre-activations
+    within rounding of zero: 7-13 per draw on the CPU), and each such
+    flip moves the gradient by a whole upstream term, so the max-norm
+    gradient error against float64 swings tenfold from draw to draw, on
+    the card and on the CPU alike.  Phase 6's float32 gate runs both
+    with the float64 run's pattern: it then measures each device's
+    arithmetic, not where the flips fell (ROADMAP C7)."""
+    import torch.nn.functional as F
+
+    from handyrl_tpu_torch.models import geese_net
+
+    out = []
+    pending = iter(masks or ())
+
+    class Functional:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def relu(x):
+            if masks is None:
+                out.append(x.detach() > 0)
+                return F.relu(x)
+            mask = next(pending).to(x.device)
+            if mask.shape != x.shape:
+                raise AssertionError("the ReLU pattern is another net's")
+            out.append(int(((x.detach() > 0) != mask).sum()))
+            return x * mask.to(x.dtype)
+
+    prev = geese_net.F
+    geese_net.F = Functional()
+    try:
+        yield out
+    finally:
+        geese_net.F = prev
+    if next(pending, None) is not None:
+        raise AssertionError("the forward ran fewer ReLUs than the pattern")
+
+
 def _geese_update(torch, params, device, dtype):
     from handyrl_tpu_torch.models.convert import from_flax
     from handyrl_tpu_torch.models.geese_net import GeeseNet
@@ -717,7 +784,8 @@ def train_steps(torch, episodes, params):
 
     # (b) three float32 steps from the same weights and batches on the
     # card (the pinned algorithm set) and on the CPU, both held against
-    # a float64 CPU run of the same steps
+    # a float64 CPU run of the same steps, all three on the float64
+    # run's ReLU pattern (``relu_pattern``)
     with pinned_f32(torch):
         runs = {"card": _geese_update(torch, params, DEV, "float32")[0],
                 "cpu": _geese_update(torch, params, "cpu", "float32")[0],
@@ -733,16 +801,31 @@ def train_steps(torch, episodes, params):
                for d in ("card", "cpu")}
         card_vs_cpu_loss = 0.0
         f32_totals, f32_scales = [], []
+        flips, unpinned = {}, {}
         for k in range(PARITY_STEPS):
             batch_of = {"card": batches["card"][k],
                         "cpu": batches["cpu"][k], "f64": batches["cpu"][k]}
             before = {d: _named(run, "data") for d, run in runs.items()}
-            losses = {d: {n: float(v.detach()) for n, v in
-                          run.loss_and_grads(batch_of[d])[0].items()}
-                      for d, run in runs.items()}
+            with relu_pattern() as pattern:
+                losses = {"f64": runs["f64"].loss_and_grads(
+                    batch_of["f64"])[0]}
+            for d in ("card", "cpu"):
+                with relu_pattern(pattern) as overridden:
+                    losses[d] = runs[d].loss_and_grads(batch_of[d])[0]
+                if k == 0:
+                    flips[d] = sum(overridden)
+            losses = {d: {n: float(v.detach()) for n, v in out.items()}
+                      for d, out in losses.items()}
             grads = {d: _named(run, "grad") for d, run in runs.items()}
             if k == 0:
                 grads0_f64 = grads["f64"]
+                # for the record, not gated: the same first step with
+                # each device's own ReLU decisions
+                for d, dev in (("card", DEV), ("cpu", "cpu")):
+                    own = _geese_update(torch, params, dev, "float32")[0]
+                    own.loss_and_grads(batch_of[d])
+                    unpinned[d] = max(_rel_errors(
+                        _named(own, "grad"), grads0_f64).values())
             for run in runs.values():
                 run.apply_grads()
             after = {d: _named(run, "data") for d, run in runs.items()}
@@ -789,6 +872,8 @@ def train_steps(torch, episodes, params):
                    "delta": DELTA_TOL},
         "moved_rel": MOVED_REL,
         "lr": lr, "f32_totals": f32_totals,
+        "relu_flips_step0": flips,
+        "own_relu_grad_vs_float64": unpinned,
         "card_cudnn_grad_vs_float64": cudnn_grad_err}
     emit("phase6_parity", out["f32_parity"])
     if card_vs_cpu_loss > LOSS_RTOL:
@@ -1072,7 +1157,11 @@ def wal_replay(stdout):
 
 # 8a: a gather kill at start-up and the service killed at epoch 1; the
 # smoke's SIGTERM lands after two epochs (models/2.ckpt)
-DRILL_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+# 8a: SIGTERM ends the drill's run, so its epoch count only has to
+# outlast the wait for two epochs and a respawned service; a respawn
+# that lands after the second epoch's record pushes the signal one
+# epoch later, which a run of 3 epochs would already have finished
+DRILL_CUTS = {"epochs": 10, "metrics_path": "metrics.jsonl",
               "chaos": {"kill_prob": 0.2, "max_kills": 1,
                         "infer_kill_epoch": 1}}
 # 8b: max_respawns 1 makes the worker machine's gather breaker trip on
@@ -1206,10 +1295,12 @@ def _drills(cwd):
     if any(cuda for _, cuda in out["workers"]):
         raise AssertionError("a CPU worker initialized CUDA")
 
-    # relaunch: resume the emergency point through the WAL, epoch 3
+    # relaunch: resume the emergency point through the WAL and train
+    # the next epoch
     cuts = {k: v for k, v in DRILL_CUTS.items() if k != "chaos"}
     proc2, records2, wall2 = run_training(
-        train, cwd, train_config(dict(cuts, restart_epoch="auto")))
+        train, cwd, train_config(dict(cuts, restart_epoch="auto",
+                                      epochs=epoch + 1)))
     _check_run(proc2, "drill_relaunch")
     out["relaunch"] = {
         "wall_s": wall2, "wal": wal_replay(proc2.stdout),
@@ -1226,20 +1317,22 @@ def _drills(cwd):
                              f"at step {step}")
     if not out["relaunch"]["wal"]["replayed"]:
         raise AssertionError("the relaunch replayed no WAL episode")
-    if records2[-1]["epoch"] != 2 or not os.path.exists(
-            os.path.join(cwd, "models", "3.ckpt")):
-        raise AssertionError("the relaunch did not train epoch 3")
+    if records2[-1]["epoch"] != epoch or not os.path.exists(
+            os.path.join(cwd, "models", f"{epoch + 1}.ckpt")):
+        raise AssertionError(f"the relaunch did not train epoch "
+                             f"{epoch + 1}")
+    # the read-back plays in one process (phase 7 drives the farm)
     proc_eval = subprocess.run(
         [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
-         "models/3.ckpt", "40", "2", *CLI_DEVICE], cwd=cwd,
+         f"models/{epoch + 1}.ckpt", "40", "1", *CLI_DEVICE], cwd=cwd,
         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=300)
     _check_run(proc_eval, "drill_eval")
-    out["eval_3"] = [line for line in proc_eval.stdout.splitlines()
-                     if line.startswith("agent ")]
-    if not any("win rate" in line for line in out["eval_3"]):
-        raise AssertionError("--eval of the drill's 3.ckpt printed no "
-                             "result")
+    out["eval_relaunch"] = [line for line in proc_eval.stdout.splitlines()
+                            if line.startswith("agent ")]
+    if not any("win rate" in line for line in out["eval_relaunch"]):
+        raise AssertionError(f"--eval of the drill's {epoch + 1}.ckpt "
+                             f"printed no result")
     return out
 
 
@@ -1685,9 +1778,12 @@ def grf_steps(torch, smi):
 
 # the shipped config.yaml with these two keys changed ...
 GEISTER_CONFIG = {"env": "Geister", "burn_in_steps": 4}
-# ... and what a bounded run forces
-GEISTER_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl"}
-GEISTER_EVAL_GAMES = 20
+# ... and what a bounded run forces: 2 epochs, closing at 200 and 300
+# episodes instead of the shipped 600 and 800, and 10 games of --eval,
+# to keep the whole smoke near 700 s
+GEISTER_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
+                "minimum_episodes": 100, "update_episodes": 100}
+GEISTER_EVAL_GAMES = 10
 
 
 def geister_train_entry(smi):
@@ -1750,6 +1846,294 @@ def _geister_train_entry(cwd):
     if not any("win rate" in line for line in out["eval"]["result_table"]):
         raise AssertionError("--eval of the Geister checkpoint printed no "
                              "result")
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 12: league --train, ONNX, SWA and a network battle
+# ---------------------------------------------------------------------
+
+# the shipped config.yaml with league-lite on, and what a bounded run
+# forces
+LEAGUE_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
+               "generation_opponent": {"past_epochs": 3, "prob": 0.5}}
+EVAL_GAMES_12 = 20
+BATTLE_GAMES = 10
+ONNX_TOL = 1e-4                         # x max |card output|, pinned f32
+ONNX_STEPS = 3                          # Geister's carried hidden steps
+ONNX_TIMED = 20                         # timed single-state inferences
+NETWORK_PORT = 9876                     # the eval server's fixed port
+# a battle client through the CLI entry, held at a barrier after its
+# imports, so that both clients ask for their first seat together
+BATTLE_CLIENT = ("import sys; import handyrl_tpu_torch.evaluation; "
+                 "from handyrl_tpu_torch.__main__ import main; "
+                 "print('ready', flush=True); sys.stdin.readline(); "
+                 "sys.exit(main(sys.argv[1:]))")
+
+
+def league_entry(torch, smi):
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="league_")
+    try:
+        return dict(_league_entry(torch, cwd), card=smi)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def _league_entry(torch, cwd):
+    out = {}
+    for part, fn in (("a", _league_train), ("b", _onnx_entry),
+                     ("c", _swa_entry), ("d", _battle_entry)):
+        t0 = time.perf_counter()
+        out[part] = fn(torch, cwd)
+        out[part]["part_s"] = time.perf_counter() - t0
+        emit("phase12", dict(out[part], part=f"12{part}"))
+    return out
+
+
+def _cli(args, cwd, tag, timeout=300, device=True):
+    proc = subprocess.run(
+        [sys.executable, "-m", *args, *(CLI_DEVICE if device else [])],
+        cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=timeout)
+    _check_run(proc, tag)
+    return proc
+
+
+def _result_table(stdout):
+    return [line for line in stdout.splitlines()
+            if line.startswith(("agent ", "    pattern "))]
+
+
+def _league_train(torch, cwd):
+    """12a: ``--train`` with past-self opponents, 4 epochs."""
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    config = train_config(LEAGUE_CUTS)
+    proc, records, wall = run_training(train, cwd, config)
+    _check_run(proc, "league_train")
+    epochs = config["train_args"]["epochs"]
+    if [r["epoch"] for r in records] != list(range(epochs)) or \
+            not os.path.exists(os.path.join(cwd, "models",
+                                            f"{epochs}.ckpt")):
+        raise AssertionError(f"{epochs} league epochs did not land: "
+                             f"{records}")
+    rows = epoch_rows(records)
+    for r, row in zip(records, rows):
+        row["league_episodes"] = r.get("league_episodes")
+        row["league_opponent_mean"] = r.get("league_opponent_mean")
+        if r.get("replay") != "device" or not str(
+                r.get("replay_device")).startswith(DEV):
+            raise AssertionError(f"not the ring path on the card: {r}")
+        if not all(np.isfinite(r[k]) for k in ("p", "v", "ent", "total")):
+            raise AssertionError(f"nonfinite losses: {r}")
+        for key in r.get("league_opponent_mean") or {}:
+            past = int(key)
+            if not 1 <= past < r["epoch"] or not os.path.exists(
+                    os.path.join(cwd, "models", f"{past}.ckpt")):
+                raise AssertionError(f"league seat of epoch {past} in "
+                                     f"epoch {r['epoch']}'s record")
+    if any(not records[e].get("league_episodes") for e in (2, 3)):
+        raise AssertionError(f"no league episodes in epochs 2-3: {rows}")
+    workers = {int(w): {"cuda_initialized": c == "True",
+                        "fallbacks": int(f), "served_rows": int(s),
+                        "local_rows": int(loc)}
+               for w, c, f, s, loc in re.findall(
+                   r"closed worker (\d+): cuda initialized (\w+), pipeline "
+                   r"fallbacks (\d+), served rows (\d+), local rows (\d+)",
+                   proc.stdout)}
+    if len(workers) != config["train_args"]["worker"]["num_parallel"] or any(
+            w["cuda_initialized"] or w["fallbacks"]
+            for w in workers.values()):
+        raise AssertionError(f"worker fallbacks or CUDA in a worker: "
+                             f"{workers}")
+    return {"cuts": LEAGUE_CUTS, "wall_s": wall, "epochs": rows,
+            "league_stats": [line for line in proc.stdout.splitlines()
+                             if line.startswith("league stats =")],
+            "workers": workers}
+
+
+def _onnx_models(torch):
+    """GeeseNet 32x12 and GeisterNet at full width (32 filters, DRC
+    3 x 3) on the card from seeded weights, each with ``ONNX_STEPS``
+    successive observations of a seeded game."""
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+    from handyrl_tpu_torch.models.geister_net import GeisterNet
+
+    out = {}
+    for name, net, env_name in (
+            ("GeeseNet32x12", GeeseNet(FILTERS, BLOCKS), "HungryGeese"),
+            ("GeisterNet32_drc3x3", GeisterNet(), "Geister")):
+        rng = random.Random(SEED)
+        env = make_env({"env": env_name})
+        env.reset()
+        obs = []
+        while len(obs) < ONNX_STEPS:
+            if env.terminal():
+                env.reset()
+            obs.append(env.observation(env.players()[0]))
+            env.step({p: rng.choice(env.legal_actions(p))
+                      for p in env.turns()})
+        model = TorchModel.from_flax(
+            net, random_flax_params(net, seed=SEED), device=DEV)
+        out[name] = (model, obs)
+    return out
+
+
+def _mean_ms(fn, runs=ONNX_TIMED, warmup=3):
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / runs
+
+
+def _onnx_entry(torch, cwd):
+    """12b: ``make_onnx_model`` on the last checkpoint and ``--eval`` of
+    the file; then GeeseNet 32x12 and GeisterNet exported from the card,
+    the numpy runner against the card's pinned float32 forward."""
+    from handyrl_tpu_torch.interop import OnnxModel, export_onnx
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    made = _cli(["handyrl_tpu_torch.scripts.make_onnx_model",
+                 "models/4.ckpt"], cwd, "make_onnx")
+    make_s = time.perf_counter() - t0
+    path = os.path.join(cwd, "models", "4.onnx")
+    proc = _cli(["handyrl_tpu_torch", "--eval", "models/4.onnx",
+                 str(EVAL_GAMES_12), "1"], cwd, "onnx_eval")
+    out = {"make_onnx_model_s": make_s, "make_onnx_model": made.stdout
+           .strip().splitlines()[-1], "ttt_file_bytes": os.path.getsize(
+               path), "eval_games": EVAL_GAMES_12,
+           "eval": _result_table(proc.stdout), "nets": {}}
+    if not any("win rate" in line for line in out["eval"]):
+        raise AssertionError("--eval of models/4.onnx printed no result")
+
+    for name, (model, obs) in _onnx_models(torch).items():
+        file = os.path.join(cwd, f"{name}.onnx")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_onnx(model, obs[0], file)
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        runner = OnnxModel(file)
+        hidden, carried = model.init_hidden(), runner.init_hidden()
+        errors = []
+        with pinned_f32(torch):
+            for o in obs:
+                ref = model.inference(o, hidden)
+                got = runner.inference(o, carried)
+                want = [ref[k] for k in sorted(ref) if k != "hidden"]
+                have = [got[k] for k in sorted(ref) if k != "hidden"]
+                if ref.get("hidden") is not None:
+                    want += tree_leaves(ref["hidden"])
+                    have += list(got["hidden"])
+                    hidden, carried = ref["hidden"], got["hidden"]
+                scale = max(float(np.abs(w).max()) for w in want)
+                errors.append(max(float(np.abs(h - w).max())
+                                  for h, w in zip(have, want)) / scale)
+                if not all(np.isfinite(h).all() for h in have):
+                    raise AssertionError(f"{name}: nonfinite outputs")
+        h0, c0 = model.init_hidden(), runner.init_hidden()
+        out["nets"][name] = {
+            "export_ms": export_ms, "file_bytes": os.path.getsize(file),
+            "rel_err_per_step": errors, "tol": ONNX_TOL,
+            "runner_ms": _mean_ms(lambda: runner.inference(obs[0], c0)),
+            "card_ms": _mean_ms(lambda: model.inference(obs[0], h0))}
+        if max(errors) > ONNX_TOL:
+            raise AssertionError(f"{name}: ONNX runner vs card "
+                                 f"{errors} > {ONNX_TOL}")
+    return out
+
+
+def _swa_entry(torch, cwd):
+    """12c: SWA over epochs 1-4 and ``--eval`` of the result."""
+    swa = _cli(["handyrl_tpu_torch.scripts.aux_swa", "1", "4"], cwd,
+               "aux_swa", device=False)  # no device work
+    proc = _cli(["handyrl_tpu_torch", "--eval", "models/swa.ckpt",
+                 str(EVAL_GAMES_12), "1"], cwd, "swa_eval")
+    out = {"aux_swa": swa.stdout.strip().splitlines(),
+           "eval_games": EVAL_GAMES_12, "eval": _result_table(proc.stdout)}
+    if not any("win rate" in line for line in out["eval"]):
+        raise AssertionError("--eval of models/swa.ckpt printed no result")
+    return out
+
+
+def _listening(port):
+    """True once a server holds ``port``: a bind probe, which takes no
+    seat at the server (a connect would)."""
+    import socket
+
+    with socket.socket() as probe:
+        try:
+            probe.bind(("", port))
+        except OSError:
+            return True
+    return False
+
+
+def _battle_entry(torch, cwd):
+    """12d: ``--eval-server`` and two ``--eval-client`` on the card."""
+    t0 = time.perf_counter()
+    server, server_log = _popen(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--eval-server",
+         str(BATTLE_GAMES), "1", *CLI_DEVICE], cwd, "battle_server")
+    clients = []
+    try:
+        deadline = time.monotonic() + 120
+        while not _listening(NETWORK_PORT):
+            if server.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("the eval server never listened:\n"
+                                     + _read(server_log)[-3000:])
+            time.sleep(0.1)
+        for _ in range(2):
+            clients.append(subprocess.Popen(
+                [sys.executable, "-c", BATTLE_CLIENT, "--eval-client",
+                 "models/4.ckpt", "localhost", *CLI_DEVICE], cwd=cwd,
+                env=dict(os.environ, PYTHONPATH=ROOT),
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+                start_new_session=True))
+        for c in clients:
+            for line in iter(c.stdout.readline, ""):
+                if line.strip() == "ready":
+                    break
+            else:
+                raise AssertionError("a battle client did not start")
+        for c in clients:          # the barrier: both go at once
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        outs = [c.communicate(timeout=300)[0] for c in clients]
+        server.wait(timeout=120)
+    finally:
+        for proc in [server] + clients:
+            _stop(proc)
+    wall = time.perf_counter() - t0
+    server_out = _read(server_log)
+    for i, text in enumerate(outs):
+        with open(os.path.join(OUT_DIR, f"battle_client{i}_stdout.txt"),
+                  "w") as f:
+            f.write(text)
+    games = sum(int(n) for n in re.findall(
+        r"pattern default_\w+: win rate = [\d.]+ \((\d+) games\)",
+        server_out.split("agent 1")[0]))
+    seats = [re.findall(r"closed network client: cuda initialized (\w+)",
+                        text) for text in outs]
+    out = {"games": games, "wall_s": wall, "server_exit": server.returncode,
+           "client_exits": [c.returncode for c in clients],
+           "client_seats_cuda": seats,
+           "result_table": _result_table(server_out)}
+    if server.returncode != 0 or games != BATTLE_GAMES:
+        raise AssertionError(f"the server counted {games} games, exit "
+                             f"{server.returncode}: {server_out[-3000:]}")
+    if any(c.returncode for c in clients) or any(
+            not s or "False" in s for s in seats):
+        raise AssertionError(f"a client failed or sat without CUDA: {out}")
     return out
 
 
@@ -2099,6 +2483,23 @@ def main():
     print("Geister --train: " + ", ".join(
         f"epoch {r['epoch']} {r['steps']} steps {r['epoch_wall_s']:.1f} s "
         f"win rate {r['win_rate']}" for r in p10["epochs"]), flush=True)
+
+    # 12. league --train, ONNX export and run, SWA, a network battle
+    report["phase12"] = p12 = league_entry(torch, smi)
+    p12["phase_s"] = lap()
+    print("league --train: " + ", ".join(
+        f"epoch {r['epoch']} {r['epoch_wall_s']:.1f} s "
+        f"{r['episodes_per_s'] or 0:.1f} episodes/s {r['steps']} steps "
+        f"{r['league_episodes']} league episodes"
+        for r in p12["a"]["epochs"]), flush=True)
+    print("ONNX: " + ", ".join(
+        f"{name} export {n['export_ms']:.0f} ms, {n['file_bytes']} bytes, "
+        f"max rel err {max(n['rel_err_per_step']):.2e}, runner "
+        f"{n['runner_ms']:.2f} ms vs card {n['card_ms']:.2f} ms per "
+        f"inference" for name, n in p12["b"]["nets"].items())
+        + f"; network battle {p12['d']['games']} games in "
+        f"{p12['d']['wall_s']:.1f} s; phase 12 {p12['phase_s']:.1f} s on "
+        f"{smi}", flush=True)
 
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel

@@ -1,7 +1,7 @@
 """CLI entry point of the port: ``python -m handyrl_tpu_torch <mode>``.
 
 Reads ``config.yaml`` from the working directory, as ``main.py`` does
-for the JAX package.  Ported so far:
+for the JAX package, with every mode of ``main.py``:
 
   --train / -t [--device DEV]
       local training: the learner, its supervised worker fleet and the
@@ -19,53 +19,40 @@ for the JAX package.  Ported so far:
       It serves learner sessions until it is stopped (SIGTERM).
   --eval / -e [model_path] [num_games] [num_process] [--device DEV]
       offline evaluation of a saved model (``.ckpt`` or ``.npz`` of the
-      JAX package's format) against the configured opponent.
+      JAX package's format on DEV, or ``.onnx`` run by the numpy
+      runner) against the configured opponent.
+  --eval-server / -es [num_games] [num_process] [--device DEV]
+      network battle server: hosts the env on port 9876 and plays
+      ``num_games`` between remote clients; it runs no model.
+  --eval-client / -ec [model_path] [host] [--device DEV]
+      network battle client: takes seats at the server on ``host``,
+      one spawned process per seat with the model on DEV.
 
 ``train_args.supervise_learner: true`` runs either training mode's
 learner under a guard that relaunches it with ``restart_epoch: auto``.
 ``--device`` defaults to ``cuda``; a missing card is an error, not a
-silent CPU run.  The network-battle modes of ``main.py``
-(``--eval-server``, ``--eval-client``) are not ported yet and exit 2.
+silent CPU run.  The tools ``python -m handyrl_tpu_torch.scripts.<name>``
+(``aux_swa``, ``export_model``, ``make_onnx_model``) sit beside the
+modes.
 """
 
 import sys
 
 import yaml
 
-from .device import DEFAULT_DEVICE, resolve_device
+from .device import pop_device_arg, resolve_device
 
-NOT_PORTED = ("--eval-server", "-es", "--eval-client", "-ec")
 MODES = ("--train", "-t", "--train-server", "-ts", "--worker", "-w",
-         "--eval", "-e")
-
-
-def _pop_device(argv):
-    """Split ``--device DEV`` / ``--device=DEV`` out of ``argv``."""
-    device, rest = DEFAULT_DEVICE, []
-    it = iter(argv)
-    for arg in it:
-        if arg == "--device":
-            device = next(it, None)
-            if device is None:
-                raise SystemExit("--device needs a value (cuda or cpu)")
-        elif arg.startswith("--device="):
-            device = arg.split("=", 1)[1]
-        else:
-            rest.append(arg)
-    return device, rest
+         "--eval", "-e", "--eval-server", "-es", "--eval-client", "-ec")
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:
-        print("Please set a mode (--train, --train-server, --worker or "
-              "--eval).")
+        print("Please set a mode (--train, --train-server, --worker, "
+              "--eval, --eval-server, --eval-client).")
         return 1
     mode, rest = argv[0], argv[1:]
-    if mode in NOT_PORTED:
-        print(f"mode {mode} is not ported to handyrl_tpu_torch yet; "
-              f"use main.py for the JAX package")
-        return 2
     if mode not in MODES:
         print(f"Unknown mode {mode}.")
         return 1
@@ -81,7 +68,7 @@ def main(argv=None):
         worker_main(args, rest)
         return 0
 
-    device, rest = _pop_device(rest)
+    device, rest = pop_device_arg(rest)
     resolve_device(device)  # fail before any work when the card is absent
     with open("config.yaml") as f:
         args = yaml.safe_load(f)
@@ -96,6 +83,17 @@ def main(argv=None):
         from .learner import train_server_main
 
         train_server_main(args, device=device)
+        return 0
+
+    if mode in ("--eval-server", "-es"):
+        from .evaluation import eval_server_main
+
+        eval_server_main(args, rest)
+        return 0
+    if mode in ("--eval-client", "-ec"):
+        from .evaluation import eval_client_main
+
+        eval_client_main(args, rest, device=device)
         return 0
 
     from .evaluation import eval_main

@@ -9,14 +9,15 @@ quantities the learner reads (``effective_eval_rate``,
 Keys of layers the port does not have yet are parsed and refused with
 a "not ported yet" error when set, never silently ignored: ``mesh``,
 ``distributed`` (multihost), ``anakin``, ``serving``, ``router``,
-``generation_opponent`` (league), ``status_port`` and ``perf``; and,
+``status_port`` and ``perf``; and,
 inside ``chaos``, the shm-plane and serving-replica keys (``shm_*``,
 ``serve_kill_epoch``).  The resilience keys take effect as in the JAX
 package: the episode WAL (``wal_enabled``, ``wal_flush_interval``,
 ``wal_segment_mb``, ``wal_keep_episodes``), ``preempt_grace_seconds``,
 ``heartbeat_interval``/``heartbeat_timeout``, ``max_respawns``,
 ``respawn_backoff``, ``max_frame_bytes``, ``supervise_learner`` and
-the rest of ``chaos``.  The guard and telemetry switches
+the rest of ``chaos``; so does ``generation_opponent`` (league-lite:
+past-self opponents, validated as in the JAX package).  The guard and telemetry switches
 (``host_transfer_guard``, ``numerics_guard``, ``stall_watchdog``,
 ``lock_order_guard``, ``resource_ledger``, ``telemetry``, ...) keep
 their defaults for schema compatibility and have no effect in the
@@ -39,7 +40,7 @@ UPDATE_ALGORITHMS = ("standard", "impact")
 
 # train_args keys whose layer is not ported: refused when set
 NOT_PORTED = ("mesh", "distributed", "anakin", "serving", "router",
-              "generation_opponent", "status_port", "perf")
+              "status_port", "perf")
 
 
 def _is_set(value):
@@ -155,6 +156,9 @@ class TrainConfig:
     c_clip: float = 1.0
     surrogate_clip: float = 0.2
     max_policy_lag: int = 0
+    # league-lite: {past_epochs: K, prob: p} seats a retained past self
+    # as one opponent in a fraction p (default 0.25) of generation
+    # jobs; empty = pure self-play
     generation_opponent: Dict[str, Any] = field(default_factory=dict)
     perf: Dict[str, Any] = field(default_factory=dict)
 
@@ -238,6 +242,21 @@ class TrainConfig:
         if self.device_replay not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown device_replay {self.device_replay!r}")
+        if self.generation_opponent:
+            unknown = set(self.generation_opponent) - {
+                "past_epochs", "prob"}
+            if unknown:
+                raise ValueError(
+                    f"unknown generation_opponent keys: "
+                    f"{sorted(unknown)}")
+            if int(self.generation_opponent.get(
+                    "past_epochs", 0)) < 1:
+                raise ValueError(
+                    "generation_opponent.past_epochs must be >= 1")
+            prob = float(self.generation_opponent.get("prob", 0.25))
+            if not 0.0 < prob <= 1.0:
+                raise ValueError(
+                    "generation_opponent.prob must be in (0, 1]")
 
     # at least ~update_episodes^0.85 of every update window is evaluation
     @property

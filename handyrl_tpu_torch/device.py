@@ -34,3 +34,20 @@ def resolve_device(name=DEFAULT_DEVICE) -> torch.device:
             f"device {name!r} was requested but only "
             f"{torch.cuda.device_count()} CUDA device(s) exist")
     return device
+
+
+def pop_device_arg(argv):
+    """Split ``--device DEV`` / ``--device=DEV`` out of a command line:
+    ``(device, the other arguments)``, the device ``cuda`` if absent."""
+    device, rest = DEFAULT_DEVICE, []
+    it = iter(argv)
+    for arg in it:
+        if arg == "--device":
+            device = next(it, None)
+            if device is None:
+                raise SystemExit("--device needs a value (cuda or cpu)")
+        elif arg.startswith("--device="):
+            device = arg.split("=", 1)[1]
+        else:
+            rest.append(arg)
+    return device, rest

@@ -41,14 +41,22 @@ The resilience layer is the JAX package's:
     (``WorkerServer``); it runs no inference service, because shared
     memory does not cross machines.
 
+League-lite is the JAX package's: with ``generation_opponent:
+{past_epochs: K, prob: p}`` a fraction ``p`` of generation jobs seats a
+retained past self (a checkpoint of the last ``K`` epochs that still
+exists) as one opponent.  ``_serve_model`` serves that epoch from its
+file; the workers run such mixed-snapshot jobs on their sequential
+path.  The past seat's outcomes go to ``league_stats``, keyed by its
+epoch, never into ``generation_stats``.
+
 The stdout log format (``updated model(N)``, ``epoch N``, ``win rate``,
-``loss = ...``, ``generation stats``) is the JAX package's, so its plot
-scripts read either.
+``loss = ...``, ``generation stats``, ``league stats``) is the JAX
+package's, so its plot scripts read either.
 
 Left for later items: telemetry and attribution, the runtime guards
 (retrace, sharding, numerics, lock order, stall), the resource ledger,
 the serving frontend and router, the status server, Anakin, meshes and
-multihost, and league opponents.
+multihost.
 """
 
 import functools
@@ -701,6 +709,9 @@ class Learner:
             self.model = self._initial_model(net)
 
         self.generation_stats = {}
+        self.league_stats = {}         # past epoch -> its outcomes as
+        #                                a scheduled league opponent
+        self._league_epoch = 0         # league episodes this epoch
         self.eval_stats = {}
         self.eval_stats_by_opponent = {}
         self.eval_stats_by_seat = {}
@@ -982,6 +993,16 @@ class Learner:
                     label = final
                 self.generation_stats.setdefault(
                     label, RunningScore()).add(episode["outcome"][p])
+            # league seats (scheduled past-self opponents) track
+            # SEPARATELY, keyed by the snapshot epoch they played:
+            # folding them into generation_stats would collide with
+            # the label that epoch earned when it was the one training
+            league = [(p, label) for p, label in job["model_id"].items()
+                      if label >= 0 and p not in job["player"]]
+            for p, label in league:
+                self.league_stats.setdefault(
+                    label, RunningScore()).add(episode["outcome"][p])
+            self._league_epoch += bool(league)
         before = self.episodes_received
         self.episodes_received += len(arrived)
         for mark in range(before // 100 + 1,
@@ -1051,6 +1072,15 @@ class Learner:
         print("generation stats = %.3f +- %.3f" % (stats.mean, stats.std))
         record["generation_mean"] = stats.mean
         record["generation_std"] = stats.std
+        if self.league_stats:
+            # each past self's mean outcome while seated as a league
+            # opponent (negative = the current model beats it)
+            print("league stats = " + " ".join(
+                "%d:%.3f(%d)" % (e, s.mean, s.n)
+                for e, s in sorted(self.league_stats.items())))
+            record["league_opponent_mean"] = {
+                str(e): round(s.mean, 4)
+                for e, s in self.league_stats.items()}
 
     def update(self):
         print()
@@ -1064,6 +1094,8 @@ class Learner:
         record["episodes_received"] = self.episodes_received
         record["episodes_rejected_stale"] = self._rejected_epoch
         self._rejected_epoch = 0
+        record["league_episodes"] = self._league_epoch
+        self._league_epoch = 0
         self._epoch_t = now
         # WAL-restored backlog of this incarnation (constant after
         # start-up; > 0 proves a resume re-entered a warm ring)
@@ -1295,20 +1327,49 @@ class Learner:
                     self.worker.begin_drain()
         print("finished server")
 
+    def _league_opponent(self):
+        """Sample a past checkpoint epoch for a league seat, or None.
+
+        Candidates are the epochs from the last ``past_epochs`` whose
+        snapshot file actually survives retention pruning: sampling a
+        pruned epoch would silently serve the latest model under a
+        stale label (``_serve_model``'s fallback)."""
+        cfg = self.args.get("generation_opponent") or {}
+        k = int(cfg.get("past_epochs", 0) or 0)
+        if k <= 0 or self.model_epoch < 2:
+            return None
+        if random.random() >= float(cfg.get("prob", 0.25)):
+            return None
+        lo = max(1, self.model_epoch - k)
+        cands = [e for e in range(lo, self.model_epoch)
+                 if os.path.exists(model_path(e))]
+        return random.choice(cands) if cands else None
+
     def _assign_job(self):
         """Split worker jobs between generation and evaluation so that
-        evaluation keeps pace at ``eval_rate`` of the episode stream."""
+        evaluation keeps pace at ``eval_rate`` of the episode stream.
+        With ``generation_opponent`` configured, a fraction of
+        generation jobs seat a retained past self as one opponent
+        (league-lite); those jobs carry mixed snapshots, so the
+        workers route them down their sequential path."""
         players = self.env.players()
+        league_seat = past = None
         if self.jobs_evaluated < self.eval_rate * self.jobs_generated:
             trained = [players[self.jobs_evaluated % len(players)]]
             self.jobs_evaluated += 1
             role = "e"
         else:
             trained = list(players)
+            past = self._league_opponent()
+            if past is not None:
+                league_seat = random.choice(players)
+                trained = [p for p in players if p != league_seat]
             self.jobs_generated += 1
             role = "g"
         model_id = {p: self.model_epoch if p in trained else -1
                     for p in players}
+        if league_seat is not None:
+            model_id[league_seat] = past
         return {"role": role, "player": trained, "model_id": model_id}
 
     def _serve_model(self, model_id):

@@ -1,0 +1,9 @@
+"""Command-line tools of the port, each run as
+``python -m handyrl_tpu_torch.scripts.<name>`` from a run directory
+(``config.yaml`` and ``models/`` in the working directory), with the
+arguments of its twin under the repository's ``scripts/``:
+
+  aux_swa          <first_epoch> <last_epoch> [stride]
+  export_model     [model.ckpt] [out.npz]
+  make_onnx_model  [model.ckpt] [out.onnx] [--device DEV]
+"""

@@ -7,7 +7,8 @@ package's.
   * keys of layers the port lacks are refused with "not ported yet"
     (inside ``chaos``, the shm-plane and serving-replica keys); the
     resilience keys (``chaos``, ``supervise_learner``, the WAL) parse
-    as in the JAX package;
+    as in the JAX package, and ``generation_opponent`` (league-lite)
+    is accepted and refused as the JAX package does;
   * checkpoints the port writes and indexes resolve to the same resume
     point in both packages, auto and explicit, intact and corrupt;
   * an IMPACT trainer's optimizer and target network survive a
@@ -42,6 +43,7 @@ VARIANTS = {
                "value_target": "VTRACE", "rho_clip": 2.0},
     "pipeline-off": {"pipeline": {"mode": "off"}, "device_replay": "off",
                      "restart_epoch": "auto", "worker": {"num_parallel": 40}},
+    "league": {"generation_opponent": {"past_epochs": 3, "prob": 0.5}},
     "resilience": {"supervise_learner": True, "wal_flush_interval": 0.5,
                    "wal_keep_episodes": 300, "preempt_grace_seconds": 3.0,
                    "max_respawns": 1, "heartbeat_timeout": 10.0,
@@ -85,13 +87,34 @@ def test_both_packages_refuse_the_same_values(bad):
     ("mesh", {"dp": 2}), ("distributed", {"num_processes": 2}),
     ("anakin", {"mode": "auto"}), ("serving", {"mode": "on"}),
     ("chaos", {"shm_tear_prob": 0.1}), ("perf", {"mode": "on"}),
-    ("generation_opponent", {"past_epochs": 2}), ("status_port", 9000),
+    ("status_port", 9000),
 ])
 def test_unported_layers_are_refused(key, value):
     raw = _shipped()
     raw["train_args"][key] = value
     with pytest.raises(ValueError, match="not ported yet"):
         tconfig.Config.from_dict(raw)
+
+
+@pytest.mark.parametrize("value", [
+    {}, {"past_epochs": 1}, {"past_epochs": 8, "prob": 0.5},
+    {"past_epochs": 3, "prob": 1.0}, {"past_epochs": 2, "prob": 1e-3},
+    {"past_epochs": 0}, {"past_epochs": 3, "prob": 0.0},
+    {"past_epochs": 3, "prob": 1.5}, {"past_epochs": 3, "prob": -0.1},
+    {"bogus": 1}, {"prob": 0.5}, {"past_epochs": 2, "extra": True},
+])
+def test_generation_opponent_is_validated_as_in_jax(value):
+    def verdict(module):
+        raw = _shipped()
+        raw["train_args"]["generation_opponent"] = dict(value)
+        try:
+            cfg = module.Config.from_dict(raw)
+        except ValueError as exc:
+            assert "not ported" not in str(exc)
+            return "refused"
+        return cfg.train_args.to_dict()["generation_opponent"]
+
+    assert verdict(tconfig) == verdict(jconfig)
 
 
 def _write(models, epoch, steps=10):

@@ -388,3 +388,52 @@ def test_card_recurrent_update_step_matches_cpu(cuda_device):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def test_card_forward_matches_the_onnx_runner(cuda_device, tmp_path):
+    """GeeseNet 32x12 exported from the card: the numpy runner's outputs
+    against the card's float32 forward with TF32 and cuDNN off (the
+    pinned set of chip_smoke.py): within 1e-4 of the output's largest
+    magnitude."""
+    from handyrl_tpu_torch.interop import OnnxModel, export_onnx
+
+    card, _ = _models(cuda_device, seed=3)
+    batch = _batch(8, seed=3)
+    path = str(tmp_path / "geese.onnx")
+    export_onnx(card, batch[0], path)
+    runner = OnnxModel(path)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            ref = card.inference_batch(batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for i, obs in enumerate(batch):
+        out = runner.inference(obs)
+        for key in ("policy", "value"):
+            scale = float(np.abs(ref[key][i]).max())
+            assert np.abs(out[key] - ref[key][i]).max() <= 1e-4 * scale
+
+
+def test_card_and_cpu_exports_are_byte_identical(cuda_device, tmp_path):
+    """The same checkpoint exported from the card and from the CPU
+    gives the same file, byte for byte: the graph and the float32
+    initializers do not depend on the device the trace ran on."""
+    from handyrl_tpu_torch.interop import export_onnx
+    from handyrl_tpu_torch.models.geister_net import GeisterNet
+
+    blobs = {}
+    for net, env_name in ((GeeseNet(), "HungryGeese"),
+                          (GeisterNet(), "Geister")):
+        env = make_env({"env": env_name})
+        env.reset()
+        obs = env.observation(env.players()[0])
+        params = random_flax_params(net, seed=5)
+        for device in (cuda_device, "cpu"):
+            model = TorchModel.from_flax(type(net)(), params, device=device)
+            path = str(tmp_path / f"{env_name}_{device}.onnx")
+            export_onnx(model, obs, path)
+            with open(path, "rb") as f:
+                blobs[env_name, device] = f.read()
+        assert blobs[env_name, cuda_device] == blobs[env_name, "cpu"]

@@ -173,9 +173,26 @@ def test_seat_plan_and_result_table():
 
 
 def test_onnx_models_are_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="onnx"):
-        load_model(os.path.join(tmp_path, "m.onnx"),
-                   make_env({"env": "HungryGeese"}), device="cpu")
+    """``.onnx`` models load since the interop slice: ``load_model``
+    returns the numpy runner's ``OnnxModel``, whose outputs equal the
+    port's forward of the exported net (1e-5, exact float32 both)."""
+    from handyrl_tpu_torch.interop import OnnxModel, export_onnx
+
+    env = make_env({"env": "HungryGeese"})
+    env.reset()
+    model = TorchModel(GeeseNet(filters=8, blocks=2), device="cpu")
+    model.init_params(seed=2)
+    obs = env.observation(0)
+    path = os.path.join(tmp_path, "m.onnx")
+    export_onnx(model, obs, path)
+    loaded = load_model(path, env, device="cpu")
+    assert isinstance(loaded, OnnxModel)
+    assert loaded.init_hidden() is None
+    out, ref = loaded.inference(obs), model.inference(obs)
+    assert out["hidden"] is None
+    for key in ("policy", "value"):
+        np.testing.assert_allclose(out[key], ref[key], rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_online_evaluator_plays_the_model_against_the_opponent():

@@ -3,11 +3,14 @@
 A fresh interpreter imports the port, serves one batch on the CPU
 through the inference service, plays one ``--eval`` game through the
 CLI, imports every module of the training slice and trains three
-steps from the replay ring, and replays an episode WAL into the ring
-(the resilience slice); afterwards no ``jax*``/``flax*``/``optax*`` or
-``handyrl_tpu.*`` module may be loaded.  An AST scan of the package
-finds no such import anywhere, lazy ones included.  And the card is
-never replaced by the CPU behind the caller's back.
+steps from the replay ring, replays an episode WAL into the ring
+(the resilience slice), and exports the model to ONNX, runs the file
+and averages two checkpoints with the tools (the interop slice);
+afterwards no ``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*``
+module may be loaded.  An AST scan of the package, its ``interop/``
+and ``scripts/`` subpackages included, finds no such import anywhere,
+lazy ones included.  And the card is never replaced by the CPU behind
+the caller's back.
 """
 
 import ast
@@ -105,6 +108,22 @@ CHILD = textwrap.dedent("""
         [ep for _, ep in EpisodeWAL("wal").replay()])
     assert staged == 2
 
+    # the interop slice: ONNX export and run, SWA, .npz, the league
+    # learner and the network battle modules
+    from handyrl_tpu_torch.interop import OnnxModel, export_onnx
+    from handyrl_tpu_torch.scripts import aux_swa, export_model
+    import handyrl_tpu_torch.scripts.make_onnx_model
+    import handyrl_tpu_torch.evaluation
+
+    export_onnx(model, env.observation(0), "m.onnx")
+    assert OnnxModel("m.onnx").inference(env.observation(0))[
+        "policy"].shape == (4,)
+    os.makedirs("models")
+    for epoch in (1, 2):
+        write_checksummed(f"models/{epoch}.ckpt", {"params": params})
+    assert aux_swa.main(["1", "2"]) == 0
+    assert export_model.main(["models/swa.ckpt"]) == 0
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -139,6 +158,9 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
         sources += [os.path.join(root, f) for f in files
                     if f.endswith(".py")]
     assert len(sources) > 20
+    walked = {os.path.relpath(os.path.dirname(path), PACKAGE)
+              for path in sources}
+    assert {"interop", "scripts", "models", "pipeline"} <= walked
     bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
@@ -158,15 +180,33 @@ def test_asking_for_the_card_without_one_raises():
         cli_main(["--train"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--train-server"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--eval-server", "1", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--eval-client", "none.ckpt", "localhost"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
 
 
 def test_cli_refuses_modes_that_are_not_ported(capsys):
-    assert cli_main(["--eval-server"]) == 2
-    assert "not ported" in capsys.readouterr().out
+    """Since the network battle modes came over no mode of ``main.py``
+    is refused as not ported: every one is accepted (it goes on to read
+    its ``--device``), and only unknown modes exit 1."""
+    modes = ("--train", "-t", "--train-server", "-ts", "--worker", "-w",
+             "--eval", "-e", "--eval-server", "-es", "--eval-client",
+             "-ec")
+    for mode in modes:
+        if mode in ("--worker", "-w"):
+            # takes no --device: refused before any config is read
+            assert cli_main([mode, "--device", "cpu"]) == 1
+        else:
+            with pytest.raises(ValueError, match="unsupported device"):
+                cli_main([mode, "--device", "mps"])
+    out = capsys.readouterr().out
+    assert "not ported" not in out and "Unknown mode" not in out
     assert cli_main(["--bogus"]) == 1
+    assert "Unknown mode --bogus" in capsys.readouterr().out
     assert cli_main([]) == 1
 
 
