@@ -75,10 +75,24 @@ from a seed:
                  the card's pinned float32 forward within 1e-4 of the
                  output; (c) ``scripts.aux_swa 1 4`` and ``--eval`` of
                  ``swa.ckpt``; (d) ``--eval-server 10 1`` with two
-                 ``--eval-client`` processes whose seats run on the card.
+                 ``--eval-client`` processes whose seats run on the card;
+ 13. Anakin    — (a) the batched TicTacToe env on the card against the
+                 CPU's over all 5,478 positions; at 1,024 games,
+                 float32 with the pinned set, the card's rollout with
+                 injected actions against the CPU's and one update of
+                 each against a float64 CPU run; no host sync in a
+                 rollout, the syncs of a fused step counted; (b) the
+                 fused step (rollout + update) at 1,024 games, bf16,
+                 pure self-play and 3 frozen snapshots, timed in
+                 interleaved blocks and profiled, FLOPs from the cost
+                 model; (c) ``--train`` on the shipped config.yaml with
+                 ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 100
+                 fused steps, workers only evaluating; (d)
+                 tests/test_learning.py's Anakin loop on the card (32
+                 games x 60 steps), its 0.545 win-rate floor.
 
-Every phase prints one ``phaseN {json}`` line (phase 12 one per part)
-and raises on failure.
+Every phase prints one ``phaseN {json}`` line (phases 12 and 13 one
+per part) and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
 device record.  Exits non-zero, printing no result, where
@@ -86,6 +100,10 @@ device record.  Exits non-zero, printing no result, where
 
 Run from the repository root:  python3 chip_smoke.py
 Full outputs land in chiprun_out/chip_smoke/.
+
+``python3 chip_smoke.py --phases 1-5,13`` runs the listed phases and
+every phase they need (``NEEDS``: phase 6 trains on phase 4's episodes
+with phase 2's weights; phase 1 always runs); a bad list exits 2.
 
 ``python3 chip_smoke.py --grad-error [draws]`` instead studies phase 6's
 float32 gradient error on the card (ROADMAP C6): per draw, each
@@ -97,6 +115,8 @@ on the CPU, and the kernels each card run launches.
 ``main.py --train`` on phase 7's config, on the CPU, in a subprocess
 (this script never imports JAX), and prints its per-epoch curve: the
 reference the port's curve is read against.  It needs JAX and no card.
+``python3 chip_smoke.py --jax-curve anakin`` prints the JAX engine's
+win rates for phase 13d's loop, on the CPU, the same way.
 """
 
 import contextlib
@@ -650,8 +670,10 @@ def pinned_f32(torch):
 
 
 @contextlib.contextmanager
-def relu_pattern(masks=None):
-    """GeeseNet's ReLUs (13 per forward) on a fixed on/off pattern.
+def relu_pattern(masks=None, net="geese_net"):
+    """The ReLUs of ``handyrl_tpu_torch.models.<net>`` (GeeseNet's: 13
+    per forward; ``"tictactoe_net"`` also takes the ConvBlocks' of
+    ``models.blocks``) on a fixed on/off pattern.
     With ``masks`` None the forward inside runs as it is and its
     pattern is recorded into the yielded list; with ``masks`` (a
     recorded list) each ReLU in call order becomes ``x * mask``, which
@@ -665,10 +687,14 @@ def relu_pattern(masks=None):
     the card and on the CPU alike.  Phase 6's float32 gate runs both
     with the float64 run's pattern: it then measures each device's
     arithmetic, not where the flips fell (ROADMAP C7)."""
+    import importlib
+
     import torch.nn.functional as F
 
-    from handyrl_tpu_torch.models import geese_net
-
+    modules = [importlib.import_module(f"handyrl_tpu_torch.models.{net}")]
+    if net == "tictactoe_net":
+        modules.append(importlib.import_module(
+            "handyrl_tpu_torch.models.blocks"))
     out = []
     pending = iter(masks or ())
 
@@ -687,12 +713,13 @@ def relu_pattern(masks=None):
             out.append(int(((x.detach() > 0) != mask).sum()))
             return x * mask.to(x.dtype)
 
-    prev = geese_net.F
-    geese_net.F = Functional()
+    for module in modules:
+        module.F = Functional()
     try:
         yield out
     finally:
-        geese_net.F = prev
+        for module in modules:
+            module.F = F
     if next(pending, None) is not None:
         raise AssertionError("the forward ran fewer ReLUs than the pattern")
 
@@ -2138,6 +2165,534 @@ def _battle_entry(torch, cwd):
 
 
 # ---------------------------------------------------------------------
+# phase 13: the Anakin path (fused on-device TicTacToe rollout + update)
+# ---------------------------------------------------------------------
+
+ANAKIN_ENVS = 1024                  # the JAX package's default num_envs
+REACHABLE_POSITIONS = 5478
+ANAKIN_POOLS = (0, 3)               # pure self-play; 3 frozen snapshots
+ANAKIN_BLOCKS, ANAKIN_BLOCK_STEPS = 4, 10
+ANAKIN_WARMUP, ANAKIN_PROFILED = 5, 5
+ANAKIN_ATOL = 1e-5                  # selected_prob, value: card vs CPU
+ANAKIN_DISCRETE = ("observation", "action", "action_mask", "episode_mask",
+                   "turn_mask", "observation_mask", "outcome", "progress",
+                   "reward", "return")
+# the shipped config.yaml cut to 3 epochs of 100 fused steps
+ANAKIN_CUTS = {"epochs": 3, "updates_per_epoch": 100,
+               "metrics_path": "metrics.jsonl",
+               "anakin": {"mode": "on", "num_envs": ANAKIN_ENVS}}
+# the shipped config's loss keys
+TTT_ARGS = {"turn_based_training": True, "observation": False,
+            "burn_in_steps": 0, "gamma": 0.8, "lambda": 0.7,
+            "policy_target": "TD", "value_target": "TD",
+            "entropy_regularization": 0.1,
+            "entropy_regularization_decay": 0.1}
+# tests/test_learning.py's Anakin loop: 32 games x 60 fused steps,
+# Adam at 1e-3, float32, 80 games against random at steps 50, 55, 60
+LEARN = {"num_envs": 32, "steps": 60, "seed": 9, "lr": 1e-3,
+         "games": 80, "eval_at": [50, 55, 60], "floor": 0.545}
+LEARN_ARGS = dict(TTT_ARGS, entropy_regularization=0.05)
+
+
+def ttt_engine(device, num_envs, opponent_pool=0, dtype="bfloat16",
+               seed=SEED, lr=None, loss_args=None):
+    """An AnakinEngine over the shipped TicTacToeNet (32 x 3) on
+    ``device``, its weights the port's seeded init (the learner's)."""
+    from handyrl_tpu_torch.anakin import AnakinConfig, AnakinEngine
+    from handyrl_tpu_torch.envs import tictactoe_torch
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.tictactoe_net import TicTacToeNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import (
+        DEFAULT_LR,
+        UpdateStep,
+        make_optimizer,
+    )
+
+    model = TorchModel(TicTacToeNet(), device="cpu")
+    model.init_params(seed=seed)
+    net = model.module.to(device)
+    # the trainer's first lr at the shipped batch: 128 x 16 rows
+    lr = lr or DEFAULT_LR * 128 * 16
+    step = UpdateStep(net, LossConfig.from_config(loss_args or TTT_ARGS),
+                      make_optimizer(net.parameters(), lr), dtype)
+    return AnakinEngine(tictactoe_torch, step, AnakinConfig.from_config(
+        {"mode": "on", "num_envs": num_envs,
+         "opponent_pool": opponent_pool}), compute_dtype=dtype, seed=seed)
+
+
+def anakin_env_walk(torch):
+    """13a: the card's env against the CPU's over every reachable
+    position, each stepped with every legal action: the state, every
+    view and every step output equal."""
+    from handyrl_tpu_torch.envs import tictactoe_torch as E
+
+    t0 = time.perf_counter()
+    states = {d: E.init(1, d) for d in (DEV, "cpu")}
+    total = transitions = 0
+    mismatched = set()
+
+    def same(name, a, b):
+        if not torch.equal(a.cpu(), b):
+            mismatched.add(name)
+
+    while True:
+        cpu = states["cpu"]
+        total += cpu.cells.shape[0]
+        for name in ("terminal", "legal_mask", "turn", "observe",
+                     "outcome", "side_to_move"):
+            same(name, getattr(E, name)(states[DEV]), getattr(E, name)(cpu))
+        legal = E.legal_mask(cpu) & ~E.terminal(cpu)[:, None]
+        idx, act = legal.nonzero(as_tuple=True)
+        if not len(idx):
+            break
+        transitions += len(idx)
+        outs = {d: E.step(E.State(*(f[idx.to(d)] for f in st)), act.to(d))
+                for d, st in states.items()}
+        for name, a, b in zip(
+                ("cells", "count", "winner", "obs", "reward", "done",
+                 "legal"), (*outs[DEV][0], *outs[DEV][1:]),
+                (*outs["cpu"][0], *outs["cpu"][1:])):
+            same(name, a, b)
+        _, keep = np.unique(outs["cpu"][0].cells.numpy(), axis=0,
+                            return_index=True)
+        keep = torch.from_numpy(keep)
+        states = {d: E.State(*(f[keep.to(d)] for f in out[0]))
+                  for d, out in outs.items()}
+    out = {"positions": total, "transitions": transitions,
+           "mismatched": sorted(mismatched),
+           "walk_s": time.perf_counter() - t0}
+    if total != REACHABLE_POSITIONS or mismatched:
+        raise AssertionError(f"the card's env differs from the CPU's: {out}")
+    return out
+
+
+def _ttt_f64(torch, engine):
+    """A float64 CPU copy of ``engine``'s live module and optimizer
+    (the reference of the float32 gates, as phase 6's)."""
+    import copy
+
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+
+    src = engine.update_step
+    net = copy.deepcopy(src.module).to("cpu", torch.float64)
+    step = UpdateStep(net, src.cfg, make_optimizer(
+        net.parameters(), src.optimizer.param_groups[0]["lr"]), "float32")
+    step.apply_fn = lambda obs, hidden=None: net(obs.to(torch.float64))
+    return step
+
+
+def anakin_gates(torch):
+    """13a: at 1,024 games, float32 with the pinned algorithm set: the
+    card's rollout with injected actions against the CPU's (discrete
+    fields exact, prob and value within ANAKIN_ATOL), then one update
+    on each device's batch against a float64 CPU run within phase 6's
+    bounds, all three on the float64 run's ReLU pattern."""
+    out = {"num_envs": ANAKIN_ENVS}
+    with pinned_f32(torch):
+        engines = {d: ttt_engine(d, ANAKIN_ENVS, dtype="float32")
+                   for d in (DEV, "cpu")}
+        cpu = engines["cpu"]
+        with torch.no_grad():
+            sampled, _, _ = cpu.rollout(cpu.update_step.module, [],
+                                        cpu.init_carry(0))
+        actions = sampled["action"][:, :, 0, 0].T.contiguous()
+        batches, frames = {}, {}
+        for d, eng in engines.items():
+            with torch.no_grad():
+                batches[d], _, frames[d] = eng.rollout(
+                    eng.update_step.module, [], eng.init_carry(0), actions)
+        card = {k: v.cpu() for k, v in batches[DEV].items()}
+        out["discrete_mismatched"] = [
+            k for k in ANAKIN_DISCRETE
+            if not torch.equal(card[k], batches["cpu"][k])]
+        out["prob_value_max_abs_diff"] = {
+            k: _max_diff(card[k], batches["cpu"][k])
+            for k in ("selected_prob", "value")}
+        out["frames"] = {d: int(f) for d, f in frames.items()}
+        emit("phase13_rollout", out)
+        if out["discrete_mismatched"] or max(
+                out["prob_value_max_abs_diff"].values()) > ANAKIN_ATOL or \
+                out["frames"][DEV] != out["frames"]["cpu"]:
+            raise AssertionError(f"the card's rollout differs: {out}")
+
+        runs = {d: eng.update_step for d, eng in engines.items()}
+        runs["f64"] = _ttt_f64(torch, cpu)
+        batch_of = {DEV: batches[DEV], "cpu": batches["cpu"],
+                    "f64": batches["cpu"]}
+        lr = runs["cpu"].optimizer.param_groups[0]["lr"]
+        before = {d: _named(run, "data") for d, run in runs.items()}
+        with relu_pattern(net="tictactoe_net") as pattern:
+            losses = {"f64": runs["f64"].loss_and_grads(batch_of["f64"])[0]}
+        flips = {}
+        for d in (DEV, "cpu"):
+            with relu_pattern(pattern, net="tictactoe_net") as overridden:
+                losses[d] = runs[d].loss_and_grads(batch_of[d])[0]
+            flips[d] = sum(overridden)
+        losses = {d: {n: float(v.detach()) for n, v in ls.items()}
+                  for d, ls in losses.items()}
+        grads = {d: _named(run, "grad") for d, run in runs.items()}
+        for run in runs.values():
+            run.apply_grads()
+        after = {d: _named(run, "data") for d, run in runs.items()}
+    ref = losses["f64"]
+    err = {}
+    for d in (DEV, "cpu"):
+        e = err[d] = {"loss": max(abs(losses[d][n] - ref[n])
+                                  / max(abs(ref[n]), 1e-12)
+                                  for n in LOSS_KEYS),
+                      "grad": 0.0, "delta": 0.0}
+        for n, g64 in grads["f64"].items():
+            scale = float(g64.abs().max())
+            e["grad"] = max(e["grad"], _max_diff(grads[d][n], g64) / scale)
+            moved = g64.abs() > MOVED_REL * scale
+            diff = ((after[d][n] - before[d][n])
+                    - (after["f64"][n] - before["f64"][n])).abs()
+            if moved.any():
+                e["delta"] = max(e["delta"], float(diff[moved].max()) / lr)
+    card_vs_cpu = max(abs(losses[DEV][n] - losses["cpu"][n])
+                      / max(abs(losses["cpu"][n]), 1e-12) for n in LOSS_KEYS)
+    out["f32_update"] = {
+        "card_vs_cpu_loss_rel_max": card_vs_cpu,
+        "vs_float64": {("card" if d == DEV else d): e
+                       for d, e in err.items()},
+        "factor": F64_FACTOR, "lr": lr, "relu_flips": {
+            ("card" if d == DEV else d): f for d, f in flips.items()},
+        "floors": {"loss": LOSS_RTOL, "grad": GRAD_TOL,
+                   "delta": DELTA_TOL}, "losses": losses[DEV]}
+    emit("phase13_update", out["f32_update"])
+    if card_vs_cpu > LOSS_RTOL:
+        raise AssertionError(f"f32 losses differ: {out['f32_update']}")
+    for key, floor in out["f32_update"]["floors"].items():
+        if err[DEV][key] > max(F64_FACTOR * err["cpu"][key], floor):
+            raise AssertionError(
+                f"the card's float32 {key} is further from float64 than "
+                f"the CPU's allows: {out['f32_update']}")
+    out["syncs"] = anakin_syncs(torch)
+    return out
+
+
+def anakin_syncs(torch):
+    """Host syncs of one rollout (bf16, 1,024 games, 3 snapshots) under
+    ``set_sync_debug_mode("error")``, which raises at the first one, and
+    of the whole fused step, counted under ``"warn"``."""
+    import warnings
+
+    engine = ttt_engine(DEV, ANAKIN_ENVS, opponent_pool=3)
+    pool = engine.init_pool(engine.update_step.module)
+    step, carry = engine.make_fused_step(), engine.init_carry(0)
+    _, carry = step(carry, pool)                            # warm-up
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with torch.no_grad():
+            engine.rollout(engine.update_step.module, pool, carry)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step(carry, pool)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    return {"rollout": 0, "fused_step": len(syncs),
+            "fused_step_kinds": sorted(Counter(syncs).items())}
+
+
+def anakin_timing(torch):
+    """13b: the fused step at 1,024 games, bf16, pure self-play and 3
+    frozen snapshots, in interleaved blocks (CUDA events per step)."""
+    from handyrl_tpu_torch.telemetry import CostModel
+
+    runs = {}
+    for k in ANAKIN_POOLS:
+        engine = ttt_engine(DEV, ANAKIN_ENVS, opponent_pool=k)
+        runs[k] = r = {"engine": engine, "step": engine.make_fused_step(),
+                       "pool": engine.init_pool(engine.update_step.module),
+                       "carry": engine.init_carry(0), "ms": [], "wall": 0.0,
+                       "frames": []}
+        # FLOP per step: the cost model's count of the first call
+        costs = CostModel(kind=torch.cuda.get_device_name(0))
+        _, r["carry"] = costs.call("anakin_step", r["step"], r["carry"],
+                                   r["pool"])
+        r["flops"] = costs.program("anakin_step")["flops"]
+        for _ in range(ANAKIN_WARMUP):
+            _, r["carry"] = r["step"](r["carry"], r["pool"])
+    torch.cuda.synchronize()
+
+    def once(r):
+        metrics, r["carry"] = r["step"](r["carry"], r["pool"])
+        return metrics
+
+    for block in range(ANAKIN_BLOCKS):
+        for k in (ANAKIN_POOLS if block % 2 == 0
+                  else ANAKIN_POOLS[::-1]):
+            r = runs[k]
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+                      for _ in range(ANAKIN_BLOCK_STEPS)]
+            t0 = time.perf_counter()
+            for start, stop in events:
+                start.record()
+                r["frames"].append(once(r)["anakin_frames"])
+                stop.record()
+            torch.cuda.synchronize()
+            r["wall"] += time.perf_counter() - t0
+            r["ms"] += [a.elapsed_time(b) for a, b in events]
+    out = {}
+    for k, r in runs.items():
+        engine = r["engine"]
+        update = engine.update_step
+        with torch.no_grad():
+            batch, _, _ = engine.rollout(update.module, r["pool"],
+                                         r["carry"])
+        torch.cuda.reset_peak_memory_stats()
+        once(r)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+        def rollout():
+            with torch.no_grad():
+                engine.rollout(update.module, r["pool"], r["carry"])
+
+        median = statistics.median(r["ms"])
+        frames = float(torch.stack(r["frames"]).float().mean())
+        out[f"K{k}"] = {
+            "opponent_pool": k, "steps": len(r["ms"]),
+            "step_ms_median": median,
+            "step_ms_p90": _percentile(r["ms"], 0.9),
+            "wall_ms_per_step": 1e3 * r["wall"] / len(r["ms"]),
+            "rollout_ms": _event_ms(torch, rollout, 10),
+            "update_ms": _event_ms(torch, lambda: update(batch), 10),
+            "frames_per_step": frames,
+            "frames_per_s": frames * 1e3 / median,
+            "games_per_s": ANAKIN_ENVS * 1e3 / median,
+            "max_memory_allocated_bytes": peak,
+            "flop_per_step": r["flops"],
+            "bf16_bound_ms": 1e3 * r["flops"] / PEAK_BF16_FLOPS,
+            "bf16_peak_share": r["flops"] / (median / 1e3) / PEAK_BF16_FLOPS}
+    # the profiles last: the profiler's hooks slow the host after it
+    for k, r in runs.items():
+        row = out[f"K{k}"]
+        row["profile"] = profile_steps(torch, lambda: once(r),
+                                       ANAKIN_PROFILED,
+                                       f"anakin_trace_k{k}.json")
+        busy = row["profile"]["device_busy_ms_per_step"]
+        row["host_share"] = (1 - busy / row["step_ms_median"]
+                             if isinstance(busy, float) else "not measured")
+    return out
+
+
+def anakin_train_entry():
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="anakin_")
+    try:
+        return _anakin_train_entry(cwd)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def _anakin_train_entry(cwd):
+    """13c: ``--train`` on the shipped config with ``anakin: {mode: on,
+    num_envs: 1024}``, 3 epochs of 100 fused steps; then the port's
+    ``--eval`` of the last checkpoint."""
+    from handyrl_tpu_torch.durability import read_verified
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.models.tictactoe_net import TicTacToeNet
+
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    config = train_config(ANAKIN_CUTS)
+    proc, records, wall = run_training(train, cwd, config)
+    _check_run(proc, "anakin_train")
+    updates = ANAKIN_CUTS["updates_per_epoch"]
+    epochs = ANAKIN_CUTS["epochs"]
+    rows = [{"epoch": r["epoch"], "steps": r["steps"],
+             "epoch_steps": r.get("epoch_steps"),
+             "epoch_wall_s": r["epoch_wall_sec"],
+             "anakin_frames": r.get("anakin_frames"),
+             "anakin_games": r.get("anakin_games"),
+             "anakin_frames_per_sec": r.get("anakin_frames_per_sec"),
+             "anakin_games_per_sec": r.get("anakin_games_per_sec"),
+             "win_rate": r.get("win_rate"), "eval_games": r.get("eval_games"),
+             "mfu": r.get("mfu"), "achieved_tflops": r.get("achieved_tflops"),
+             "device_step_sec": r.get("device_step_sec"),
+             "batch_wait_sec": r.get("batch_wait_sec"),
+             "queue_depth": r.get("queue_depth"),
+             "roofline_verdict": r.get("roofline_verdict"),
+             # the eval fleet's forwards share the card and the GIL
+             "infer_requests": r.get("infer_requests"),
+             "infer_batches": r.get("infer_batches"),
+             "loss_total": r.get("total")} for r in records]
+    out = {"cuts": ANAKIN_CUTS, "wall_s": wall, "epochs": rows}
+    if [r["steps"] for r in records] != [updates * (e + 1)
+                                         for e in range(epochs)]:
+        raise AssertionError(f"epochs did not close on the step clock: "
+                             f"{rows}")
+    for r in records:
+        games = ANAKIN_ENVS * r["epoch_steps"]
+        if r.get("anakin_games") != games or \
+                r.get("anakin_frames", 0) < 5 * games:
+            raise AssertionError(f"anakin counts: {r}")
+        if not all(np.isfinite(r[k]) for k in ("p", "v", "ent", "total")):
+            raise AssertionError(f"nonfinite losses: {r}")
+        if r.get("mfu") is None or "replay" in r:
+            raise AssertionError(f"no mfu, or a replay path ran: {r}")
+    if f"anakin mode: {ANAKIN_ENVS} on-device games" not in proc.stdout:
+        raise AssertionError("the learner did not arm the Anakin path")
+    # a worker that never attached the service reports no fallbacks
+    workers = {int(w): {"cuda_initialized": c == "True",
+                        "fallbacks": int(f or 0)}
+               for w, c, f in re.findall(
+                   r"closed worker (\d+): cuda initialized (\w+)"
+                   r"(?:, pipeline fallbacks (\d+))?", proc.stdout)}
+    out["workers"] = workers
+    if len(workers) != config["train_args"]["worker"]["num_parallel"] or any(
+            w["cuda_initialized"] or w["fallbacks"]
+            for w in workers.values()):
+        raise AssertionError(f"worker fallbacks or CUDA in a worker: "
+                             f"{workers}")
+    # the checkpoint holds the JAX package's param tree (tier-1 has the
+    # JAX package read it; this card has no JAX), and the port's
+    # --eval reads it back
+    path = os.path.join(cwd, "models", f"{epochs}.ckpt")
+    from_flax(read_verified(path)["params"], TicTacToeNet())
+    proc_eval = _cli(["handyrl_tpu_torch", "--eval", f"models/{epochs}.ckpt",
+                      "20", "1"], cwd, "anakin_eval")
+    out["eval"] = _result_table(proc_eval.stdout)
+    if not any("win rate" in line for line in out["eval"]):
+        raise AssertionError("--eval of the anakin checkpoint printed no "
+                             "result")
+    return out
+
+
+def eval_win_rate(model, games, seed):
+    """Win rate against random, seats alternated, draws half
+    (tests/test_learning.py's helper, on the port's agents)."""
+    from handyrl_tpu_torch.agent import Agent, RandomAgent
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.evaluation import exec_match
+
+    env = make_env({"env": "TicTacToe"})
+    random.seed(seed)
+    score = 0.0
+    for g in range(games):
+        ours, theirs = env.players()[g % 2], env.players()[1 - g % 2]
+        outcome = exec_match(env, {ours: Agent(model),
+                                   theirs: RandomAgent()})
+        score += (outcome[ours] + 1) / 2
+    return score / games
+
+
+def anakin_learning(torch):
+    """13d: tests/test_learning.py's Anakin loop on the card."""
+    from handyrl_tpu_torch.learner import host_copy
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.tictactoe_net import TicTacToeNet
+
+    t0 = time.perf_counter()
+    engine = ttt_engine(DEV, LEARN["num_envs"], dtype="float32",
+                        seed=LEARN["seed"], lr=LEARN["lr"],
+                        loss_args=LEARN_ARGS)
+    module = engine.update_step.module
+    init = host_copy(module.state_dict())
+    step, carry = engine.make_fused_step(), engine.init_carry(0)
+    rates, totals = [], []
+    for i in range(LEARN["steps"]):
+        metrics, carry = step(carry)
+        totals.append(metrics["total"])
+        if i + 1 in LEARN["eval_at"]:
+            snap = TorchModel(TicTacToeNet(), device="cpu")
+            snap.load_params(host_copy(module.state_dict()))
+            rates.append(eval_win_rate(snap, LEARN["games"],
+                                       seed=77 + len(rates)))
+    final = host_copy(module.state_dict())
+    moved = any(not np.allclose(init[k], final[k]) for k in init)
+    totals = [float(t) for t in totals]
+    out = dict(LEARN, rates=rates, mean=sum(rates) / len(rates),
+               moved=moved, finite=bool(np.isfinite(totals).all()),
+               loss_first_last=[totals[0], totals[-1]],
+               wall_s=time.perf_counter() - t0)
+    if out["mean"] < LEARN["floor"] or not moved or not out["finite"]:
+        raise AssertionError(f"the Anakin loop did not learn: {out}")
+    return out
+
+
+def anakin_entry(torch, smi):
+    """Phase 13, one ``phase13 {json}`` line per part (13a-13d)."""
+    out = {"card": smi}
+    for part, fn in (("a", lambda: dict(walk=anakin_env_walk(torch),
+                                         **anakin_gates(torch))),
+                     ("b", lambda: anakin_timing(torch)),
+                     ("c", anakin_train_entry),
+                     ("d", lambda: anakin_learning(torch))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        out[part]["part_s"] = time.perf_counter() - t0
+        emit("phase13", dict(out[part], part=f"13{part}"))
+    return out
+
+
+JAX_ANAKIN_LOOP = """
+import json, random, sys
+import jax, jax.numpy as jnp, numpy as np
+from handyrl_tpu.agent import Agent, RandomAgent
+from handyrl_tpu.anakin import AnakinConfig, AnakinEngine
+from handyrl_tpu.environment import make_env, make_jax_env
+from handyrl_tpu.evaluation import exec_match
+from handyrl_tpu.models import TPUModel
+from handyrl_tpu.ops.losses import LossConfig
+from handyrl_tpu.ops.update import make_optimizer
+
+learn, loss_args = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+env = make_env({"env": "TicTacToe"})
+env.reset()
+model = TPUModel(env.net())
+model.init_params(env.observation(env.players()[0]), seed=learn["seed"])
+optimizer = make_optimizer(learn["lr"])
+engine = AnakinEngine(
+    make_jax_env({"env": "TicTacToe"}), model,
+    LossConfig.from_config(loss_args), optimizer,
+    AnakinConfig.from_config({"mode": "on",
+                              "num_envs": learn["num_envs"]}),
+    seed=learn["seed"])
+step = engine.make_fused_step()
+params = jax.tree.map(jnp.array, model.params)
+opt_state = optimizer.init(params)
+carry = engine.init_carry(0)
+rates = []
+for i in range(learn["steps"]):
+    params, opt_state, metrics, carry = step(params, opt_state, carry, ())
+    if i + 1 in learn["eval_at"]:
+        snap = TPUModel(model.module, jax.tree.map(np.asarray, params))
+        random.seed(77 + len(rates))
+        score = 0.0
+        for g in range(learn["games"]):
+            ours, theirs = env.players()[g % 2], env.players()[1 - g % 2]
+            outcome = exec_match(env, {ours: Agent(snap),
+                                       theirs: RandomAgent()})
+            score += (outcome[ours] + 1) / 2
+        rates.append(score / learn["games"])
+print(json.dumps({"jax_cpu_anakin_rates": rates,
+                  "mean": sum(rates) / len(rates)}))
+"""
+
+
+def jax_anakin_curve():
+    """The JAX engine's rates for 13d's loop on the CPU, in a subprocess
+    (this script imports no JAX): tests/test_learning.py's Anakin test
+    without its assertion."""
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_ANAKIN_LOOP, json.dumps(LEARN),
+         json.dumps(LEARN_ARGS)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=1800)
+    print(proc.stdout.strip() or proc.stderr[-3000:], flush=True)
+    return proc.returncode
+
+
+# ---------------------------------------------------------------------
 # --grad-error: what sets phase 6's float32 gradient error (ROADMAP C6)
 # ---------------------------------------------------------------------
 
@@ -2289,44 +2844,16 @@ def jax_curve():
 
 # ---------------------------------------------------------------------
 
-def main():
-    try:
-        import torch
-    except ImportError:
-        print("torch is not installed", file=sys.stderr)
-        return 1
-    if not torch.cuda.is_available():
-        print("no CUDA device: torch.cuda.is_available() is False",
-              file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------
+# phases 2-4: weights, the forward, served self-play
+# ---------------------------------------------------------------------
+
+def weights_phase(torch, report):
+    """2: GeeseNet 32x12 from seeded weights, on the card and the CPU."""
     from handyrl_tpu_torch.models import TorchModel
     from handyrl_tpu_torch.models.convert import random_flax_params
     from handyrl_tpu_torch.models.geese_net import GeeseNet
 
-    os.makedirs(OUT_DIR, exist_ok=True)
-    report = {}
-    clock = [time.perf_counter()]
-
-    def lap():
-        """Seconds since the previous phase ended."""
-        now = time.perf_counter()
-        elapsed, clock[0] = now - clock[0], now
-        return elapsed
-
-    # 1. card
-    smi = card_line()
-    report["phase1"] = {"nvidia_smi": smi,
-                        "torch": torch.__version__,
-                        "cuda": torch.version.cuda,
-                        "device": torch.cuda.get_device_name(0),
-                        "device_count": torch.cuda.device_count(),
-                        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-                        "matmul_allow_tf32":
-                            torch.backends.cuda.matmul.allow_tf32}
-    report["phase1"]["phase_s"] = lap()
-    emit("phase1", report["phase1"])
-
-    # 2. weights
     t0 = time.perf_counter()
     params = random_flax_params(GeeseNet(FILTERS, BLOCKS), seed=SEED)
     params2 = random_flax_params(GeeseNet(FILTERS, BLOCKS), seed=SEED + 1)
@@ -2342,10 +2869,11 @@ def main():
     report["phase2"] = {"params": n_params, "filters": FILTERS,
                         "blocks": BLOCKS, "seed": SEED,
                         "setup_s": time.perf_counter() - t0}
-    report["phase2"]["phase_s"] = lap()
-    emit("phase2", report["phase2"])
+    return params, model, model2, cpu_model
 
-    # 3. forward parity + timing
+
+def forward_phase(torch, model, cpu_model, report, finish):
+    """3: forward parity card vs CPU, bucket times, kernel counts."""
     obs = real_observations(PARITY_ROWS, seed=SEED)
     ref = cpu_model.inference_batch(obs)
     out = model.inference_batch(obs)
@@ -2371,8 +2899,7 @@ def main():
             trace="forward_trace_64.json" if rows == 64 else None)
             for rows in BUCKETS],
     }
-    report["phase3"]["phase_s"] = lap()
-    emit("phase3", report["phase3"])
+    finish(3)
     if not finite or shapes != {"policy": [PARITY_ROWS, 4],
                                 "value": [PARITY_ROWS, 1]}:
         raise AssertionError(f"bad forward outputs: {shapes}")
@@ -2382,7 +2909,10 @@ def main():
         raise AssertionError(f"card (TF32 off) vs CPU {diff32} > "
                              f"{FP32_ATOL}")
 
-    # 4. served self-play with a hot swap
+
+def served_phase(torch, model, model2, report, finish):
+    """4: served self-play with a hot swap; returns the drained
+    episodes phase 6 trains on."""
     drained = []
     served = served_selfplay(torch, model, model2, drained)
     workers = served["workers"].values()
@@ -2405,8 +2935,7 @@ def main():
             served["served_vs_local_max_abs_diff"],
         "per_worker": served["workers"],
     }
-    report["phase4"]["phase_s"] = lap()
-    emit("phase4", report["phase4"])
+    finish(4)
     for w in workers:
         if w["fallbacks"] or w["local_rows"]:
             raise AssertionError(f"a worker answered locally: {w}")
@@ -2427,52 +2956,147 @@ def main():
     if len(drained) + sum(w["episodes_spilled"] for w in workers) != \
             report["phase4"]["episodes"]:
         raise AssertionError("episodes lost on the trajectory rings")
+    return drained
+
+
+ALL_PHASES = frozenset(range(1, 14))
+# what a phase takes from another: phase 2's weights, phase 4's drained
+# episodes; every phase reads phase 1's card line
+NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}}
+
+
+def parse_phases(spec):
+    """``"1-5,13"`` -> the phases to run, with every phase they need
+    (ValueError on anything else)."""
+    chosen = {1}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        try:
+            lo, hi = int(lo), int(hi or lo)
+        except ValueError:
+            raise ValueError(f"{part!r} is not a phase or a range of "
+                             "phases") from None
+        if not 1 <= lo <= hi <= max(ALL_PHASES):
+            raise ValueError(f"no phases {part!r}: the phases are "
+                             f"1-{max(ALL_PHASES)}")
+        chosen.update(range(lo, hi + 1))
+    while True:
+        needed = set().union(*(NEEDS.get(p, set()) for p in chosen))
+        if needed <= chosen:
+            return frozenset(chosen)
+        chosen |= needed
+
+
+def main(phases=ALL_PHASES):
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    report = {}
+    clock = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the previous phase ended."""
+        now = time.perf_counter()
+        elapsed, clock[0] = now - clock[0], now
+        return elapsed
+
+    def finish(n):
+        """Close phase ``n``: its time, then its line (before its
+        gates run, so a failing phase still prints what it read)."""
+        report[f"phase{n}"]["phase_s"] = lap()
+        emit(f"phase{n}", report[f"phase{n}"])
+
+    # 1. card
+    smi = card_line()
+    report["phase1"] = {"nvidia_smi": smi,
+                        "torch": torch.__version__,
+                        "cuda": torch.version.cuda,
+                        "device": torch.cuda.get_device_name(0),
+                        "device_count": torch.cuda.device_count(),
+                        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                        "matmul_allow_tf32":
+                            torch.backends.cuda.matmul.allow_tf32}
+    finish(1)
+    report["phases"] = sorted(phases)
+
+    # 2. weights
+    if 2 in phases:
+        params, model, model2, cpu_model = weights_phase(torch, report)
+        finish(2)
+    if 3 in phases:
+        forward_phase(torch, model, cpu_model, report, finish)
+    if 4 in phases:
+        drained = served_phase(torch, model, model2, report, finish)
 
     # 5. --eval
-    report["phase5"] = eval_entry(params)
-    report["phase5"]["phase_s"] = lap()
-    emit("phase5", report["phase5"])
+    if 5 in phases:
+        report["phase5"] = eval_entry(params)
+        report["phase5"]["phase_s"] = lap()
+        emit("phase5", report["phase5"])
 
     # 6. GeeseNet training steps on the card
-    report["phase6"] = train_steps(torch, drained, params)
-    report["phase6"]["phase_s"] = lap()
-    emit("phase6", report["phase6"])
+    if 6 in phases:
+        report["phase6"] = train_steps(torch, drained, params)
+        report["phase6"]["phase_s"] = lap()
+        emit("phase6", report["phase6"])
 
     # 7. --train on the shipped config, then a restart
-    report["phase7"] = train_entry()
-    report["phase7"]["phase_s"] = lap()
-    emit("phase7", report["phase7"])
+    if 7 in phases:
+        report["phase7"] = train_entry()
+        report["phase7"]["phase_s"] = lap()
+        emit("phase7", report["phase7"])
 
     # 8. resilience: chaos drills and SIGTERM, then remote workers
-    report["phase8"] = p8 = resilience_entry()
-    p8["phase_s"] = lap()
-    emit("phase8", p8)
-    a, b = p8["drills"], p8["remote"]
-    print(f"resilience: gather respawns {a['gather_respawns']}, service "
-          f"respawns {a['service_respawns']}, emergency save "
-          f"{a['emergency_save_ms']} ms after SIGTERM; WAL replayed "
-          f"{a['relaunch']['wal']['replayed']} episodes at "
-          f"{a['relaunch']['wal']['ingest_ms_per_episode']:.3f} ms each "
-          f"on the card, first step {a['relaunch']['first_step_s']} s "
-          f"after the learner started; remote: {b['guard_relaunches']} "
-          f"guard relaunch, {b['session_reentries']} session re-entry, "
-          f"{len(b['workers'])} worker reports, none on CUDA", flush=True)
+    if 8 in phases:
+        report["phase8"] = p8 = resilience_entry()
+        p8["phase_s"] = lap()
+        emit("phase8", p8)
+        a, b = p8["drills"], p8["remote"]
+        print(f"resilience: gather respawns {a['gather_respawns']}, "
+              f"service respawns {a['service_respawns']}, emergency save "
+              f"{a['emergency_save_ms']} ms after SIGTERM; WAL replayed "
+              f"{a['relaunch']['wal']['replayed']} episodes at "
+              f"{a['relaunch']['wal']['ingest_ms_per_episode']:.3f} ms "
+              f"each on the card, first step "
+              f"{a['relaunch']['first_step_s']} s after the learner "
+              f"started; remote: {b['guard_relaunches']} guard relaunch, "
+              f"{b['session_reentries']} session re-entry, "
+              f"{len(b['workers'])} worker reports, none on CUDA",
+              flush=True)
 
     # 9. GeisterNet training steps on the card at full width
-    report["phase9"] = p9 = geister_steps(torch, smi)
-    p9["phase_s"] = lap()
-    emit("phase9", p9)
+    if 9 in phases:
+        report["phase9"] = p9 = geister_steps(torch, smi)
+        p9["phase_s"] = lap()
+        emit("phase9", p9)
 
     # 10. --train on Geister, then --eval of its checkpoint
-    report["phase10"] = p10 = geister_train_entry(smi)
-    p10["phase_s"] = lap()
-    emit("phase10", p10)
+    if 10 in phases:
+        report["phase10"] = p10 = geister_train_entry(smi)
+        p10["phase_s"] = lap()
+        emit("phase10", p10)
+        print("Geister --train: " + ", ".join(
+            f"epoch {r['epoch']} {r['steps']} steps "
+            f"{r['epoch_wall_s']:.1f} s win rate {r['win_rate']}"
+            for r in p10["epochs"]), flush=True)
 
     # 11. GRFNet training steps on the GRF raster
-    report["phase11"] = p11 = grf_steps(torch, smi)
-    p11["phase_s"] = lap()
-    emit("phase11", p11)
-    for tag, p in (("GeisterNet", p9), ("GRFNet", p11)):
+    if 11 in phases:
+        report["phase11"] = p11 = grf_steps(torch, smi)
+        p11["phase_s"] = lap()
+        emit("phase11", p11)
+    for n, tag in ((9, "GeisterNet"), (11, "GRFNet")):
+        if n not in phases:
+            continue
+        p = report[f"phase{n}"]
         st, prof = p["steady"], p["profile"]
         print(f"{tag}: {st['step_ms_median']:.2f} ms/step median "
               f"(p90 {st['step_ms_p90']:.2f}), "
@@ -2480,27 +3104,40 @@ def main():
               f"{prof['device_busy_ms_per_step']} kernel ms per step, "
               f"peak {st['max_memory_allocated_bytes'] / 2 ** 30:.2f} GiB "
               f"on {smi}", flush=True)
-    print("Geister --train: " + ", ".join(
-        f"epoch {r['epoch']} {r['steps']} steps {r['epoch_wall_s']:.1f} s "
-        f"win rate {r['win_rate']}" for r in p10["epochs"]), flush=True)
 
     # 12. league --train, ONNX export and run, SWA, a network battle
-    report["phase12"] = p12 = league_entry(torch, smi)
-    p12["phase_s"] = lap()
-    print("league --train: " + ", ".join(
-        f"epoch {r['epoch']} {r['epoch_wall_s']:.1f} s "
-        f"{r['episodes_per_s'] or 0:.1f} episodes/s {r['steps']} steps "
-        f"{r['league_episodes']} league episodes"
-        for r in p12["a"]["epochs"]), flush=True)
-    print("ONNX: " + ", ".join(
-        f"{name} export {n['export_ms']:.0f} ms, {n['file_bytes']} bytes, "
-        f"max rel err {max(n['rel_err_per_step']):.2e}, runner "
-        f"{n['runner_ms']:.2f} ms vs card {n['card_ms']:.2f} ms per "
-        f"inference" for name, n in p12["b"]["nets"].items())
-        + f"; network battle {p12['d']['games']} games in "
-        f"{p12['d']['wall_s']:.1f} s; phase 12 {p12['phase_s']:.1f} s on "
-        f"{smi}", flush=True)
+    if 12 in phases:
+        report["phase12"] = p12 = league_entry(torch, smi)
+        p12["phase_s"] = lap()
+        print("league --train: " + ", ".join(
+            f"epoch {r['epoch']} {r['epoch_wall_s']:.1f} s "
+            f"{r['episodes_per_s'] or 0:.1f} episodes/s {r['steps']} steps "
+            f"{r['league_episodes']} league episodes"
+            for r in p12["a"]["epochs"]), flush=True)
+        print("ONNX: " + ", ".join(
+            f"{name} export {n['export_ms']:.0f} ms, {n['file_bytes']} "
+            f"bytes, max rel err {max(n['rel_err_per_step']):.2e}, runner "
+            f"{n['runner_ms']:.2f} ms vs card {n['card_ms']:.2f} ms per "
+            f"inference" for name, n in p12["b"]["nets"].items())
+            + f"; network battle {p12['d']['games']} games in "
+            f"{p12['d']['wall_s']:.1f} s; phase 12 {p12['phase_s']:.1f} s "
+            f"on {smi}", flush=True)
 
+    # 13. the Anakin path: gates, the timed fused step, --train, learning
+    if 13 in phases:
+        report["phase13"] = p13 = anakin_entry(torch, smi)
+        p13["phase_s"] = lap()
+        print("Anakin: " + ", ".join(
+            f"K={r['opponent_pool']} {r['step_ms_median']:.2f} ms/step "
+            f"(p90 {r['step_ms_p90']:.2f}), {r['frames_per_s']:.0f} "
+            f"frames/s, host {r['host_share']}"
+            for k, r in p13["b"].items() if k.startswith("K"))
+            + "; --train " + ", ".join(
+            f"epoch {r['epoch']} {r['anakin_frames_per_sec']} frames/s "
+            f"mfu {r['mfu']} win rate {r['win_rate']}"
+            for r in p13["c"]["epochs"])
+            + f"; learning {p13['d']['rates']} mean {p13['d']['mean']:.3f}"
+            f"; phase 13 {p13['phase_s']:.1f} s on {smi}", flush=True)
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "
@@ -2517,6 +3154,17 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--jax-curve"]:
         sys.exit(jax_curve())
+    if sys.argv[1:] == ["--jax-curve", "anakin"]:
+        sys.exit(jax_anakin_curve())
+    if sys.argv[1:2] == ["--phases"]:
+        try:
+            if len(sys.argv) != 3:
+                raise ValueError("give one list, e.g. --phases 1-5,13")
+            chosen = parse_phases(sys.argv[2])
+        except ValueError as exc:
+            print(f"--phases: {exc}", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(main(chosen))
     if sys.argv[1:2] == ["--grad-error"]:
         sys.exit(grad_error_study(*map(int, sys.argv[2:3])))
     sys.exit(main())

@@ -8,10 +8,13 @@ quantities the learner reads (``effective_eval_rate``,
 
 Keys of layers the port does not have yet are parsed and refused with
 a "not ported yet" error when set, never silently ignored: ``mesh``,
-``distributed`` (multihost), ``anakin``, ``serving``, ``router``,
-``status_port`` and ``perf``; and,
-inside ``chaos``, the shm-plane and serving-replica keys (``shm_*``,
-``serve_kill_epoch``).  The resilience keys take effect as in the JAX
+``distributed`` (multihost), ``serving``, ``router`` and
+``status_port``; and, inside ``chaos``, the shm-plane and
+serving-replica keys (``shm_*``, ``serve_kill_epoch``).  ``anakin``
+(the fused on-device rollout, validated by ``AnakinConfig``, with the
+JAX package's cross-check that it needs ``updates_per_epoch > 0``) and
+``perf`` (the cost model's peak overrides, validated by ``PerfConfig``)
+take effect as in the JAX package.  The resilience keys take effect as in the JAX
 package: the episode WAL (``wal_enabled``, ``wal_flush_interval``,
 ``wal_segment_mb``, ``wal_keep_episodes``), ``preempt_grace_seconds``,
 ``heartbeat_interval``/``heartbeat_timeout``, ``max_respawns``,
@@ -39,8 +42,7 @@ VALUE_TARGETS = ("MC", "TD", "VTRACE", "UPGO", "IMPACT")
 UPDATE_ALGORITHMS = ("standard", "impact")
 
 # train_args keys whose layer is not ported: refused when set
-NOT_PORTED = ("mesh", "distributed", "anakin", "serving", "router",
-              "status_port", "perf")
+NOT_PORTED = ("mesh", "distributed", "serving", "router", "status_port")
 
 
 def _is_set(value):
@@ -257,6 +259,18 @@ class TrainConfig:
             if not 0.0 < prob <= 1.0:
                 raise ValueError(
                     "generation_opponent.prob must be in (0, 1]")
+        # anakin keys validate through the dataclass the engine runs
+        # with; the epoch-cadence requirement crosses fields
+        from .anakin.config import AnakinConfig
+        from .telemetry.costmodel import PerfConfig
+
+        if (AnakinConfig.from_config(self.anakin).enabled
+                and self.updates_per_epoch <= 0):
+            raise ValueError(
+                "anakin mode needs updates_per_epoch > 0 — the fused "
+                "loop makes its own data, so the epoch cadence is the "
+                "trainer's step count, not episode intake")
+        PerfConfig.from_config(self.perf)
 
     # at least ~update_episodes^0.85 of every update window is evaluation
     @property

@@ -29,6 +29,17 @@ ENV_REGISTRY = {
     "GRFProxy": "handyrl_tpu_torch.envs.grf_proxy",
 }
 
+# batched device twins of registered envs: modules of functions over
+# (N,) games on a torch device (``init/step/observe/...``), which the
+# Anakin engine (handyrl_tpu_torch.anakin) steps on the card.  The
+# Python env stays the spec: a twin must match its transition, reward,
+# legal and observation semantics exactly (tests/test_torch_anakin.py
+# walks every reachable TicTacToe position).  Envs absent here keep
+# the worker path.
+DEVICE_ENV_REGISTRY = {
+    "TicTacToe": "handyrl_tpu_torch.envs.tictactoe_torch",
+}
+
 
 def _resolve(env_args):
     name = env_args["env"]
@@ -45,6 +56,22 @@ def prepare_env(env_args):
 def make_env(env_args):
     """Instantiate the ``Environment`` class of the configured env."""
     return _resolve(env_args).Environment(env_args)
+
+
+def device_env_available(env_args) -> bool:
+    """Whether the configured env has a registered device twin."""
+    return env_args.get("env") in DEVICE_ENV_REGISTRY
+
+
+def make_device_env(env_args):
+    """Import the configured env's device twin (the batched
+    ``init/step/observe/...`` surface the Anakin engine drives)."""
+    name = env_args["env"]
+    if name not in DEVICE_ENV_REGISTRY:
+        raise ValueError(
+            f"env {name!r} has no device twin (DEVICE_ENV_REGISTRY); "
+            "Anakin mode requires one — other envs use the worker path")
+    return importlib.import_module(DEVICE_ENV_REGISTRY[name])
 
 
 class BaseEnvironment:

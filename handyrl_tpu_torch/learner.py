@@ -41,6 +41,22 @@ The resilience layer is the JAX package's:
     (``WorkerServer``); it runs no inference service, because shared
     memory does not cross machines.
 
+Anakin mode is the JAX package's: with ``anakin: {mode: on}`` and an
+env that has a device twin (``environment.DEVICE_ENV_REGISTRY``), the
+trainer builds no ring and no batcher; each step is one fused
+on-device segment of self-play plus one update
+(:class:`~.anakin.AnakinEngine`), the epoch clock is the trainer's step
+count (``updates_per_epoch``), and the worker fleet only evaluates.
+
+Every epoch record carries the JAX package's step accounting:
+``batch_wait_sec`` (host seconds the step waited for its feed),
+``device_step_sec`` (host seconds inside the step calls; the card's
+queue may run ahead of them), ``queue_depth`` (the feed backlog at the
+boundary), the cost model's ``mfu`` / ``achieved_tflops`` /
+``arithmetic_intensity`` / ``roofline_verdict``
+(:mod:`.telemetry.costmodel`), the staleness of admitted episodes
+(``policy_lag_{mean,p95,max}``) and, under IMPACT, ``target_net_age``.
+
 League-lite is the JAX package's: with ``generation_opponent:
 {past_epochs: K, prob: p}`` a fraction ``p`` of generation jobs seats a
 retained past self (a checkpoint of the last ``K`` epochs that still
@@ -53,9 +69,9 @@ The stdout log format (``updated model(N)``, ``epoch N``, ``win rate``,
 ``loss = ...``, ``generation stats``, ``league stats``) is the JAX
 package's, so its plot scripts read either.
 
-Left for later items: telemetry and attribution, the runtime guards
+Left for later items: spans and attribution, the runtime guards
 (retrace, sharding, numerics, lock order, stall), the resource ledger,
-the serving frontend and router, the status server, Anakin, meshes and
+the serving frontend and router, the status server, meshes and
 multihost.
 """
 
@@ -75,6 +91,12 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+try:
+    import psutil
+except ImportError:  # pragma: no cover
+    psutil = None
+
+from .anakin import AnakinConfig, AnakinEngine
 from .batch import make_batch
 from .connection import MultiProcessJobExecutor
 from .device import DEFAULT_DEVICE, resolve_device
@@ -86,7 +108,12 @@ from .durability import (
     resolve_restart,
     write_checksummed,
 )
-from .environment import make_env, prepare_env
+from .environment import (
+    device_env_available,
+    make_device_env,
+    make_env,
+    prepare_env,
+)
 from .models import TorchModel
 from .models.convert import from_flax, to_flax
 from .models.wrapper import build_module
@@ -100,6 +127,8 @@ from .ops.update import (
 from .resilience import ChaosConfig, FleetRegistry, LearnerKillSwitch
 from .resilience.supervisor import FailureWindow
 from .staging import DeviceReplay, make_replay_update_step
+from .telemetry import CostModel, PerfConfig, summarize_lags
+from .telemetry.costmodel import device_kind
 from .utils.tree import tree_map_leaves
 from .worker import WorkerCluster, WorkerServer
 
@@ -260,6 +289,51 @@ class Batcher:
         self.executor.shutdown()
 
 
+class ReplayBuffer(deque):
+    """The host path's episode buffer: a deque capped at
+    ``maximum_episodes``, trimmed tighter when host RAM passes 95 %
+    (the JAX package's ``ReplayBuffer._cap``; psutil is optional, and
+    without it the cap is the configured one)."""
+
+    def __init__(self, maximum_episodes):
+        super().__init__((), maximum_episodes)
+        self.maximum_episodes = maximum_episodes
+        self.warned = False
+
+    def extend(self, episodes):
+        super().extend(episodes)
+        self._trim()
+
+    def _cap(self):
+        mem_percent = psutil.virtual_memory().percent if psutil else 0.0
+        if mem_percent <= 95:
+            return self.maximum_episodes
+        if not self.warned:
+            import warnings
+
+            warnings.warn(
+                "memory usage %.1f%% with buffer size %d"
+                % (mem_percent, len(self)))
+            self.warned = True
+        return int(len(self) * 95 / mem_percent)
+
+    def _trim(self):
+        cap = self._cap()
+        while len(self) > cap:
+            self.popleft()
+
+
+def target_net_age(steps, interval, tau):
+    """Steps since the IMPACT target last synced (hard interval), the
+    Polyak average's horizon ``1 / tau``, or the run length for a
+    frozen target (the JAX trainer's formula)."""
+    if tau > 0.0:
+        return round(1.0 / tau, 1)
+    if interval > 0:
+        return steps % interval
+    return steps
+
+
 # ---------------------------------------------------------------------
 # the trainer
 # ---------------------------------------------------------------------
@@ -272,7 +346,8 @@ class Trainer:
     def __init__(self, args, model, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         # the host path's replay buffer, trimmed to maximum_episodes
-        self.episodes = deque(maxlen=args["maximum_episodes"])
+        # (tighter under memory pressure)
+        self.episodes = ReplayBuffer(args["maximum_episodes"])
         self.args = args
         self.loss_cfg = LossConfig.from_config(args)
         self.compute_dtype = args.get("compute_dtype") or "bfloat16"
@@ -313,8 +388,22 @@ class Trainer:
         self.update_step.count = self.steps
         print(f"compute dtype: {self.compute_dtype}; training on "
               f"{self.device}")
+        # FLOPs of each step function, counted on its first call, and
+        # the per-epoch mfu reduction against the device's peaks
+        self.costmodel = CostModel(PerfConfig.from_config(args.get("perf")),
+                                   kind=device_kind(self.device))
+        self._step_label = "update_step"
 
-        self.device_replay = self._maybe_device_replay()
+        # Anakin: rollout + batch + update fused per step on the device;
+        # no ring and no batcher then (the workers only evaluate)
+        self.anakin = None
+        self._anakin_step = None
+        self.anakin_carry = None
+        self.anakin_pool = []
+        self._maybe_build_anakin()
+
+        self.device_replay = (None if self.anakin is not None
+                              else self._maybe_device_replay())
         self._replay_step = None
         self.batcher = None
         if self.device_replay is not None:
@@ -324,11 +413,52 @@ class Trainer:
                 self.device_replay, self.update_step,
                 batch_size=args["batch_size"],
                 seed=int(args.get("seed", 0)) * 1_000_003 + self.steps)
-        else:
+            self._step_label = "replay_step"
+        elif self.anakin is None:
             print("WARNING: device_replay is off — training from the "
                   "host batcher path (batches assembled on the CPU and "
                   "copied to the device every step)")
             self.batcher = Batcher(self.args, self.episodes)
+
+    def _maybe_build_anakin(self):
+        """Arm the fused on-device rollout + update when ``anakin`` is
+        configured and the env has a device twin.  ``mode: on`` makes
+        an unusable setup an error; ``auto`` falls back loudly to the
+        worker path (envs without a twin, and the engine's layout
+        constraints: a recurrent net, observation mode, burn-in, a
+        short unroll)."""
+        acfg = AnakinConfig.from_config(self.args.get("anakin") or {})
+        if not acfg.enabled:
+            return
+        env_args = self.args.get("env") or {}
+        if not device_env_available(env_args):
+            msg = (f"env {env_args.get('env')!r} has no device twin in "
+                   "DEVICE_ENV_REGISTRY")
+            if acfg.mode == "on":
+                raise ValueError("anakin.mode: on — " + msg)
+            print(f"WARNING: {msg}; falling back to the worker path")
+            return
+        try:
+            self.anakin = AnakinEngine(
+                make_device_env(env_args), self.update_step, acfg,
+                compute_dtype=self.compute_dtype,
+                seed=int(self.args.get("seed", 0)))
+        except ValueError as exc:
+            if acfg.mode == "on":
+                raise
+            print(f"WARNING: anakin unavailable ({exc}); falling back "
+                  "to the worker path")
+            return
+        self._anakin_step = self.anakin.make_fused_step()
+        self._step_label = "anakin_step"
+        # the carry folds the resumed step count into its generator's
+        # seed, so a restart continues on fresh data reproducibly
+        self.anakin_carry = self.anakin.init_carry(self.steps)
+        self.anakin_pool = self.anakin.init_pool(self.module)
+        print(f"anakin mode: {self.anakin.num_envs} on-device games x "
+              f"{self.anakin.unroll}-step segments"
+              + (f", opponent pool {self.anakin.K}"
+                 if self.anakin.K else " (pure self-play)"))
 
     def _maybe_device_replay(self):
         """The replay ring on the training device (``device_replay``
@@ -486,7 +616,8 @@ class Trainer:
                 continue
             with self.timers.section("update"):
                 batch = stage_batch(batch, self.device, self.compute_dtype)
-                metric_acc.append(self.update_step(batch))
+                metric_acc.append(self.costmodel.call(
+                    self._step_label, self.update_step, batch))
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
             self.steps += 1
@@ -512,15 +643,54 @@ class Trainer:
             if state is None or replay.state_dirty:
                 state = replay.device_state()
             with self.timers.section("update"):
-                metric_acc.append(self._replay_step(state))
+                metric_acc.append(self.costmodel.call(
+                    self._step_label, self._replay_step, state))
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
             self.steps += 1
             batch_cnt += 1
         return batch_cnt, metric_acc
 
-    def train(self):
+    def _epoch_loop_anakin(self):
+        """Anakin epoch: each step is one on-device self-play segment
+        plus one update; the host enqueues it and nothing else (no
+        intake, no ring).  ``updates_per_epoch`` (required > 0) is the
+        epoch budget, after which the loop idles until the learner asks
+        for the snapshot."""
+        cap = self.updates_cap
+        batch_cnt, metric_acc = 0, []
+        while batch_cnt == 0 or not self.update_flag:
+            if self.shutdown_flag:
+                return None
+            self._maybe_emergency_save()
+            if cap and batch_cnt >= cap:
+                time.sleep(0.01)
+                continue
+            with self.timers.section("update"):
+                metrics, self.anakin_carry = self.costmodel.call(
+                    self._step_label, self._anakin_step,
+                    self.anakin_carry, self.anakin_pool)
+            metric_acc.append(metrics)
+            if self.first_step_at is None:
+                self.first_step_at = time.monotonic()
+            self.steps += 1
+            batch_cnt += 1
+        return batch_cnt, metric_acc
+
+    def _queue_depth(self):
+        """The feed backlog at the epoch boundary: assembled host
+        batches waiting (host path) or episodes queued for ring ingest
+        (device ring); Anakin has no feed."""
+        if self.batcher is not None:
+            return self.batcher.executor.output_queue.qsize()
         if self.device_replay is not None:
+            return len(self.device_replay.pending)
+        return 0
+
+    def train(self):
+        if self.anakin is not None:
+            result = self._epoch_loop_anakin()
+        elif self.device_replay is not None:
             result = self._epoch_loop_device()
         else:
             result = self._epoch_loop_local()
@@ -562,8 +732,31 @@ class Trainer:
                           replay_size=replay.size,
                           replay_dropped=replay.dropped,
                           replay_mib=round(replay.nbytes / 2 ** 20, 3))
-        else:
+        elif self.anakin is None:
             record["replay"] = "host"
+        # the step accounting: feed starvation, seconds inside the step
+        # calls, the feed backlog, and the cost model's perf keys
+        record["batch_wait_sec"] = prof.get("batch_wait", 0.0)
+        record["device_step_sec"] = prof.get("update", 0.0)
+        record["queue_depth"] = self._queue_depth()
+        record.update(self.costmodel.epoch_metrics(
+            self._step_label, record["device_step_sec"], batch_cnt))
+        if self.anakin is not None:
+            # fused-rollout production this epoch (committed env
+            # transitions, completed games); the learner divides by the
+            # epoch wall into anakin_{frames,games}_per_sec
+            record["anakin_frames"] = int(metrics["anakin_frames"].sum())
+            record["anakin_games"] = int(metrics["anakin_games"].sum())
+        if self.target_module is not None:
+            record["target_net_age"] = target_net_age(
+                self.steps,
+                int(self.args.get("target_update_interval", 0) or 0),
+                float(self.args.get("target_update_tau", 0.0) or 0.0))
+        if self.anakin is not None and self.anakin.K > 0:
+            # epoch boundary: the newest snapshot joins the opponent
+            # axis, the oldest falls off
+            self.anakin_pool = self.anakin.refresh_pool(self.anakin_pool,
+                                                        self.module)
         self.last_metrics = record
         self.epoch += 1
         try:
@@ -583,6 +776,7 @@ class Trainer:
     def run(self):
         print("waiting training")
         try:
+            # Anakin warms nothing: the first fused step makes its data
             if self.device_replay is not None:
                 # warm the ring itself: episodes stream in as they
                 # arrive; a ring smaller than minimum_episodes starts
@@ -600,7 +794,7 @@ class Trainer:
                               f"starting with a full ring")
                         break
                     time.sleep(0.05)
-            else:
+            elif self.batcher is not None:
                 while len(self.episodes) < self.args["minimum_episodes"]:
                     if self.shutdown_flag:
                         return
@@ -690,6 +884,7 @@ class Learner:
         self.max_policy_lag = int(self.args.get("max_policy_lag", 0) or 0)
         self.episodes_rejected_stale = 0
         self._rejected_epoch = 0
+        self._policy_lags = []         # admitted episodes' lags this epoch
         self.env = make_env(env_args)
         self.eval_rate = cfg.train_args.effective_eval_rate
         self.shutdown_flag = False
@@ -740,6 +935,12 @@ class Learner:
         with self._startup.section("trainer"):
             self.trainer = Trainer(self.args, self.model, device=self.device)
         self.trainer.manifest = self.manifest
+        # Anakin's epoch clock: nothing ticks episode intake, so epochs
+        # ride the trainer's step count (updates_per_epoch > 0, checked
+        # by the config whenever anakin is configured)
+        self._anakin_epoch_at = (
+            self.trainer.steps
+            + int(self.args.get("updates_per_epoch", 0) or 0))
         self.metrics_path = self.args.get("metrics_path") or ""
 
         # the episode WAL: admitted episodes are logged at intake, and a
@@ -969,14 +1170,18 @@ class Learner:
             if episode.pop("shm_spilled", False):
                 self.episodes_spilled += 1
                 self._spilled_epoch += 1
-        kept = arrived
-        if self.max_policy_lag > 0:
-            # admission control: past-budget episodes are counted and
-            # dropped; they still tick the intake clock below
-            kept = [e for e in arrived
-                    if self._episode_lag(e) <= self.max_policy_lag]
-            self.episodes_rejected_stale += len(arrived) - len(kept)
-            self._rejected_epoch += len(arrived) - len(kept)
+        # admission control: past-budget episodes are counted and
+        # dropped; they still tick the intake clock below.  Each
+        # admitted episode's lag feeds the epoch's policy_lag_* record
+        kept = []
+        for episode in arrived:
+            lag = self._episode_lag(episode)
+            if 0 < self.max_policy_lag < lag:
+                self.episodes_rejected_stale += 1
+                self._rejected_epoch += 1
+            else:
+                kept.append(episode)
+                self._policy_lags.append(lag)
         if self.wal is not None:
             # write-ahead: an admitted episode reaches the log before
             # any stats or buffer touch it
@@ -1092,6 +1297,10 @@ class Learner:
         record["time_sec"] = round(now - self._run_t0, 3)
         record["epoch_wall_sec"] = round(now - self._epoch_t, 3)
         record["episodes_received"] = self.episodes_received
+        # off-policy staleness of the episodes admitted this epoch, and
+        # how many arrivals the staleness budget rejected
+        record.update(summarize_lags(self._policy_lags))
+        self._policy_lags = []
         record["episodes_rejected_stale"] = self._rejected_epoch
         self._rejected_epoch = 0
         record["league_episodes"] = self._league_epoch
@@ -1116,6 +1325,14 @@ class Learner:
         self.update_model(model, steps)
         record["steps"] = steps
         record.update(self.trainer.last_metrics)
+        if "anakin_frames" in record and record["epoch_wall_sec"] > 0:
+            # fused-rollout throughput: committed env transitions and
+            # completed self-play games per second of epoch wall
+            wall = record["epoch_wall_sec"]
+            record["anakin_frames_per_sec"] = round(
+                record["anakin_frames"] / wall, 1)
+            record["anakin_games_per_sec"] = round(
+                record["anakin_games"] / wall, 1)
         if self.trainer.first_step_at is not None:
             # seconds from this learner's construction to its training
             # loop and to its first update step (a resume's
@@ -1198,6 +1415,16 @@ class Learner:
         if (not slots or stats.get("fleet_alive", 1) > 0
                 or stats.get("slots_dead", 0) < slots
                 or self.shutdown_flag):
+            return
+        if self.trainer.anakin is not None:
+            # the fleet only evaluates: training goes on, without the
+            # win-rate stream, loudly
+            now = time.monotonic()
+            if now - getattr(self, "_fleet_dead_warned", 0.0) > 30.0:
+                self._fleet_dead_warned = now
+                print("WARNING: the entire eval worker fleet is dead; "
+                      "anakin training continues WITHOUT win-rate "
+                      "evaluation")
             return
         print("ERROR: the entire local gather fleet is dead (circuit "
               "breaker tripped on every slot); shutting down — raise "
@@ -1314,9 +1541,11 @@ class Learner:
                     continue
                 replies = handler(payload if batched else [payload])
                 self.worker.send(conn, replies if batched else replies[0])
+            if self.trainer.anakin is not None:
+                self._anakin_tick()
             # episodes drained after shutdown still land in the buffer
             # but start no extra epoch
-            if (self.episodes_received >= next_epoch_at
+            elif (self.episodes_received >= next_epoch_at
                     and not self.shutdown_flag):
                 next_epoch_at += self.args["update_episodes"]
                 self.update()
@@ -1326,6 +1555,27 @@ class Learner:
                     # completions, not crashes to respawn
                     self.worker.begin_drain()
         print("finished server")
+
+    def _anakin_tick(self):
+        """Anakin's epoch clock on the server loop: an epoch every
+        ``updates_per_epoch`` trainer steps.  A dead fused loop can
+        never advance it, so its failure shuts the learner down loudly
+        instead of serving a frozen model forever."""
+        if self.shutdown_flag:
+            return
+        if self.trainer.failure is not None:
+            print("ERROR: anakin trainer thread failed "
+                  f"({self.trainer.failure!r}); shutting down — nothing "
+                  "advances epochs without the fused loop")
+        elif self.trainer.steps >= self._anakin_epoch_at:
+            self._anakin_epoch_at += self.args["updates_per_epoch"]
+            self.update()
+            if not 0 <= self.args["epochs"] <= self.model_epoch:
+                return
+        else:
+            return
+        self.shutdown_flag = True
+        self.worker.begin_drain()
 
     def _league_opponent(self):
         """Sample a past checkpoint epoch for a league seat, or None.
@@ -1354,7 +1604,9 @@ class Learner:
         workers route them down their sequential path."""
         players = self.env.players()
         league_seat = past = None
-        if self.jobs_evaluated < self.eval_rate * self.jobs_generated:
+        # Anakin generates on the device, so every job is an evaluation
+        if (getattr(self.trainer, "anakin", None) is not None
+                or self.jobs_evaluated < self.eval_rate * self.jobs_generated):
             trained = [players[self.jobs_evaluated % len(players)]]
             self.jobs_evaluated += 1
             role = "e"

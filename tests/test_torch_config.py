@@ -5,7 +5,8 @@ package's.
     same ``train_args`` dict in both packages (keys, defaults, derived
     values), and both refuse the same malformed values;
   * keys of layers the port lacks are refused with "not ported yet"
-    (inside ``chaos``, the shm-plane and serving-replica keys); the
+    (inside ``chaos``, the shm-plane and serving-replica keys), while
+    ``anakin`` and ``perf`` parse and refuse as in the JAX package; the
     resilience keys (``chaos``, ``supervise_learner``, the WAL) parse
     as in the JAX package, and ``generation_opponent`` (league-lite)
     is accepted and refused as the JAX package does;
@@ -44,6 +45,9 @@ VARIANTS = {
     "pipeline-off": {"pipeline": {"mode": "off"}, "device_replay": "off",
                      "restart_epoch": "auto", "worker": {"num_parallel": 40}},
     "league": {"generation_opponent": {"past_epochs": 3, "prob": 0.5}},
+    "anakin": {"anakin": {"mode": "on", "num_envs": 1024,
+                          "opponent_pool": 3}},
+    "perf": {"perf": {"peak_tflops": 989.0, "cost_analysis": False}},
     "resilience": {"supervise_learner": True, "wal_flush_interval": 0.5,
                    "wal_keep_episodes": 300, "preempt_grace_seconds": 3.0,
                    "max_respawns": 1, "heartbeat_timeout": 10.0,
@@ -73,6 +77,9 @@ def test_train_args_match_jax(name):
     {"restart_epoch": -1}, {"update_algorithm": "impact"},
     {"surrogate_clip": 1.0}, {"device_replay": "maybe"},
     {"no_such_key": 1}, {"pipeline": {"mode": "sideways"}},
+    {"anakin": {"mode": "sometimes"}}, {"anakin": {"num_envs": 0}},
+    {"anakin": {"mode": "on"}, "updates_per_epoch": 0},
+    {"perf": {"mode": "on"}}, {"perf": {"peak_tflops": -1.0}},
 ])
 def test_both_packages_refuse_the_same_values(bad):
     raw = _shipped()
@@ -85,8 +92,7 @@ def test_both_packages_refuse_the_same_values(bad):
 
 @pytest.mark.parametrize("key,value", [
     ("mesh", {"dp": 2}), ("distributed", {"num_processes": 2}),
-    ("anakin", {"mode": "auto"}), ("serving", {"mode": "on"}),
-    ("chaos", {"shm_tear_prob": 0.1}), ("perf", {"mode": "on"}),
+    ("serving", {"mode": "on"}), ("chaos", {"shm_tear_prob": 0.1}),
     ("status_port", 9000),
 ])
 def test_unported_layers_are_refused(key, value):

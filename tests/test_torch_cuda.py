@@ -437,3 +437,66 @@ def test_card_and_cpu_exports_are_byte_identical(cuda_device, tmp_path):
             with open(path, "rb") as f:
                 blobs[env_name, device] = f.read()
         assert blobs[env_name, cuda_device] == blobs[env_name, "cpu"]
+
+
+def _ttt_engine(device, num_envs, opponent_pool=0):
+    from handyrl_tpu_torch.anakin import AnakinConfig, AnakinEngine
+    from handyrl_tpu_torch.envs import tictactoe_torch
+    from handyrl_tpu_torch.models.tictactoe_net import TicTacToeNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+
+    net = TicTacToeNet()
+    net.load_state_dict(TorchModel.from_flax(
+        TicTacToeNet(), random_flax_params(TicTacToeNet(), seed=2),
+        device="cpu").module.state_dict())
+    net = net.to(device)
+    cfg = LossConfig.from_config({
+        "turn_based_training": True, "observation": False,
+        "burn_in_steps": 0, "lambda": 0.7, "gamma": 0.8,
+        "policy_target": "TD", "value_target": "TD",
+        "entropy_regularization": 0.1,
+        "entropy_regularization_decay": 0.1})
+    step = UpdateStep(net, cfg, make_optimizer(net.parameters(), 1e-3),
+                      "bfloat16")
+    return AnakinEngine(tictactoe_torch, step, AnakinConfig.from_config(
+        {"mode": "on", "num_envs": num_envs,
+         "opponent_pool": opponent_pool}), compute_dtype="bfloat16")
+
+
+def test_device_env_steps_like_the_cpu_env(cuda_device):
+    """Random legal play of 4,096 games on the card and on the CPU from
+    the same actions: every state and step output equal."""
+    from handyrl_tpu_torch.envs import tictactoe_torch as env
+
+    rng = np.random.default_rng(0)
+    states = {d: env.init(4096, d) for d in (cuda_device, "cpu")}
+    for _ in range(env.MAX_STEPS):
+        legal = env.legal_mask(states["cpu"]).numpy()
+        scores = rng.random(legal.shape) * legal
+        action = torch.from_numpy(scores.argmax(axis=1))
+        outs = {d: env.step(states[d], action.to(d)) for d in states}
+        for a, b in zip(outs[cuda_device][1:], outs["cpu"][1:]):
+            assert torch.equal(a.cpu(), b)
+        states = {d: out[0] for d, out in outs.items()}
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(
+            states[cuda_device], states["cpu"]))
+
+
+def test_rollout_runs_without_a_host_sync(cuda_device):
+    """A whole rollout segment (1,024 games, one frozen opponent) under
+    ``set_sync_debug_mode("error")``: any host synchronisation raises."""
+    engine = _ttt_engine(cuda_device, 1024, opponent_pool=1)
+    pool = engine.init_pool(engine.update_step.module)
+    carry = engine.init_carry(0)
+    with torch.no_grad():
+        engine.rollout(engine.update_step.module, pool, carry)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            batch, carry, frames = engine.rollout(
+                engine.update_step.module, pool, carry)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert 5 * 1024 <= int(frames) <= 9 * 1024
+    assert batch["observation"].device.type == "cuda"

@@ -5,11 +5,12 @@ through the inference service, plays one ``--eval`` game through the
 CLI, imports every module of the training slice and trains three
 steps from the replay ring, replays an episode WAL into the ring
 (the resilience slice), and exports the model to ONNX, runs the file
-and averages two checkpoints with the tools (the interop slice);
-afterwards no ``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*``
-module may be loaded.  An AST scan of the package, its ``interop/``
-and ``scripts/`` subpackages included, finds no such import anywhere,
-lazy ones included.  And the card is never replaced by the CPU behind
+and averages two checkpoints with the tools (the interop slice), and
+runs a Trainer's fused Anakin step (the Anakin slice); afterwards no
+``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*`` module may be
+loaded.  An AST scan of the package, its ``interop/``, ``scripts/``,
+``anakin/`` and ``telemetry/`` subpackages included, finds no such
+import anywhere, lazy ones included.  And the card is never replaced by the CPU behind
 the caller's back.
 """
 
@@ -124,6 +125,24 @@ CHILD = textwrap.dedent("""
     assert aux_swa.main(["1", "2"]) == 0
     assert export_model.main(["models/swa.ckpt"]) == 0
 
+    # the Anakin slice: the device env, the engine and the cost model;
+    # two fused steps of a Trainer in Anakin mode
+    import handyrl_tpu_torch.anakin, handyrl_tpu_torch.telemetry
+    import handyrl_tpu_torch.envs.tictactoe_torch
+
+    args = handyrl_tpu_torch.config.Config.from_dict(
+        {"env_args": {"env": "TicTacToe"},
+         "train_args": {"updates_per_epoch": 2,
+                        "anakin": {"mode": "on", "num_envs": 8}}}
+    ).train_args.to_dict()
+    args["env"] = {"env": "TicTacToe"}
+    ttt = TorchModel(make_env(args["env"]).net(), device="cpu")
+    ttt.init_params(seed=0)
+    trainer = handyrl_tpu_torch.learner.Trainer(args, ttt, device="cpu")
+    trainer.update_flag = True
+    trainer.train()
+    assert trainer.last_metrics["anakin_games"] == 8
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -160,7 +179,8 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
     assert len(sources) > 20
     walked = {os.path.relpath(os.path.dirname(path), PACKAGE)
               for path in sources}
-    assert {"interop", "scripts", "models", "pipeline"} <= walked
+    assert {"interop", "scripts", "models", "pipeline", "anakin",
+            "telemetry"} <= walked
     bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
@@ -184,6 +204,12 @@ def test_asking_for_the_card_without_one_raises():
         cli_main(["--eval-server", "1", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--eval-client", "none.ckpt", "localhost"])
+    from handyrl_tpu_torch.envs import tictactoe_torch
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tictactoe_torch.init(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tictactoe_torch.from_board([0] * 9)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")

@@ -46,6 +46,7 @@ def _stub(cls, make, league=LEAGUE, epoch=5, eval_rate=0.0):
     lrn.jobs_generated = 1
     lrn.jobs_evaluated = 1
     lrn._policy_lags = []
+    lrn.trainer = None   # _assign_job asks whether Anakin is on
     return lrn
 
 
