@@ -89,10 +89,40 @@ from a seed:
                  ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 100
                  fused steps, workers only evaluating; (d)
                  tests/test_learning.py's Anakin loop on the card (32
-                 games x 60 steps), its 0.545 win-rate floor.
+                 games x 60 steps), its 0.545 win-rate floor;
+ 14. serving   — (a) phase 2's GeeseNet 32x12 live as epoch 2 in an
+                 ``InferenceService`` on the card with two shm workers,
+                 a ``ServingFrontend`` on port 0 and eight
+                 ``ServeClient`` threads sending one game's four geese
+                 per request for 15 s, one client in four pinned to
+                 epoch 1 (the second seeded snapshot, through
+                 ``model_resolver``): every ok reply equals the card's
+                 local forward of its rows and snapshot (strict
+                 float32), pinned replies carry epoch 1, some dispatches
+                 carry network and shm rows together, ``submitted ==
+                 ok + shed + errors``, ``param_loads`` == 2; (b) two
+                 such replicas behind a ``RouterFrontend`` (beats 0.1 s,
+                 timeout 1 s) under pinned load, one killed silently:
+                 no request lost, the corpse evicted within the timeout
+                 plus a beat, exact reconciliation, a generation bump on
+                 respawn and both replicas serving again; (c)
+                 ``--train`` on the shipped config.yaml with ``serving``
+                 and ``router`` on (port 0), ``status_port``,
+                 ``profile_dir`` and telemetry, 3 epochs: a client pins
+                 epoch e-1 through the router while epoch e trains and
+                 gets the local forward of ``models/{e-1}.ckpt``;
+                 metrics.jsonl carries ``serve_*``,
+                 ``untracked_residual_sec`` and ``arithmetic_intensity``;
+                 the status JSON parses; ``export_trace`` holds the
+                 learner's ``trainer.*``, ``infer.batch``,
+                 ``serve.request`` spans and workers' ``episode.rollout``
+                 linked by trace id; the profiler window holds CUDA
+                 kernels; the attribution tree's heaviest rows; (d)
+                 14a's load in interleaved blocks with telemetry on and
+                 off (served rows/s and p99; not a gate).
 
-Every phase prints one ``phaseN {json}`` line (phases 12 and 13 one
-per part) and raises on failure.
+Every phase prints one ``phaseN {json}`` line (phases 12-14 one per
+part) and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
 device record.  Exits non-zero, printing no result, where
@@ -103,7 +133,8 @@ Full outputs land in chiprun_out/chip_smoke/.
 
 ``python3 chip_smoke.py --phases 1-5,13`` runs the listed phases and
 every phase they need (``NEEDS``: phase 6 trains on phase 4's episodes
-with phase 2's weights; phase 1 always runs); a bad list exits 2.
+with phase 2's weights, phase 14 serves phase 2's weights; phase 1
+always runs); a bad list exits 2.
 
 ``python3 chip_smoke.py --grad-error [draws]`` instead studies phase 6's
 float32 gradient error on the card (ROADMAP C6): per draw, each
@@ -129,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -1890,12 +1922,32 @@ ONNX_TOL = 1e-4                         # x max |card output|, pinned f32
 ONNX_STEPS = 3                          # Geister's carried hidden steps
 ONNX_TIMED = 20                         # timed single-state inferences
 NETWORK_PORT = 9876                     # the eval server's fixed port
-# a battle client through the CLI entry, held at a barrier after its
-# imports, so that both clients ask for their first seat together
-BATTLE_CLIENT = ("import sys; import handyrl_tpu_torch.evaluation; "
-                 "from handyrl_tpu_torch.__main__ import main; "
-                 "print('ready', flush=True); sys.stdin.readline(); "
-                 "sys.exit(main(sys.argv[1:]))")
+# a battle client through the CLI entry, capped at one seat.  The CLI's
+# client takes seats until the server stops accepting, so an uncapped
+# client that asks first can take both seats of the match (a start
+# barrier only narrows that race); capped, each client takes one seat
+# whichever connects first
+BATTLE_CLIENT = """\
+import sys
+
+import handyrl_tpu_torch.evaluation as evaluation
+from handyrl_tpu_torch.__main__ import main
+
+open_seat = evaluation.open_socket_connection
+seats = []
+
+
+def one_seat(*args, **kwargs):
+    if seats:
+        raise ConnectionRefusedError("this client holds its one seat")
+    seats.append(open_seat(*args, **kwargs))
+    return seats[-1]
+
+
+evaluation.open_socket_connection = one_seat
+print("ready", flush=True)
+sys.exit(main(sys.argv[1:]))
+"""
 
 
 def league_entry(torch, smi):
@@ -2123,7 +2175,7 @@ def _battle_entry(torch, cwd):
                 [sys.executable, "-c", BATTLE_CLIENT, "--eval-client",
                  "models/4.ckpt", "localhost", *CLI_DEVICE], cwd=cwd,
                 env=dict(os.environ, PYTHONPATH=ROOT),
-                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True,
                 start_new_session=True))
         for c in clients:
@@ -2132,9 +2184,6 @@ def _battle_entry(torch, cwd):
                     break
             else:
                 raise AssertionError("a battle client did not start")
-        for c in clients:          # the barrier: both go at once
-            c.stdin.write("go\n")
-            c.stdin.flush()
         outs = [c.communicate(timeout=300)[0] for c in clients]
         server.wait(timeout=120)
     finally:
@@ -2848,6 +2897,756 @@ def jax_curve():
 # phases 2-4: weights, the forward, served self-play
 # ---------------------------------------------------------------------
 
+# ---------------------------------------------------------------------
+# phase 14: the network serving tier with its telemetry
+# ---------------------------------------------------------------------
+
+SERVE_CLIENTS = 8                  # ServeClient threads of 14a and 14d
+SERVE_ROWS = 4                     # one game's geese per request
+SERVE_SECONDS = 15.0               # 14a's load
+SERVE_PIN_EVERY = 4                # one client in four pins epoch 1
+TEL_BLOCKS = ("on", "off", "off", "on")   # 14d, interleaved
+TEL_SECONDS = 3.0
+DRILL_CLIENTS = 3                  # 14b's pinned load
+DRILL = {"mode": "on", "port": 0, "heartbeat_interval": 0.1,
+         "heartbeat_timeout": 1.0, "reply_timeout": 5.0,
+         "replica_failures": 0, "failure_window": 5.0}
+# the router learns a new checkpoint from the replica's next beat: a
+# quarter-second cadence lets 14c's pins land inside the short epoch 2
+SERVE_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+              "profile_dir": "prof",
+              "serving": {"mode": "on", "port": 0},
+              "router": {"mode": "on", "port": 0,
+                         "heartbeat_interval": 0.25,
+                         "heartbeat_timeout": 2.0}}
+SERVE_TRAIN_TIMEOUT = 300
+
+
+def game_batches(n, seed):
+    """``n`` requests of one HungryGeese game's four observations."""
+    from handyrl_tpu_torch.environment import make_env
+
+    random.seed(seed)
+    env = make_env({"env": "HungryGeese"})
+    out = []
+    while len(out) < n:
+        env.reset()
+        for _ in range(random.randrange(12)):
+            env.step({p: random.randrange(4) for p in env.turns()})
+            if env.terminal():
+                break
+        if not env.terminal():
+            out.append(np.stack([env.observation(p)
+                                 for p in env.players()]))
+    return out
+
+
+def shm_load_worker(wid, desc, cfg_raw, model, epoch, ctrl_q, out_q, seed):
+    """A rollout worker whose every forward goes to the service until
+    ``ctrl_q`` says stop: the shm plane's share of phase 14's load."""
+    import traceback
+
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.generation import RolloutPool
+    from handyrl_tpu_torch.pipeline import PipelineClient, PipelineConfig
+
+    client = None
+    try:
+        random.seed(seed)
+        client = PipelineClient(desc, PipelineConfig.from_config(cfg_raw))
+        envs = [make_env({"env": "HungryGeese"}) for _ in range(LOCKSTEP)]
+        pool = RolloutPool(envs, GEN_ARGS)
+        players = envs[0].players()
+        served = client.wrap(model, epoch)
+        job = {"role": "g", "player": players,
+               "model_id": {p: epoch for p in players}}
+        while pool.has_free_slot():
+            pool.assign(job, {p: served for p in players})
+        out_q.put(("ready", wid, None))
+        ctrl_q.get(timeout=300)
+        episodes = steps = 0
+        while True:
+            try:
+                ctrl_q.get_nowait()
+                break
+            except queue.Empty:
+                pass
+            for _verb, episode in pool.step():
+                episodes += 1
+                pool.assign(job, {p: served for p in players})
+            steps += 1
+        out_q.put(("done", wid, {
+            "episodes": episodes, "pool_steps": steps,
+            "fallbacks": client.fallbacks, "local_rows": client.local_rows,
+            "served_rows": client.served_rows,
+            "torch_cuda_initialized": _cuda_initialized()}))
+    except BaseException:
+        out_q.put(("error", wid, traceback.format_exc()))
+        raise
+    finally:
+        if client is not None:
+            client.close()
+
+
+def _client_load(port, seconds, batches, pin_every, pin, record):
+    """``SERVE_CLIENTS`` ServeClient threads for ``seconds``; client
+    ``i`` pins epoch ``pin`` when ``i % pin_every == 0``.  Returns the
+    outcome counts and latencies; with ``record`` every ok reply is kept
+    as (batch index, asked pin, served epoch, outputs)."""
+    from handyrl_tpu_torch.serving import ServeClient, ServeError, ShedError
+
+    lock = threading.Lock()
+    res = {"ok": 0, "shed": 0, "error": 0, "lost": 0, "rows": 0,
+           "ms": [], "replies": []}
+
+    def run(i):
+        client = ServeClient("127.0.0.1", port, timeout=30.0)
+        asked = pin if i % pin_every == 0 else None
+        k = i
+        try:
+            deadline = time.perf_counter() + seconds
+            while time.perf_counter() < deadline:
+                b = k % len(batches)
+                k += SERVE_CLIENTS
+                t0 = time.perf_counter()
+                try:
+                    reply = client.infer_batch(batches[b], epoch=asked)
+                except ShedError:
+                    outcome = "shed"
+                except ServeError:
+                    outcome = "error"
+                except Exception:
+                    outcome = "lost"
+                else:
+                    outcome = "ok"
+                ms = 1e3 * (time.perf_counter() - t0)
+                with lock:
+                    res[outcome] += 1
+                    if outcome == "ok":
+                        res["rows"] += SERVE_ROWS
+                        res["ms"].append(ms)
+                        if record:
+                            res["replies"].append(
+                                (b, asked, reply["epoch"],
+                                 reply["outputs"]))
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    res["wall_s"] = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("a serving client never finished")
+    return res
+
+
+def _spy_cobatched(svc):
+    """Count the unpinned dispatch groups (one forward each, at most
+    ``max_batch`` rows) that carry network and shm rows together."""
+    from handyrl_tpu_torch.serving.frontend import _NetSeat
+
+    seen = {"groups": 0, "mixed": 0}
+    inner = svc._dispatch_group
+
+    def spy(model, epoch, items, waited):
+        kinds = {isinstance(item[0], _NetSeat) for item in items}
+        seen["groups"] += 1
+        seen["mixed"] += kinds == {True, False}
+        return inner(model, epoch, items, waited)
+
+    svc._dispatch_group = spy
+    return seen
+
+
+def _stack(torch, model, model2, port=0):
+    """A service on the card holding ``model2`` live as epoch 2 and
+    resolving a pin on epoch 1 to ``model``, with a frontend."""
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.pipeline import InferenceService, PipelineConfig
+    from handyrl_tpu_torch.serving import ServingConfig, ServingFrontend
+
+    scfg = ServingConfig.from_config({"mode": "on", "port": port})
+    svc = InferenceService(model2, PipelineConfig.from_config(PIPELINE),
+                           epoch=2, device=DEV)
+    svc.model_resolver = {1: model, 2: model2}.get
+    svc.snapshot_cache = scfg.snapshot_cache
+    svc.start()
+    fe = ServingFrontend(svc, make_env({"env": "HungryGeese"}), scfg)
+    fe.start()
+    return svc, fe
+
+
+def _local_check(torch, batches, replies, models):
+    """Each ok reply against the card's local forward of the same rows
+    on the same snapshot: the max abs difference per output."""
+    local = {}
+    worst = {"policy": 0.0, "value": 0.0}
+    for b, _asked, epoch, outputs in replies:
+        if (b, epoch) not in local:
+            local[(b, epoch)] = models[epoch].inference_batch(batches[b])
+        ref = local[(b, epoch)]
+        for key in worst:
+            worst[key] = max(worst[key], float(np.abs(
+                np.asarray(outputs[key]) - ref[key]).max()))
+    return worst
+
+
+def serving_load_phase(torch, model, model2, tmp):
+    """14a and 14d on one stack: the service and frontend on the card,
+    two shm workers, eight network clients."""
+    from handyrl_tpu_torch import telemetry
+    from handyrl_tpu_torch.connection import _mp
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.pipeline import build_obs_spec
+
+    batches = game_batches(64, seed=SEED + 14)
+    svc, fe = _stack(torch, model, model2)
+    seen = _spy_cobatched(svc)
+    env = make_env({"env": "HungryGeese"})
+    spec = build_obs_spec(env, LOCKSTEP * len(env.players()))
+    procs, ctrl_qs, out_q = [], [], _mp.Queue()
+    blocks = []
+    try:
+        descs = [svc.attach(spec) for _ in range(WORKERS)]
+        for wid, desc in enumerate(descs):
+            ctrl_q = _mp.Queue()
+            proc = _mp.Process(
+                target=shm_load_worker,
+                args=(wid, desc, PIPELINE, model2, 2, ctrl_q, out_q,
+                      SEED + 40 + wid), daemon=True)
+            proc.start()
+            procs.append(proc)
+            ctrl_qs.append(ctrl_q)
+        _wait_for(out_q, "ready", WORKERS, procs, svc, 300, [])
+        while svc.warm_pending:
+            time.sleep(0.01)
+        for ctrl_q in ctrl_qs:
+            ctrl_q.put(("start",))
+        time.sleep(1.0)  # the workers' first steps ramp up
+        telemetry.configure(enabled=True, log_dir=tmp, role="smoke")
+        svc.epoch_stats()
+        fe.epoch_stats()
+        groups0, mixed0 = seen["groups"], seen["mixed"]
+        rows0 = svc.rows_served
+        load = _client_load(fe.port, SERVE_SECONDS, batches,
+                            SERVE_PIN_EVERY, 1, record=True)
+        a = {"clients": SERVE_CLIENTS, "rows_per_request": SERVE_ROWS,
+             "seconds": SERVE_SECONDS, "pin_every": SERVE_PIN_EVERY,
+             "ok": load["ok"], "shed": load["shed"],
+             "errors": load["error"], "lost": load["lost"],
+             "requests_per_s": load["ok"] / load["wall_s"],
+             "net_rows_per_s": load["rows"] / load["wall_s"],
+             "all_rows_per_s": (svc.rows_served - rows0) / load["wall_s"],
+             "client_ms_p50": _percentile(load["ms"], 0.5),
+             "client_ms_p99": _percentile(load["ms"], 0.99),
+             "serve": fe.epoch_stats(), "infer": svc.epoch_stats(),
+             "dispatch_groups": seen["groups"] - groups0,
+             "cobatched_groups": seen["mixed"] - mixed0,
+             "pinned_ok": sum(1 for r in load["replies"] if r[1] == 1)}
+        a["cobatched_share"] = (a["cobatched_groups"]
+                                / max(1, a["dispatch_groups"]))
+        a["bad_epochs"] = sum(1 for _b, asked, epoch, _o in
+                              load["replies"] if epoch != (asked or 2))
+        a["served_vs_local_max_abs_diff"] = _local_check(
+            torch, batches, load["replies"], {1: model, 2: model2})
+        # 14d: telemetry on and off in interleaved blocks
+        for mode in TEL_BLOCKS:
+            telemetry.configure(enabled=mode == "on", log_dir=tmp,
+                                role="smoke")
+            fe.epoch_stats()
+            rows0 = svc.rows_served
+            load = _client_load(fe.port, TEL_SECONDS, batches,
+                                SERVE_PIN_EVERY, 1, record=False)
+            serve = fe.epoch_stats()
+            blocks.append({
+                "telemetry": mode, "ok": load["ok"],
+                "net_rows_per_s": load["rows"] / load["wall_s"],
+                "all_rows_per_s": (svc.rows_served - rows0)
+                / load["wall_s"],
+                "serve_p99_ms": serve.get("serve_p99_ms"),
+                "client_ms_p99": _percentile(load["ms"], 0.99)})
+        telemetry.configure(enabled=False)
+        for ctrl_q in ctrl_qs:
+            ctrl_q.put(("stop",))
+        workers = _wait_for(out_q, "done", WORKERS, procs, svc, 120, [])
+        stats, fstats = svc.stats(), fe.stats()
+    finally:
+        telemetry.configure(enabled=False)
+        fe.close()
+        svc.close()
+        for proc in procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+    a.update(param_loads=stats["param_loads"],
+             device_modules=stats["device_modules"],
+             net_requests=stats["net_requests"], frontend=fstats,
+             workers=workers)
+    d = {"blocks": blocks, "seconds_per_block": TEL_SECONDS}
+    for mode in ("on", "off"):
+        rows = [b for b in blocks if b["telemetry"] == mode]
+        d[f"net_rows_per_s_{mode}"] = statistics.mean(
+            b["net_rows_per_s"] for b in rows)
+        d[f"serve_p99_ms_{mode}"] = statistics.mean(
+            b["serve_p99_ms"] or 0.0 for b in rows)
+    d["rows_cost_share"] = 1.0 - (d["net_rows_per_s_on"]
+                                  / d["net_rows_per_s_off"])
+    return a, d
+
+
+def serving_gates(a):
+    f = a["frontend"]
+    if f["submitted"] != f["ok"] + f["shed"] + f["errors"]:
+        raise AssertionError(f"14a reconciliation broke: {f}")
+    if a["lost"] or a["errors"]:
+        raise AssertionError(f"14a lost or failed requests: {a}")
+    if a["ok"] == 0 or a["pinned_ok"] == 0:
+        raise AssertionError("14a served no (pinned) request")
+    if a["bad_epochs"]:
+        raise AssertionError(f"{a['bad_epochs']} replies carried the "
+                             "wrong epoch")
+    if max(a["served_vs_local_max_abs_diff"].values()) > SERVED_ATOL:
+        raise AssertionError("served replies differ from the local "
+                             f"forward: {a['served_vs_local_max_abs_diff']}")
+    if a["cobatched_groups"] == 0:
+        raise AssertionError("no dispatch carried network and shm rows")
+    if a["param_loads"] != 2:
+        raise AssertionError(f"param_loads {a['param_loads']} != the 2 "
+                             "snapshots served")
+    for w in a["workers"].values():
+        if w["fallbacks"] or w["local_rows"] or w["torch_cuda_initialized"]:
+            raise AssertionError(f"a shm worker answered locally: {w}")
+
+
+def replica_drill(torch, model, model2):
+    """14b: kill 1 of 2 replicas behind a router under pinned load."""
+    from handyrl_tpu_torch.serving import (
+        ReplicaAnnouncer,
+        RouterConfig,
+        RouterFrontend,
+        ServeClient,
+        ServeError,
+        ShedError,
+    )
+
+    router = RouterFrontend(RouterConfig.from_config(DRILL))
+    router.start()
+    stacks, anns = [], []
+    batches = game_batches(16, seed=SEED + 15)
+    outcomes = {"ok": 0, "shed": 0, "error": 0, "lost": 0}
+    bad = []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def until(cond, deadline=20.0, msg="condition never held"):
+        limit = time.monotonic() + deadline
+        while not cond():
+            if time.monotonic() > limit:
+                raise TimeoutError(msg)
+            time.sleep(0.01)
+
+    def load(i):
+        client = ServeClient("127.0.0.1", router.port, timeout=30.0)
+        k = i
+        try:
+            while not stop.is_set():
+                k += 1
+                try:
+                    reply = client.infer_batch(batches[k % len(batches)],
+                                               epoch=1)
+                    with lock:
+                        outcomes["ok"] += 1
+                        if reply["epoch"] != 1:
+                            bad.append(reply["epoch"])
+                except ShedError:
+                    with lock:
+                        outcomes["shed"] += 1
+                except ServeError:
+                    with lock:
+                        outcomes["error"] += 1
+                except Exception:
+                    with lock:
+                        outcomes["lost"] += 1
+        finally:
+            client.close()
+
+    threads = []
+    try:
+        for i in range(2):
+            svc, fe = _stack(torch, model, model2)
+            ann = ReplicaAnnouncer(
+                "127.0.0.1", router.port, f"replica-{i}",
+                (lambda fe=fe: fe.advert(epochs=[1, 2])),
+                interval=router.cfg.heartbeat_interval, retry_interval=0.05)
+            ann.start()
+            stacks.append((svc, fe))
+            anns.append(ann)
+        until(lambda: router.registry.pool_size() == 2, msg="no pool")
+        threads = [threading.Thread(target=load, args=(i,), daemon=True)
+                   for i in range(DRILL_CLIENTS)]
+        for t in threads:
+            t.start()
+        until(lambda: outcomes["ok"] >= 50, msg="load never warmed")
+        anns[0].kill()
+        stacks[0][1].inject_kill()
+        t_kill = time.monotonic()
+        until(lambda: router.registry.generation("replica-0") is None,
+              msg="the corpse was never evicted")
+        evict_s = time.monotonic() - t_kill
+        ok_evicted = outcomes["ok"]
+        until(lambda: outcomes["ok"] >= ok_evicted + 50,
+              msg="the survivor never served")
+        ok_before = [fe.stats()["ok"] for _svc, fe in stacks]
+        stacks[0][1].respawn()
+        anns[0].respawn()
+        until(lambda: router.registry.generation("replica-0") == 1,
+              msg="no generation bump")
+        until(lambda: router.registry.pool_size() == 2,
+              msg="the pool never recovered")
+        until(lambda: all(fe.stats()["ok"] > ok_before[i] + 10
+                          for i, (_svc, fe) in enumerate(stacks)),
+              msg="both replicas never served again")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        stats = router.stats()
+        for ann in anns:
+            ann.close(drain=False)
+        router.close()
+        for svc, fe in stacks:
+            fe.close()
+            svc.close()
+    budget = (router.cfg.heartbeat_timeout + router.cfg.heartbeat_interval
+              + 2 * RouterFrontend.ACCEPT_TIMEOUT)
+    return {"outcomes": outcomes, "bad_epochs": len(bad),
+            "evict_s": evict_s, "evict_budget_s": budget,
+            "router": {k: stats[k] for k in (
+                "submitted", "ok", "shed", "errors", "shed_by",
+                "reroutes", "pool_sheds", "replica_trips")},
+            "evictions": stats["registry"]["evictions"],
+            "registrations": stats["registry"]["registrations"],
+            "generations": {n: r["generation"] for n, r in
+                            stats["registry"]["replicas"].items()}}
+
+
+def drill_gates(b):
+    r = b["router"]
+    if b["outcomes"]["lost"] or b["outcomes"]["error"]:
+        raise AssertionError(f"14b lost or failed requests: {b}")
+    if b["bad_epochs"]:
+        raise AssertionError("14b replies carried the wrong epoch")
+    if r["submitted"] != r["ok"] + r["shed"] + r["errors"]:
+        raise AssertionError(f"14b reconciliation broke: {r}")
+    if b["evict_s"] > b["evict_budget_s"]:
+        raise AssertionError(f"eviction took {b['evict_s']:.2f} s")
+    if b["evictions"] < 1 or b["generations"].get("replica-0") != 1:
+        raise AssertionError(f"no eviction and rejoin: {b}")
+
+
+def _status(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
+def serving_train_entry(torch):
+    """14c: ``--train`` on the shipped config with the serving tier,
+    the status endpoint, telemetry and the profiler window on; a client
+    pins epoch e-1 through the router while epoch e trains."""
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="serve_train_")
+    try:
+        return _serving_train(torch, cwd)
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+
+
+def _serving_train(torch, cwd):
+    import yaml
+
+    from handyrl_tpu_torch.connection import find_free_port
+    from handyrl_tpu_torch.durability import read_verified
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.scripts.attribution_report import build_report
+    from handyrl_tpu_torch.serving import ServeClient, ServeError, ShedError
+
+    status_port = find_free_port()
+    config = train_config(dict(SERVE_CUTS, status_port=status_port))
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    env = make_env({"env": "TicTacToe"})
+    random.seed(SEED + 16)
+    obs = []
+    while len(obs) < SERVE_ROWS:
+        env.reset()
+        for _ in range(random.randrange(6)):
+            env.step({p: random.choice(env.legal_actions(p))
+                      for p in env.turns()})
+            if env.terminal():
+                break
+        if not env.terminal():
+            obs.append(env.observation(env.turns()[0]))
+    obs = np.stack(obs)
+    log = open(os.path.join(OUT_DIR, "serve_train_stdout.txt"), "w")
+    # strict float32 in the learner, as in this process's local check
+    child_env = dict(os.environ, PYTHONPATH=ROOT, NVIDIA_TF32_OVERRIDE="0")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+         *CLI_DEVICE], cwd=cwd, stdout=log, stderr=subprocess.STDOUT,
+        text=True, env=child_env, start_new_session=True)
+    pinned, live, statuses, failures, sheds = [], 0, 0, Counter(), 0
+    client = port = None
+    epoch = passes = 0
+    try:
+        deadline = time.monotonic() + SERVE_TRAIN_TIMEOUT
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError("14c --train never finished")
+            passes += 1
+            if client is None or passes % 5 == 0:
+                try:
+                    snap = _status(status_port)
+                except OSError:
+                    time.sleep(0.2)
+                    continue
+                statuses += 1
+                epoch = snap["epoch"]
+                if client is None and snap.get("router", {}).get("port"):
+                    port = snap["router"]["port"]
+                    client = ServeClient("127.0.0.1", port, timeout=30.0)
+            if client is None:
+                time.sleep(0.1)
+                continue
+            pin = epoch - 1
+            try:
+                if pin >= 1 and os.path.exists(
+                        os.path.join(cwd, "models", f"{pin}.ckpt")):
+                    reply = client.infer_batch(obs, epoch=pin)
+                    pinned.append((pin, epoch, reply["epoch"],
+                                   reply["outputs"]))
+                else:
+                    client.infer_batch(obs)
+                    live += 1
+            except ShedError:
+                sheds += 1
+            except ServeError as exc:
+                # the router learns a new checkpoint at the replica's
+                # next beat: a pin may briefly be unadvertised
+                failures[exc.reason.split(" ")[0]] += 1
+            except Exception as exc:
+                # the run ending under a request
+                failures[type(exc).__name__] += 1
+                client.close()
+                client = None
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+    finally:
+        if client is not None:
+            client.close()
+        _stop(proc)
+        log.close()
+    with open(log.name) as f:
+        stdout = f.read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"14c --train exited {proc.returncode}:\n"
+                           f"{stdout[-3000:]}")
+    records = _records(cwd)
+    models, worst = {}, {"policy": 0.0, "value": 0.0}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for pin, _at, served, outputs in pinned:
+            if pin not in models:
+                m = TorchModel(env.net(), device=DEV)
+                m.load_params(from_flax(read_verified(os.path.join(
+                    cwd, "models", f"{pin}.ckpt"))["params"], m.module))
+                models[pin] = m.inference_batch(obs)
+            for key in worst:
+                worst[key] = max(worst[key], float(np.abs(
+                    np.asarray(outputs[key]) - models[pin][key]).max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    # the exported Perfetto trace and the attribution tree
+    exp = subprocess.run(
+        [sys.executable, "-m", "handyrl_tpu_torch.scripts.export_trace",
+         cwd], env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    with open(os.path.join(cwd, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    roles = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M"}
+    names = Counter((roles.get(e["pid"], "")[:6], e["name"])
+                    for e in events if e.get("ph") in ("X", "i"))
+    worker_pids = {e["pid"] for e in events
+                   if e.get("name") == "episode.rollout"
+                   and roles.get(e["pid"], "").startswith("worker")}
+    owners = {}
+    for e in events:
+        trace = (e.get("args") or {}).get("trace")
+        if trace is not None:
+            owners.setdefault(trace, set()).add(
+                roles.get(e["pid"], "")[:6])
+    linked = sum(1 for o in owners.values()
+                 if "worker" in o and "learne" in o)
+    report = build_report(cwd, top_n=12)
+    prof_dir = os.path.join(cwd, "prof")
+    prof_files = sorted(os.listdir(prof_dir)) if os.path.isdir(
+        prof_dir) else []
+    kernels, threads = 0, {}
+    if prof_files:
+        with open(os.path.join(prof_dir, prof_files[0])) as f:
+            pevents = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in pevents if e.get("cat") == "kernel")
+        ops = {}
+        for e in pevents:
+            if e.get("cat") == "cpu_op":
+                ops.setdefault(str(e.get("tid")), Counter())[e["name"]] += 1
+        threads = {tid: {"ops": sum(c.values()),
+                         "top": [n for n, _ in c.most_common(3)]}
+                   for tid, c in ops.items()}
+    return {**_thread_split(cwd), **{
+        "cuts": {k: v for k, v in SERVE_CUTS.items()},
+        "wall_s": wall, "epochs": epoch_rows(records),
+        "records": [{k: r.get(k) for k in (
+            "epoch", "serve_requests", "serve_ok", "serve_shed",
+            "serve_p50_ms", "serve_p99_ms", "serve_max_ms",
+            "router_requests", "router_pool_size",
+            "untracked_residual_sec", "epoch_wall_sec",
+            "arithmetic_intensity", "roofline_verdict", "mfu",
+            "profile_update_sec", "profile_ingest_sec",
+            "infer_dispatch_ms_p50", "infer_dispatch_ms_p99")}
+            for r in records],
+        "status_reads": statuses, "router_port": port,
+        "pinned_ok": len(pinned), "live_ok": live,
+        "client_failures": dict(failures), "client_sheds": sheds,
+        "pinned_epochs": sorted({p for p, *_ in pinned}),
+        "pinned_wrong_epoch": sum(1 for p, _a, s, _o in pinned if s != p),
+        "pinned_vs_local_max_abs_diff": worst,
+        "export_rc": exp.returncode, "trace_events": len(events),
+        "span_names": {f"{k[0]}/{k[1]}": v for k, v in names.items()},
+        "worker_processes_with_rollouts": len(worker_pids),
+        "traces_linking_worker_and_learner": linked,
+        "attribution_top_self": report["top_self"],
+        "profiler_files": prof_files, "profiler_kernel_events": kernels,
+        "profiler_cpu_op_threads": threads,
+    }}
+
+
+def _thread_split(cwd):
+    """The learner's host time by thread, from its span log: per thread
+    the span names it records and the seconds its spans cover (their
+    self time, so nested spans count once), and the trainer thread's
+    longest gaps between its sections (time it spent outside them)."""
+    from handyrl_tpu_torch.telemetry.attribution import self_time_tree
+    from handyrl_tpu_torch.telemetry.export import collect_run
+
+    roles, spans = collect_run(cwd)
+    learner = [s for s in spans if s.get("role") == "learner"]
+    by_tid = {}
+    for s in learner:
+        by_tid.setdefault(s["tid"], []).append(s)
+    split = []
+    for tid, recs in by_tid.items():
+        tree = self_time_tree(recs)
+        split.append({
+            "names": [n for n, _ in Counter(
+                r["name"] for r in recs).most_common(3)],
+            "spans": len(recs),
+            "self_s": round(sum(v["self_sec"] for v in tree.values()), 3)})
+    split.sort(key=lambda t: -t["self_s"])
+    trainer = sorted((s for s in learner
+                      if s["name"].startswith("trainer.")),
+                     key=lambda s: s["ts"])
+    gaps = sorted((b["ts"] - (a["ts"] + a["dur"]), a["name"], b["name"])
+                  for a, b in zip(trainer, trainer[1:]))[-5:]
+    t0 = min((s["ts"] for s in learner), default=0.0)
+    return {"learner_threads": split,
+            "trainer_sections_s": round(sum(s["dur"] for s in trainer), 3),
+            "trainer_span_s": round(trainer[-1]["ts"] + trainer[-1]["dur"]
+                                    - trainer[0]["ts"], 3) if trainer else 0,
+            "trainer_first_s": round(trainer[0]["ts"] - t0, 3)
+            if trainer else None,
+            "trainer_longest_gaps": [[round(g, 3), a, b]
+                                     for g, a, b in reversed(gaps)]}
+
+
+def serving_train_gates(c):
+    recs = c["records"]
+    if [r["epoch"] for r in recs] != [0, 1, 2]:
+        raise AssertionError(f"14c: 3 epochs did not land: {recs}")
+    for r in recs:
+        for key in ("serve_requests", "serve_ok", "untracked_residual_sec",
+                    "router_requests"):
+            if r.get(key) is None:
+                raise AssertionError(f"14c: {key} missing in {r}")
+        if r.get("arithmetic_intensity") is None:
+            raise AssertionError(f"14c: no arithmetic_intensity in {r}")
+    if not c["status_reads"]:
+        raise AssertionError("14c: the status endpoint never answered")
+    if not c["pinned_ok"] or c["pinned_wrong_epoch"]:
+        raise AssertionError(f"14c: pinned replies {c['pinned_ok']}, "
+                             f"wrong epoch {c['pinned_wrong_epoch']}")
+    if max(c["pinned_vs_local_max_abs_diff"].values()) > SERVED_ATOL:
+        raise AssertionError("14c: pinned replies differ from the local "
+                             "forward of the checkpoint: "
+                             f"{c['pinned_vs_local_max_abs_diff']}")
+    if c["export_rc"] != 0:
+        raise AssertionError("14c: export_trace failed")
+    names = c["span_names"]
+    for want in ("learne/infer.batch", "learne/serve.request",
+                 "learne/route.request", "learne/trainer.update"):
+        if not names.get(want):
+            raise AssertionError(f"14c: no {want} span in the trace")
+    if c["worker_processes_with_rollouts"] < 2:
+        raise AssertionError("14c: rollouts from fewer than 2 workers")
+    if not c["traces_linking_worker_and_learner"]:
+        raise AssertionError("14c: no trace id links worker and learner")
+    if not c["profiler_kernel_events"]:
+        raise AssertionError("14c: the profiler window holds no CUDA "
+                             "kernel events")
+
+
+def serving_entry(torch, model, model2, smi):
+    """Phase 14, one ``phase14 {json}`` line per part (14a-14d)."""
+    import shutil
+
+    out = {"card": smi}
+    tmp = tempfile.mkdtemp(prefix="serve_spans_")
+    prev = torch.backends.cudnn.allow_tf32
+    # strict float32 for the served-vs-local gate: cuDNN may pick other
+    # TF32 algorithms at other batch sizes, and a request's rows ride
+    # batches of any size
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out["a"], out["d"] = serving_load_phase(torch, model, model2, tmp)
+        emit("phase14", {"a": out["a"]})
+        serving_gates(out["a"])
+        out["b"] = replica_drill(torch, model, model2)
+        emit("phase14", {"b": out["b"]})
+        drill_gates(out["b"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["c"] = serving_train_entry(torch)
+    emit("phase14", {"c": out["c"]})
+    serving_train_gates(out["c"])
+    emit("phase14", {"d": out["d"]})
+    return out
+
+
 def weights_phase(torch, report):
     """2: GeeseNet 32x12 from seeded weights, on the card and the CPU."""
     from handyrl_tpu_torch.models import TorchModel
@@ -2959,10 +3758,10 @@ def served_phase(torch, model, model2, report, finish):
     return drained
 
 
-ALL_PHASES = frozenset(range(1, 14))
+ALL_PHASES = frozenset(range(1, 15))
 # what a phase takes from another: phase 2's weights, phase 4's drained
 # episodes; every phase reads phase 1's card line
-NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}}
+NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}}
 
 
 def parse_phases(spec):
@@ -3138,6 +3937,27 @@ def main(phases=ALL_PHASES):
             for r in p13["c"]["epochs"])
             + f"; learning {p13['d']['rates']} mean {p13['d']['mean']:.3f}"
             f"; phase 13 {p13['phase_s']:.1f} s on {smi}", flush=True)
+    # 14. the network serving tier with its telemetry
+    if 14 in phases:
+        report["phase14"] = p14 = serving_entry(torch, model, model2, smi)
+        p14["phase_s"] = lap()
+        a, b, c, d = p14["a"], p14["b"], p14["c"], p14["d"]
+        print(f"serving: {a['requests_per_s']:.0f} requests/s, "
+              f"{a['net_rows_per_s']:.0f} network rows/s "
+              f"({a['all_rows_per_s']:.0f} with the shm workers), serve "
+              f"p50/p99/max {a['serve'].get('serve_p50_ms')}/"
+              f"{a['serve'].get('serve_p99_ms')}/"
+              f"{a['serve'].get('serve_max_ms')} ms, dispatch p50/p99 "
+              f"{a['infer'].get('infer_dispatch_ms_p50', 0):.2f}/"
+              f"{a['infer'].get('infer_dispatch_ms_p99', 0):.2f} ms, "
+              f"co-batched {a['cobatched_share']:.2f}; drill evicted in "
+              f"{b['evict_s']:.2f} s, {b['outcomes']}; --train pinned "
+              f"{c['pinned_ok']} replies, top self "
+              f"{c['attribution_top_self'][:4]}"
+              f"; telemetry on/off {d['net_rows_per_s_on']:.0f}/"
+              f"{d['net_rows_per_s_off']:.0f} rows/s, p99 "
+              f"{d['serve_p99_ms_on']:.2f}/{d['serve_p99_ms_off']:.2f} ms; "
+              f"phase 14 {p14['phase_s']:.1f} s on {smi}", flush=True)
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "

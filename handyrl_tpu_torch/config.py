@@ -7,10 +7,13 @@ quantities the learner reads (``effective_eval_rate``,
 ``num_gathers``, ``batch_steps``).
 
 Keys of layers the port does not have yet are parsed and refused with
-a "not ported yet" error when set, never silently ignored: ``mesh``,
-``distributed`` (multihost), ``serving``, ``router`` and
-``status_port``; and, inside ``chaos``, the shm-plane and
-serving-replica keys (``shm_*``, ``serve_kill_epoch``).  ``anakin``
+a "not ported yet" error when set, never silently ignored: ``mesh``
+and ``distributed`` (multihost); and, inside ``chaos``, the shm-plane
+and serving-replica keys (``shm_*``, ``serve_kill_epoch``).
+``serving`` and ``router`` (the network serving tier, validated by
+``ServingConfig`` / ``RouterConfig`` with the JAX package's
+cross-checks: serving needs the pipeline, the router needs serving)
+and ``status_port`` take effect as in the JAX package.  ``anakin``
 (the fused on-device rollout, validated by ``AnakinConfig``, with the
 JAX package's cross-check that it needs ``updates_per_epoch > 0``) and
 ``perf`` (the cost model's peak overrides, validated by ``PerfConfig``)
@@ -20,11 +23,12 @@ package: the episode WAL (``wal_enabled``, ``wal_flush_interval``,
 ``heartbeat_interval``/``heartbeat_timeout``, ``max_respawns``,
 ``respawn_backoff``, ``max_frame_bytes``, ``supervise_learner`` and
 the rest of ``chaos``; so does ``generation_opponent`` (league-lite:
-past-self opponents, validated as in the JAX package).  The guard and telemetry switches
+past-self opponents, validated as in the JAX package), and so do the
+telemetry keys (``telemetry``, ``trace_sample_rate``,
+``flightrec_spans``, ``profile_dir``).  The guard switches
 (``host_transfer_guard``, ``numerics_guard``, ``stall_watchdog``,
-``lock_order_guard``, ``resource_ledger``, ``telemetry``, ...) keep
-their defaults for schema compatibility and have no effect in the
-port yet.
+``lock_order_guard``, ``resource_ledger``, ...) keep their defaults
+for schema compatibility and have no effect in the port yet.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ VALUE_TARGETS = ("MC", "TD", "VTRACE", "UPGO", "IMPACT")
 UPDATE_ALGORITHMS = ("standard", "impact")
 
 # train_args keys whose layer is not ported: refused when set
-NOT_PORTED = ("mesh", "distributed", "serving", "router", "status_port")
+NOT_PORTED = ("mesh", "distributed")
 
 
 def _is_set(value):
@@ -240,7 +244,22 @@ class TrainConfig:
         from .resilience.chaos import ChaosConfig
 
         ChaosConfig.from_config(self.chaos)
-        PipelineConfig.from_config(self.pipeline)
+        pipeline_cfg = PipelineConfig.from_config(self.pipeline)
+        # serving keys validate through the dataclass the network
+        # frontend runs with; the service dependency crosses sections
+        from .serving.config import RouterConfig, ServingConfig
+
+        serving_cfg = ServingConfig.from_config(self.serving)
+        if serving_cfg.enabled and not pipeline_cfg.enabled:
+            raise ValueError(
+                "serving.mode: on needs the batched inference service "
+                "— it feeds the pipeline batching window, so "
+                "pipeline.mode must be on (the default)")
+        if (RouterConfig.from_config(self.router).enabled
+                and not serving_cfg.enabled):
+            raise ValueError(
+                "router.mode: on needs a serving frontend to front — "
+                "serving.mode must be on")
         if self.device_replay not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown device_replay {self.device_replay!r}")

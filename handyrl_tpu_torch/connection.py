@@ -6,7 +6,10 @@ over ``multiprocessing`` pipes on one machine and over length-framed
 TCP sockets (:class:`FramedConnection`) to remote worker machines.
 The wire format is the JAX package's (4-byte big-endian length +
 pickle payload), so a worker machine of either package frames alike.
-The port carries no telemetry envelope yet.
+The telemetry trace-context envelope is the JAX package's too:
+:class:`TracedConnection` wraps a single-owner connection, and the
+:class:`QueueCommunicator` codecs at its queue boundaries; untraced
+traffic stays byte-identical on the wire.
 
 Child processes are SPAWNED, not forked: a parent that holds a CUDA
 context cannot fork it into a child, so children start from a fresh
@@ -25,6 +28,8 @@ import struct
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable
+
+from .telemetry.spans import unwrap_trace, wrap_trace
 
 CHUNK = 1 << 14  # 16 KiB send granularity
 
@@ -101,6 +106,40 @@ class FramedConnection:
                 f"frame length {length} exceeds max_frame_bytes "
                 f"{self.max_frame_bytes} (corrupt header?)")
         return pickle.loads(self._recv_exact(length, "payload"))
+
+
+class TracedConnection:
+    """Trace-context codec over any connection duck type.
+
+    Sends wrap the message in the telemetry envelope when the calling
+    thread carries a trace context (untraced traffic stays
+    byte-identical on the wire); recvs strip the envelope and adopt the
+    sender's context into this thread.  Single-threaded owners only:
+    the learner-side ``QueueCommunicator`` instead codecs at its own
+    queue boundaries, because its recv thread is not the thread that
+    handles the message.  Workers wrap their gather pipe, gathers wrap
+    their learner connection (outside ``ChaosConnection``, so injected
+    faults hit enveloped frames like real ones)."""
+
+    __slots__ = ("conn",)
+
+    def __init__(self, conn):
+        self.conn = conn
+
+    def fileno(self):
+        return self.conn.fileno()
+
+    def close(self):
+        return self.conn.close()
+
+    def send(self, data: Any):
+        self.conn.send(wrap_trace(data))
+
+    def recv(self) -> Any:
+        return unwrap_trace(self.conn.recv())
+
+    def __getattr__(self, name):
+        return getattr(self.conn, name)
 
 
 # -- TCP helpers --------------------------------------------------------
@@ -269,10 +308,16 @@ class QueueCommunicator:
             return list(self.conns)
 
     def recv(self, timeout=None):
-        return self.input_queue.get(timeout=timeout)
+        # the envelope codec runs HERE, not in the reader thread: the
+        # thread that handles the message is the one that must adopt
+        # (or clear) the sender's trace context
+        conn, data = self.input_queue.get(timeout=timeout)
+        return conn, unwrap_trace(data)
 
     def send(self, conn, send_data):
-        self.output_queue.put((conn, send_data))
+        # wrap in the caller's thread for the same reason: a reply
+        # enqueued while a request's context is current carries it
+        self.output_queue.put((conn, wrap_trace(send_data)))
 
     def note_unknown_verb(self, verb):
         """Count a request whose verb no handler knows (version skew or

@@ -24,9 +24,9 @@ Two rollout engines share that wire format:
 The counterpart of ``handyrl_tpu.generation``.  ``models`` are
 TorchModel/RandomModel/ServedModel instances; the pool's batched
 ``inference_batch`` runs on the model's device, or on the inference
-service's when the model is a ``pipeline.ServedModel``.  The port does
-not carry the JAX package's telemetry spans or episode trace stamps
-yet.
+service's when the model is a ``pipeline.ServedModel``.  Each pool
+episode records the JAX package's ``episode.rollout`` span under its
+own sampled trace context and carries that context in its payload.
 """
 
 import bz2
@@ -34,6 +34,7 @@ import pickle
 
 import numpy as np
 
+from . import telemetry
 from .agent import ILLEGAL, RandomAgent, sample_action
 from .utils.tree import (
     tree_leaves,
@@ -211,7 +212,8 @@ class _Slot:
     """One in-flight job inside the pool."""
 
     __slots__ = ("job", "mode", "moments", "trained", "agents",
-                 "opponent", "on_turn", "parts", "pending", "model")
+                 "opponent", "on_turn", "parts", "pending", "model",
+                 "trace", "t0")
 
     def __init__(self, job, mode):
         self.job = job
@@ -224,6 +226,8 @@ class _Slot:
         self.parts = ()
         self.pending = {}           # player -> obs staged this step
         self.model = None           # eval: the snapshot this match uses
+        self.trace = telemetry.maybe_trace()  # sampled episode context
+        self.t0 = telemetry.span_begin()      # rollout span start
 
 
 class RolloutPool:
@@ -411,6 +415,7 @@ class RolloutPool:
     def _finish(self, k, slot, payload_ok):
         self.slots[k] = None
         self._free.append(k)
+        self._close_span(slot)
         env = self.envs[k]
         if slot.mode == "g":
             if not payload_ok or not slot.moments:
@@ -430,15 +435,28 @@ class RolloutPool:
             # (sequential Generator episodes are single-policy).
             episode["final_model_epoch"] = self.model_epoch
             # the learner reduces gen_model_epoch into the per-epoch
-            # policy_lag_* metrics
+            # policy_lag_* metrics, and the trace context lets the
+            # exported trace follow this episode worker -> gather ->
+            # learner across processes
             episode["gen_model_epoch"] = self.model_epoch
+            if slot.trace is not None:
+                episode["trace"] = slot.trace
             return ("episode", episode)
         if not payload_ok:
             print("None episode in evaluation!")
             return ("result", None)
         result = {"args": slot.job, "result": env.outcome(),
                   "opponent": slot.opponent}
+        if slot.trace is not None:
+            result["trace"] = slot.trace
         return ("result", result)
+
+    def _close_span(self, slot):
+        """Record the slot's rollout span under its own context."""
+        telemetry.set_trace(slot.trace)
+        telemetry.span_end("episode.rollout", slot.t0, mode=slot.mode,
+                           steps=len(slot.moments))
+        telemetry.clear_trace()
 
     def _advance_generation(self, k, slot, outputs):
         env = self.envs[k]

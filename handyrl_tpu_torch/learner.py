@@ -69,10 +69,22 @@ The stdout log format (``updated model(N)``, ``epoch N``, ``win rate``,
 ``loss = ...``, ``generation stats``, ``league stats``) is the JAX
 package's, so its plot scripts read either.
 
-Left for later items: spans and attribution, the runtime guards
-(retrace, sharding, numerics, lock order, stall), the resource ledger,
-the serving frontend and router, the status server, meshes and
-multihost.
+Telemetry and the serving tier are the JAX package's: the learner
+configures telemetry first (span log next to ``metrics_path``, the
+flight recorder dumping on SIGTERM after the emergency save, on a
+trainer crash), the trainer's sections record ``trainer.<name>`` spans
+(:class:`~.utils.profiling.SectionTimers`) and ``profile_dir`` arms a
+``torch.profiler`` window (:class:`~.utils.profiling.TraceWindow`);
+every epoch record carries ``untracked_residual_sec`` and the
+attribution tree is folded per epoch.  ``serving: {mode: on}`` opens the
+network frontend over the inference service (epoch-pinned requests
+resolve through ``_resolve_serving_snapshot``), ``router: {mode: on}``
+hosts the pool router with this learner's frontend announced into it,
+and ``status_port`` serves the read-only status JSON; each tier is
+supervised behind backoff and a windowed breaker.
+
+Left for later items: the runtime guards (retrace, sharding, numerics,
+lock order, stall), the resource ledger, meshes and multihost.
 """
 
 import functools
@@ -82,11 +94,9 @@ import pickle
 import queue
 import random
 import signal
-import sys
 import threading
 import time
-from collections import deque
-from contextlib import contextmanager
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -96,6 +106,7 @@ try:
 except ImportError:  # pragma: no cover
     psutil = None
 
+from . import telemetry
 from .anakin import AnakinConfig, AnakinEngine
 from .batch import make_batch
 from .connection import MultiProcessJobExecutor
@@ -129,6 +140,7 @@ from .resilience.supervisor import FailureWindow
 from .staging import DeviceReplay, make_replay_update_step
 from .telemetry import CostModel, PerfConfig, summarize_lags
 from .telemetry.costmodel import device_kind
+from .utils.profiling import SectionTimers, TraceWindow
 from .utils.tree import tree_map_leaves
 from .worker import WorkerCluster, WorkerServer
 
@@ -186,26 +198,6 @@ def stage_batch(batch, device, compute_dtype="bfloat16"):
     return staged
 
 
-class _Timers:
-    """Host seconds per named section, reset at each snapshot."""
-
-    def __init__(self):
-        self.sec = {}
-
-    @contextmanager
-    def section(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.sec[name] = self.sec.get(name, 0.0) + (
-                time.perf_counter() - t0)
-
-    def snapshot(self):
-        out, self.sec = self.sec, {}
-        return out
-
-
 # ---------------------------------------------------------------------
 # the host batcher path (device_replay: off)
 # ---------------------------------------------------------------------
@@ -215,11 +207,16 @@ def _batch_worker(conn, bid, cfg):
     from .batch import set_columnar_cache_mb
 
     set_columnar_cache_mb(cfg.get("columnar_cache_mb"))
+    telemetry.configure_from_args(cfg, role=f"batcher-{bid}",
+                                  primary=False)
     print(f"started batcher {bid}")
     try:
         while True:
             episodes = conn.recv()
-            conn.send(make_batch(episodes, cfg))
+            with telemetry.trace_span("batch.make",
+                                      episodes=len(episodes)):
+                batch = make_batch(episodes, cfg)
+            conn.send(batch)
     except (ConnectionResetError, BrokenPipeError, EOFError, OSError):
         pass  # the learner is gone: exit quietly
 
@@ -232,9 +229,13 @@ class Batcher:
     def __init__(self, args, episodes):
         self.args = args
         self.episodes = episodes
+        # the batch-geometry keys, plus the telemetry keys so batch.make
+        # spans land in the same run's span log
         cfg = {k: args[k] for k in (
             "turn_based_training", "observation", "forward_steps",
             "burn_in_steps", "compress_steps", "columnar_cache_mb",
+            "telemetry", "trace_sample_rate", "flightrec_spans",
+            "metrics_path",
         ) if k in args}
         transfer = resolve_transfer_dtype(args)
         if transfer:
@@ -364,7 +365,10 @@ class Trainer:
         self.last_metrics = {}
         self.update_queue = queue.Queue(maxsize=1)
         self.updates_cap = int(args.get("updates_per_epoch", 0) or 0)
-        self.timers = _Timers()
+        self.timers = SectionTimers()
+        # one-shot torch.profiler window over steps 10-20 (profile_dir)
+        self.trace = TraceWindow(args.get("profile_dir") or "",
+                                 device=self.device)
         self.emergency = None      # threading.Event armed by SIGTERM
         self.manifest = None       # set by the Learner
         self.started_at = None     # monotonic: training loop entered
@@ -618,6 +622,7 @@ class Trainer:
                 batch = stage_batch(batch, self.device, self.compute_dtype)
                 metric_acc.append(self.costmodel.call(
                     self._step_label, self.update_step, batch))
+            self.trace.tick()
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
             self.steps += 1
@@ -645,6 +650,7 @@ class Trainer:
             with self.timers.section("update"):
                 metric_acc.append(self.costmodel.call(
                     self._step_label, self._replay_step, state))
+            self.trace.tick()
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
             self.steps += 1
@@ -666,10 +672,17 @@ class Trainer:
             if cap and batch_cnt >= cap:
                 time.sleep(0.01)
                 continue
+            t0 = telemetry.span_begin()
             with self.timers.section("update"):
                 metrics, self.anakin_carry = self.costmodel.call(
                     self._step_label, self._anakin_step,
                     self.anakin_carry, self.anakin_pool)
+            # static attrs only: the committed frame count is a device
+            # scalar, read at the epoch boundary
+            telemetry.span_end("anakin.rollout", t0,
+                               games=self.anakin.num_envs,
+                               unroll=self.anakin.unroll)
+            self.trace.tick()
             metric_acc.append(metrics)
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
@@ -718,8 +731,12 @@ class Trainer:
         snapshot = self.snapshot()
 
         prof = self.timers.snapshot()
+        if prof:
+            # batch_wait = feed starvation; update = the step calls
+            print("profile = %s" % self.timers.format(prof))
         record = {k: v / data_cnt for k, v in loss_sum.items()}
-        record.update({f"profile_{k}_sec": v for k, v in prof.items()})
+        record.update({f"profile_{k}_sec": v["sec"]
+                       for k, v in prof.items()})
         record.update(
             epoch_steps=batch_cnt, lr=lr,
             grad_norm_mean=float(metrics["grad_norm"].mean()),
@@ -736,8 +753,8 @@ class Trainer:
             record["replay"] = "host"
         # the step accounting: feed starvation, seconds inside the step
         # calls, the feed backlog, and the cost model's perf keys
-        record["batch_wait_sec"] = prof.get("batch_wait", 0.0)
-        record["device_step_sec"] = prof.get("update", 0.0)
+        record["batch_wait_sec"] = prof.get("batch_wait", {}).get("sec", 0.0)
+        record["device_step_sec"] = prof.get("update", {}).get("sec", 0.0)
         record["queue_depth"] = self._queue_depth()
         record.update(self.costmodel.epoch_metrics(
             self._step_label, record["device_step_sec"], batch_cnt))
@@ -825,6 +842,15 @@ class Trainer:
 
             traceback.print_exc()
             self.failure = exc
+            # the flight recorder's crash trigger, strictly AFTER the
+            # failure is recorded: a dump that itself dies must not
+            # leave Learner.update() waiting on this thread
+            try:
+                telemetry.crash_dump("trainer", exc)
+            except Exception:
+                pass
+        finally:
+            self.trace.close()  # this thread owns the profiler window
 
 
 class RunningScore:
@@ -865,6 +891,21 @@ class Learner:
     """Central conductor: serves worker requests, feeds the trainer,
     reports stats, and checkpoints every epoch."""
 
+    # the serving tier's off states (a real __init__ overrides them):
+    # the network frontend over the inference service, the pool router
+    # this learner may host, and this replica's announcer into a router
+    infer_service = None
+    serve_frontend = None
+    router_frontend = None
+    serve_announcer = None
+    status = None
+    _serve_respawns = 0
+    _serve_respawn_at = 0.0
+    _serve_disabled = False
+    _router_respawns = 0
+    _router_respawn_at = 0.0
+    _router_disabled = False
+
     def __init__(self, args, net=None, device=DEFAULT_DEVICE, remote=False):
         from .config import Config
 
@@ -876,11 +917,21 @@ class Learner:
         self.args = train_args
         random.seed(self.args["seed"])
 
+        # telemetry first: spans recorded by anything constructed below
+        # (trainer set-up, worker bring-up) land in this run's log
+        telemetry.configure_from_args(self.args, role="learner",
+                                      primary=True)
+        # per-epoch self-time attribution over the span ring; the last
+        # snapshot rides every flight-recorder dump
+        self.attributor = telemetry.Attributor()
+        telemetry.register_dump_extra(
+            "attribution", lambda: self.attributor.last)
+        self._last_record = None       # latest metrics record (status)
         self._run_t0 = time.monotonic()
         self._epoch_t = self._run_t0
         # host seconds of the start-up stages, reported once in the
         # first metrics record (a relaunch's time-to-train, split)
-        self._startup = _Timers()
+        self._startup = SectionTimers(span_prefix="startup.")
         self.max_policy_lag = int(self.args.get("max_policy_lag", 0) or 0)
         self.episodes_rejected_stale = 0
         self._rejected_epoch = 0
@@ -987,16 +1038,182 @@ class Learner:
                     self.model, pipeline_cfg, epoch=self.model_epoch,
                     device=self.device)
                 self.infer_service.start()
+        self._build_serving()
 
-        # SIGTERM = preemption notice (main thread only: a learner
-        # built off the main thread has no preemption hook); the
-        # previous handler comes back when the learner shuts down
+        # SIGTERM = preemption notice: durable state first (the
+        # emergency checkpoint and the WAL seal inside the grace
+        # window), THEN the flight-recorder dump and exit.  Main thread
+        # only: a learner built off the main thread has no preemption
+        # hook; the previous handler comes back when the learner stops
         self._sigterm_prev = None
+        prev = signal.getsignal(signal.SIGTERM)
+        if telemetry.install_signal_dump(pre_dump=self._preempt_save):
+            self._sigterm_prev = prev
+
+    def _build_serving(self):
+        """The network serving tier and the status endpoint, as the
+        JAX learner arms them: the frontend needs the inference service
+        (a remote learner runs none), the router needs the frontend,
+        the announcer heartbeats this frontend into a router (a remote
+        ``serving.router_address`` or the local one)."""
+        from .serving import RouterConfig, ServingConfig
+
+        max_frame = int(self.args.get("max_frame_bytes", 0) or 0)
+        self._serving_cfg = ServingConfig.from_config(
+            self.args.get("serving") or {})
+        if self._serving_cfg.enabled:
+            if self.infer_service is None:
+                print("WARNING: serving.mode is on but the batched "
+                      "inference service is not running here (pipeline "
+                      "off or remote learner); network serving disabled "
+                      "for this process")
+            else:
+                from .serving import ServingFrontend
+
+                self._serve_window = FailureWindow(
+                    int(self.args.get("max_respawns", 5)), 60.0)
+                self._serving_snapshots = OrderedDict()
+                # multi-model routing: epoch-pinned network requests
+                # resolve to the exact committed snapshot they asked for
+                self.infer_service.model_resolver = \
+                    self._resolve_serving_snapshot
+                self.infer_service.snapshot_cache = \
+                    self._serving_cfg.snapshot_cache
+                self.serve_frontend = ServingFrontend(
+                    self.infer_service, self.env, self._serving_cfg,
+                    max_frame_bytes=max_frame)
+                self.serve_frontend.start()
+        self._router_cfg = RouterConfig.from_config(
+            self.args.get("router") or {})
+        if self._router_cfg.enabled and self.serve_frontend is not None:
+            from .serving import RouterFrontend
+
+            self._router_window = FailureWindow(
+                int(self.args.get("max_respawns", 5)), 60.0)
+            self.router_frontend = RouterFrontend(
+                self._router_cfg, max_frame_bytes=max_frame)
+            self.router_frontend.start()
+        if self.serve_frontend is not None:
+            target = None
+            if self._serving_cfg.router_address:
+                host, _, port = \
+                    self._serving_cfg.router_address.rpartition(":")
+                target = (host, int(port))
+            elif self.router_frontend is not None:
+                target = ("127.0.0.1", self.router_frontend.port)
+            if target is not None:
+                from .serving import ReplicaAnnouncer
+
+                self.serve_announcer = ReplicaAnnouncer(
+                    target[0], target[1], f"learner-0-{os.getpid()}",
+                    self._serving_advert,
+                    interval=self._router_cfg.heartbeat_interval,
+                    max_frame_bytes=max_frame)
+                self.serve_announcer.start()
+        # read-only live status endpoint; 0 = off.  A router-hosting
+        # learner answers /healthz from the registry snapshot
+        status_port = int(self.args.get("status_port", 0) or 0)
+        if status_port:
+            from .telemetry.status import StatusServer
+
+            healthz_fn = None
+            if self.router_frontend is not None:
+                healthz_fn = self.router_frontend.healthz
+            self.status = StatusServer(status_port, self._status_snapshot,
+                                       healthz_fn=healthz_fn)
+
+    def _status_snapshot(self):
+        """Live JSON for the status endpoint: fleet + telemetry + the
+        latest per-epoch metrics record.  Read-only by construction."""
+        snap = {
+            "epoch": self.model_epoch,
+            "episodes_received": self.episodes_received,
+            "episodes_rejected_stale": self.episodes_rejected_stale,
+            "episodes_replayed": self.episodes_replayed,
+            "connections": self.worker.connection_count(),
+            "time_sec": round(time.monotonic() - self._run_t0, 3),
+            "fleet": self.fleet.snapshot(),
+            "telemetry": telemetry.stats(),
+            "last_record": self._last_record,
+        }
+        if self.wal is not None:
+            snap["wal"] = self.wal.stats()
+        trainer = self.trainer
+        perf = trainer.costmodel.stats()
+        perf["attribution"] = self.attributor.last
+        snap["perf"] = perf
+        if trainer.anakin is not None:
+            snap["anakin"] = {
+                "num_envs": trainer.anakin.num_envs,
+                "unroll_length": trainer.anakin.unroll,
+                "opponent_pool": trainer.anakin.K,
+            }
+        if self.infer_service is not None:
+            snap["pipeline"] = {
+                **self.infer_service.stats(),
+                "respawns": self._infer_respawns,
+                "episodes_shm": self.episodes_shm,
+                "episodes_spilled": self.episodes_spilled,
+            }
+        if self.serve_frontend is not None:
+            snap["serving"] = {
+                **self.serve_frontend.stats(),
+                "respawns": self._serve_respawns,
+            }
+            if self.serve_announcer is not None:
+                snap["serving"]["announcer"] = {
+                    "alive": self.serve_announcer.alive,
+                    "generation": self.serve_announcer.generation,
+                    "registrations": self.serve_announcer.registrations,
+                }
+        if self.router_frontend is not None:
+            snap["router"] = {
+                **self.router_frontend.stats(),
+                "respawns": self._router_respawns,
+            }
+        return snap
+
+    def _serving_advert(self):
+        """This replica's registry advert (announcer callback, on the
+        announcer thread): the frontend's capacity/load/p99 plus the
+        committed epochs pinned requests can route here for, the
+        manifest's entries (digests are verified at resolve time)."""
+        epochs = {int(self.model_epoch)}
         try:
-            self._sigterm_prev = signal.signal(signal.SIGTERM,
-                                               self._on_sigterm)
-        except ValueError:
+            epochs.update(int(e) for e in self.manifest.load()["entries"])
+        except (ValueError, TypeError, OSError, KeyError):
             pass
+        return self.serve_frontend.advert(epochs=epochs)
+
+    def _resolve_serving_snapshot(self, epoch):
+        """epoch -> model for the serving tier's multi-model routing.
+        Runs on the inference service's thread at dispatch time: the
+        live epoch answers the in-memory model; other epochs read their
+        digest-verified checkpoint once (the JAX package's format,
+        converted to the torch module) and LRU-cache it
+        (``serving.snapshot_cache``); the service keeps one device
+        module per cached snapshot.  None (a typed error at the
+        frontend) when the epoch was never committed or its file is
+        pruned/corrupt."""
+        if epoch == self.model_epoch:
+            return self.model
+        cache = self._serving_snapshots
+        model = cache.get(epoch)
+        if model is not None:
+            cache.move_to_end(epoch)
+            return model
+        try:
+            params = read_verified(model_path(epoch))["params"]
+        except (OSError, CorruptCheckpointError, pickle.UnpicklingError,
+                EOFError, KeyError):
+            return None  # pruned / never committed / corrupt
+        model = TorchModel(build_module(self.model.spec, "cpu"),
+                           device="cpu")
+        model.load_params(from_flax(params, model.module))
+        cache[epoch] = model
+        while len(cache) > int(self._serving_cfg.snapshot_cache):
+            cache.popitem(last=False)
+        return model
 
     # -- durability ---------------------------------------------------
     def _wal_keep_episodes(self):
@@ -1038,15 +1255,6 @@ class Learner:
                      if stale else "")
                   + f" in {t2 - t0:.3f} s (read {t1 - t0:.3f} s, "
                   f"ingest {t2 - t1:.3f} s)", flush=True)
-
-    def _on_sigterm(self, signum, frame):
-        try:
-            self._preempt_save()
-        except Exception:  # a failed save must not block the exit
-            import traceback
-
-            traceback.print_exc()
-        sys.exit(1)
 
     def _preempt_save(self):
         """SIGTERM: durable state inside the grace window, in rescue
@@ -1164,6 +1372,19 @@ class Learner:
                       default=self.model_epoch)
         return max(0, self.model_epoch - gen)
 
+    def _note_intake(self, episode, lag):
+        """Per-episode telemetry at intake: the lag joins this epoch's
+        ``policy_lag_*`` reduction and, for a trace-stamped episode, an
+        intake event under the episode's own context lets the exported
+        trace cross the worker -> learner process boundary."""
+        self._policy_lags.append(lag)
+        ctx = episode.get("trace")
+        if ctx is not None and telemetry.enabled():
+            prev = telemetry.current_trace()
+            telemetry.set_trace(ctx)
+            telemetry.add_event("episode.intake", lag=int(lag))
+            telemetry.set_trace(prev)  # the rpc span keeps ITS context
+
     def feed_episodes(self, episodes):
         arrived = [e for e in episodes if e is not None]
         for episode in arrived:
@@ -1181,7 +1402,7 @@ class Learner:
                 self._rejected_epoch += 1
             else:
                 kept.append(episode)
-                self._policy_lags.append(lag)
+                self._note_intake(episode, lag)
         if self.wal is not None:
             # write-ahead: an admitted episode reaches the log before
             # any stats or buffer touch it
@@ -1342,8 +1563,8 @@ class Learner:
             record["first_step_sec"] = round(
                 self.trainer.first_step_at - self._run_t0, 3)
         if self._startup is not None:
-            record.update({f"startup_{k}_sec": round(v, 3) for k, v
-                           in self._startup.snapshot().items()})
+            record.update({f"startup_{k}_sec": round(v["sec"], 3)
+                           for k, v in self._startup.snapshot().items()})
             self._startup = None
         record.update(self._fleet_record())
         if self.infer_service is not None:
@@ -1353,9 +1574,27 @@ class Learner:
             record["episodes_shm"] = self._shm_epoch
             record["episodes_spilled"] = self._spilled_epoch
             self._shm_epoch = self._spilled_epoch = 0
+        if self.serve_frontend is not None:
+            # per-epoch request/ok/shed/error counts, QPS and the log2
+            # histogram's latency reduction; sheds are typed replies
+            record.update(self.serve_frontend.epoch_stats())
+            record["serve_respawns"] = self._serve_respawns
+        if self.router_frontend is not None:
+            record.update(self.router_frontend.epoch_stats())
+            record["router_respawns"] = self._router_respawns
+        # wall-time reconciliation: the residual is DEFINED over the
+        # record's own rounded values, so epoch_wall_sec ==
+        # sum(profile_*_sec) + untracked_residual_sec holds exactly
+        record["untracked_residual_sec"] = \
+            telemetry.untracked_residual(record)
+        # fold this epoch's span ring into the self-time tree (status
+        # perf section + flight-recorder dumps); no-op telemetry-off
+        self.attributor.note_epoch(record)
         if self.metrics_path:
             with open(self.metrics_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
+        self._last_record = record     # the status endpoint reads this
+        telemetry.flush()              # epoch boundary: spans to disk
 
     # -- fleet health -----------------------------------------------
     def _fleet_record(self):
@@ -1486,7 +1725,9 @@ class Learner:
         if episodes:
             self.episodes_shm += len(episodes)
             self._shm_epoch += len(episodes)
-            self.feed_episodes(episodes)
+            with telemetry.trace_span("intake.shm",
+                                      episodes=len(episodes)):
+                self.feed_episodes(episodes)
         if svc.alive or self._infer_disabled or self.shutdown_flag:
             return
         now = time.monotonic()
@@ -1531,6 +1772,8 @@ class Learner:
                 conn = None  # epoch checks below still run on idle
             self._sweep_fleet()
             self._pipeline_tick()
+            self._serving_tick()
+            self._router_tick()
             if conn is not None:
                 self.fleet.observe(conn, verb, payload)
                 batched = isinstance(payload, list)
@@ -1539,7 +1782,11 @@ class Learner:
                     self.worker.note_unknown_verb(verb)
                     self.worker.send(conn, [] if batched else None)
                     continue
-                replies = handler(payload if batched else [payload])
+                # the request's trace context (adopted by the
+                # communicator's recv codec) is current here, so this
+                # span joins the sending gather's trace
+                with telemetry.trace_span("rpc." + str(verb)):
+                    replies = handler(payload if batched else [payload])
                 self.worker.send(conn, replies if batched else replies[0])
             if self.trainer.anakin is not None:
                 self._anakin_tick()
@@ -1555,6 +1802,86 @@ class Learner:
                     # completions, not crashes to respawn
                     self.worker.begin_drain()
         print("finished server")
+
+    def _serving_tick(self):
+        """Supervise the serving frontend once per server-loop pass:
+        a dead acceptor respawns behind backoff and the windowed
+        circuit breaker (a trip disables network serving for the rest
+        of the run; training is never held hostage by it)."""
+        fe = self.serve_frontend
+        if (fe is None or fe.alive or self._serve_disabled
+                or self.shutdown_flag):
+            return
+        now = time.monotonic()
+        if self._serve_respawn_at == 0.0:
+            if self._serve_window.record(now):
+                self._serve_disabled = True
+                print("ERROR: the serving frontend keeps dying "
+                      "(circuit breaker tripped); network serving "
+                      "disabled for this run — training continues")
+                fe.close()
+                return
+            delay = float(self.args.get("respawn_backoff", 0.5) or 0.5)
+            self._serve_respawn_at = now + delay
+            print(f"WARNING: serving frontend died; respawning in "
+                  f"{delay:.1f}s (clients see refused connections "
+                  f"meanwhile)")
+        elif now >= self._serve_respawn_at:
+            self._serve_respawn_at = 0.0
+            try:
+                fe.respawn()
+            except Exception as exc:
+                # e.g. a fixed port still held elsewhere: the failure
+                # costs the serving plane another ladder round, never
+                # the server loop
+                print(f"WARNING: serving frontend respawn failed "
+                      f"({exc!r}); retrying through the backoff ladder")
+                return
+            self._serve_respawns += 1
+            print("serving frontend respawned "
+                  f"(incarnation {fe.generation})")
+            if self.serve_announcer is not None:
+                # the respawned frontend re-enters the pool: a fresh
+                # register bumps this replica's registry generation
+                self.serve_announcer.respawn()
+
+    def _router_tick(self):
+        """Supervise the pool router the way ``_serving_tick``
+        supervises the frontend; a breaker trip disables pool routing
+        for the run, never training."""
+        rt = self.router_frontend
+        if (rt is None or rt.alive or self._router_disabled
+                or self.shutdown_flag):
+            return
+        now = time.monotonic()
+        if self._router_respawn_at == 0.0:
+            if self._router_window.record(now):
+                self._router_disabled = True
+                print("ERROR: the pool router keeps dying (circuit "
+                      "breaker tripped); pool routing disabled for "
+                      "this run — training continues")
+                rt.close()
+                return
+            delay = float(self.args.get("respawn_backoff", 0.5) or 0.5)
+            self._router_respawn_at = now + delay
+            print(f"WARNING: pool router died; respawning in "
+                  f"{delay:.1f}s (pool clients see refused "
+                  f"connections meanwhile)")
+        elif now >= self._router_respawn_at:
+            self._router_respawn_at = 0.0
+            try:
+                rt.respawn()
+            except Exception as exc:
+                print(f"WARNING: pool router respawn failed "
+                      f"({exc!r}); retrying through the backoff ladder")
+                return
+            self._router_respawns += 1
+            print(f"pool router respawned (incarnation {rt.generation})")
+            if (self.serve_announcer is not None
+                    and not self._serving_cfg.router_address):
+                # port 0 rebinds fresh: point the local announcer at
+                # the new incarnation before its next retry
+                self.serve_announcer.port = rt.port
 
     def _anakin_tick(self):
         """Anakin's epoch clock on the server loop: an epoch every
@@ -1649,6 +1976,18 @@ class Learner:
             trainer_thread.join(timeout=30)
             self.trainer.stop_feeds()
             self.worker.shutdown()
+            if self.status is not None:
+                self.status.close()
+            if self.serve_announcer is not None:
+                # graceful goodbye FIRST: the router drains this
+                # replica before its listener goes away
+                self.serve_announcer.close()
+            if self.router_frontend is not None:
+                self.router_frontend.close()
+            if self.serve_frontend is not None:
+                # the frontend rides the service: close it first so no
+                # handler thread submits into a closing service
+                self.serve_frontend.close()
             if self.infer_service is not None:
                 print("inference service stats = "
                       + json.dumps(self.infer_service.stats(),
@@ -1657,6 +1996,7 @@ class Learner:
                 self.infer_service.close()
             if self.wal is not None:
                 self.wal.close()  # final fsync of the append tail
+            telemetry.flush()  # ship the span-log tail before exit
             if self._sigterm_prev is not None:
                 try:
                     signal.signal(signal.SIGTERM, self._sigterm_prev)

@@ -9,11 +9,13 @@ until ``pipeline.max_batch`` rows are staged, whichever first), then
 ONE batched forward covers all of them and replies scatter back over
 each worker's reply ring.
 
-The forward keeps its parameters resident on ``device`` in a module
-the service owns: a **hot swap** (``set_model``) is adopted between
-batches on the service thread, which copies the new snapshot's params
-into that module once; no request ever pays a parameter upload, and
-the learner's own tensors are never read mid-dispatch.  Each dispatch
+The forward keeps its parameters resident on ``device`` in modules
+the service owns, a small LRU of them keyed by snapshot: a **hot
+swap** (``set_model``) is adopted between batches on the service
+thread, which copies the new snapshot's params into a module once; no
+request ever pays a parameter upload, and the learner's own tensors
+are never read mid-dispatch.  ``param_loads`` counts those copies, one
+per distinct snapshot while the LRU holds them all.  Each dispatch
 uploads the bucket-padded observation batch once and downloads the
 outputs once (:func:`..models.wrapper.forward_numpy`).  Batch shapes
 bucket to powers of two (floor 8, ceiling ``max_batch``), as in the
@@ -30,17 +32,30 @@ dispatches since its last call into ``infer_batch_size_{mean,p95}``,
 ``infer_queue_wait_sec`` and ``infer_dispatch_ms_{p50,p99}`` (host
 clock around upload + forward + download of one dispatch).
 
+**Two planes, one window** (docs/serving.md): besides the shm rings,
+``submit`` queues NETWORK-plane requests (the serving frontend's
+handler threads call it) into the same batching window, so a remote
+client's rows and a colocated worker's rows ride one bucket-padded
+forward.  A network request may carry an **epoch pin**: ``_routed``
+resolves it through ``model_resolver`` (set by the learner), and the
+pinned group dispatches with that snapshot's module from the LRU
+(bounded by ``snapshot_cache`` + the live one, the learner sets it from
+``serving.snapshot_cache``), so alternating pinned and live traffic
+never re-copies a snapshot per dispatch.  Every dispatch records an
+``infer.batch`` span (rows, window wait, epoch).
+
 Not ported yet: the GSPMD/mesh dispatch, the retrace and sharding
-guards, the shm chaos hooks, telemetry spans, and the network-plane
-``submit`` with epoch-pinned routing.
+guards, and the shm chaos hooks.
 """
 
 import threading
 import time
 import traceback
+from collections import OrderedDict, deque
 
 import numpy as np
 
+from .. import telemetry
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.wrapper import build_module, forward_numpy
 from ..utils.tree import tree_structure, tree_unflatten
@@ -76,7 +91,10 @@ class _Client:
         self.drop_warned = False     # reply-drop warning, once per client
 
     def deliver(self, seq, epoch, part) -> bool:
-        """Hand one answered request back over the reply ring."""
+        """Hand one answered request back over the reply ring.  The
+        network-plane seat (serving frontend) implements the same
+        method by waking its handler thread: dispatch is polymorphic
+        over the two planes."""
         return self.rsp.push(dumps((seq, epoch, part)))
 
 
@@ -126,9 +144,23 @@ class InferenceService:
         self._model = model
         self._epoch = int(epoch)
         self._pending_model = None
-        self._fwd = None             # service-owned module on device
-        self._fwd_spec = None        # (class, config) it was built for
-        self._fwd_loaded = None      # the model whose params it holds
+        # service-owned modules on the device, LRU by snapshot:
+        # id(model) -> (model, module); the model reference pins the id
+        self._fwds = OrderedDict()
+        self._fwd_spec = None        # (class, config) they were built for
+        # routed snapshots the LRU keeps beside the live one (the
+        # learner sets serving.snapshot_cache when it serves)
+        self.snapshot_cache = 0
+        # network plane (serving frontend): handler threads queue
+        # requests here via submit(); _collect drains them into the
+        # same batching window as the shm rings.  The queue belongs to
+        # this OBJECT, not the loop thread, so requests queued across a
+        # kill are served by the respawned incarnation
+        self._net_pending = deque()
+        # epoch pin -> model, set by the learner; None makes every
+        # non-live pin unroutable (a typed error upstream)
+        self.model_resolver = None
+        self.net_requests = 0        # cumulative network-plane frames
         self.board = ShmBoard.create()
         self._thread = None
         self._stop = False
@@ -194,6 +226,25 @@ class InferenceService:
         no in-flight request is ever dropped."""
         with self._lock:
             self._pending_model = (model, int(epoch))
+
+    # -- network plane (serving frontend handler threads) --------------
+    def submit(self, seat, seq, rows, leaves, epoch=None) -> bool:
+        """Queue one network-plane request into the batching window.
+        ``seat`` is the frontend's client duck type (``treedef`` /
+        ``deliver``); ``epoch`` pins the request to a specific snapshot
+        (None = the live model).  False = the service is shut down for
+        good (the frontend sheds with a typed reply).  A merely-dead
+        (killed, pre-respawn) service still accepts: the queue belongs
+        to the object, so these requests are served by the respawned
+        incarnation; the frontend's admission check
+        (``service.alive``) is what sheds NEW arrivals during the gap."""
+        if self._stop:
+            return False
+        with self._lock:
+            self._net_pending.append(
+                (seat, seq, int(rows), leaves,
+                 None if epoch is None else int(epoch)))
+        return True
 
     def inject_kill(self):
         """Chaos: the loop exits without a parting beat, as a killed
@@ -301,6 +352,8 @@ class InferenceService:
             "requests": self.requests,
             "rows_served": self.rows_served,
             "param_loads": self.param_loads,
+            "net_requests": self.net_requests,
+            "device_modules": len(self._fwds),
             "shm_ring_full_count": self.ring_full_count(),
             "shm_torn_slots": self.torn_slot_count(),
             "torn_reclaimed": self.reclaimed,
@@ -373,22 +426,33 @@ class InferenceService:
         self._ensure_forward(self._model)
 
     def _ensure_forward(self, model):
-        """The service-owned device module holding ``model``'s params:
-        rebuilt only when the net's spec changes, params copied once
-        per adopted snapshot.  None for duck models without a ``spec``
-        (RandomModel, stubs), which keep their own ``inference_batch``."""
+        """The service-owned device module holding ``model``'s params,
+        from the LRU: params are copied once per snapshot the LRU does
+        not hold (the live one plus ``snapshot_cache`` routed ones); a
+        full LRU hands its least recently used module over to the new
+        snapshot instead of building another.  Every module is rebuilt
+        only when the net's spec changes.  None for duck models without
+        a ``spec`` (RandomModel, stubs), which keep their own
+        ``inference_batch``."""
         spec = getattr(model, "spec", None)
         if spec is None:
             return None
-        if self._fwd is None or self._fwd_spec != spec:
-            self._fwd = build_module(spec, self.device)
+        if self._fwd_spec != spec:
+            self._fwds.clear()
             self._fwd_spec = spec
-            self._fwd_loaded = None
-        if self._fwd_loaded is not model:
-            self._fwd.load_state_dict(model.module.state_dict())
-            self._fwd_loaded = model
-            self.param_loads += 1
-        return self._fwd
+        key = id(model)
+        hit = self._fwds.get(key)
+        if hit is not None and hit[0] is model:
+            self._fwds.move_to_end(key)
+            return hit[1]
+        if len(self._fwds) > max(0, int(self.snapshot_cache)):
+            _old, module = self._fwds.popitem(last=False)[1]
+        else:
+            module = build_module(spec, self.device)
+        module.load_state_dict(model.module.state_dict())
+        self.param_loads += 1
+        self._fwds[key] = (model, module)
+        return module
 
     def _forward(self, model, obs):
         """One batched forward: numpy leaves in, numpy dict out."""
@@ -399,11 +463,18 @@ class InferenceService:
 
     # -- the batching loop --------------------------------------------
     def _collect(self, pending, now):
-        """One sweep over every request ring; appends (client, seq,
-        rows, leaves) tuples.  Returns rows collected this sweep."""
+        """One sweep over every request ring plus the network-plane
+        queue; appends (client, seq, rows, leaves, epoch_pin) tuples.
+        Returns rows collected this sweep."""
         got = 0
         with self._lock:
             clients = list(self._clients.values())
+            net = list(self._net_pending)
+            self._net_pending.clear()
+        for item in net:
+            pending.append(item)
+            got += item[2]
+            self.net_requests += 1
         for c in clients:
             while True:
                 try:
@@ -421,7 +492,7 @@ class InferenceService:
                 c.req_stuck_since = None
                 c.last_seen = self.clock()
                 seq, rows, leaves = item
-                pending.append((c, seq, rows, leaves))
+                pending.append((c, seq, rows, leaves, None))
                 got += rows
         return got
 
@@ -446,35 +517,77 @@ class InferenceService:
         self._dispatch(pending, self.clock() - t_first)
         return True
 
+    def _routed(self, pin):
+        """(model, epoch) for one dispatch group.  None pins, and pins
+        naming the live snapshot, serve the installed model; other pins
+        resolve through ``model_resolver`` (league/opponent-pool
+        snapshots as first-class serving targets).  (None, pin) =
+        unroutable, answered as a typed unavailable upstream."""
+        if pin is None or int(pin) == self._epoch:
+            return self._model, self._epoch
+        if self.model_resolver is None:
+            return None, int(pin)
+        try:
+            model = self.model_resolver(int(pin))
+        except Exception as exc:  # a bad pin costs that request only
+            print(f"WARNING: snapshot resolver failed for epoch "
+                  f"{pin} ({exc!r})")
+            model = None
+        return model, int(pin)
+
     def _dispatch(self, pending, waited):
         self._adopt_model()
-        model, epoch = self._model, self._epoch
+        # group by epoch pin: the unpinned/live group (ALL shm traffic
+        # plus unpinned network requests) rides one bucket-padded
+        # forward; each pinned group dispatches with its routed
+        # snapshot's module.  A pin naming the LIVE epoch normalizes
+        # into the unpinned group: splitting identical-params traffic
+        # into two forwards would re-pay the per-dispatch overhead the
+        # shared window exists to amortize
+        groups = {}
+        for item in pending:
+            pin = item[4]
+            if pin is not None and int(pin) == self._epoch:
+                pin = None
+            groups.setdefault(pin, []).append(item)
+        for pin, items in groups.items():
+            model, epoch = self._routed(pin)
+            if model is None:
+                # unroutable pin (pruned/never-committed epoch, no
+                # resolver): typed unavailable, not a silent timeout
+                for seat, seq, _n, _leaves, _pin in items:
+                    seat.deliver(seq, None, None)
+                continue
+            self._dispatch_group(model, epoch, items, waited)
+
+    def _dispatch_group(self, model, epoch, items, waited):
         # one forward per max_batch chunk (normally exactly one)
         i = 0
-        while i < len(pending):
+        while i < len(items):
             chunk, rows = [], 0
-            while i < len(pending) and (
-                    rows + pending[i][2] <= self.cfg.max_batch
+            while i < len(items) and (
+                    rows + items[i][2] <= self.cfg.max_batch
                     or not chunk):
-                chunk.append(pending[i])
-                rows += pending[i][2]
+                chunk.append(items[i])
+                rows += items[i][2]
                 i += 1
+            t0 = telemetry.span_begin()
             bucket = _bucket(rows, max(rows, self.cfg.max_batch),
                              self.BUCKET_FLOOR)
             leaves = [np.concatenate(parts, axis=0) for parts in zip(
-                *[leaves for _, _, _, leaves in chunk])]
+                *[leaves for _, _, _, leaves, _ in chunk])]
             if bucket > rows:
                 leaves = [np.concatenate(
                     [leaf, np.zeros((bucket - rows,) + leaf.shape[1:],
                                     leaf.dtype)], axis=0)
                     for leaf in leaves]
             obs = tree_unflatten(chunk[0][0].treedef, leaves)
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             outputs = self._forward(model, obs)
-            dispatch_sec = time.perf_counter() - t0
+            dispatch_sec = time.perf_counter() - t1
             outputs.pop("hidden", None)
             lo = 0
-            for client, seq, n, _leaves in chunk:
+            for client, seq, n, _leaves, _pin in chunk:
                 part = {k: np.asarray(v[lo:lo + n])
                         for k, v in outputs.items()}
                 lo += n
@@ -496,6 +609,8 @@ class InferenceService:
                 self._dispatch_sec.append(dispatch_sec)
                 self._queue_wait += waited
                 self._requests_epoch += len(chunk)
+            telemetry.span_end("infer.batch", t0, rows=rows,
+                               wait=round(waited, 6), epoch=epoch)
 
     def _warm_next(self):
         """Run the forward once at one pending client's likely buckets

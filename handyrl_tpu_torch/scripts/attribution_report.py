@@ -1,0 +1,175 @@
+"""Offline time-attribution report for one run directory.
+
+The twin of ``scripts/attribution_report.py``: the runtime
+:class:`~handyrl_tpu_torch.telemetry.attribution.Attributor` folds each
+epoch's span ring as it happens; this tool is the same fold over the
+run's FULL ``spans-*.jsonl`` set (every process, merged on the shared
+CLOCK_MONOTONIC timeline) plus the epoch trend the metrics file
+carries (mfu, batch-wait share, untracked-residual share).
+
+Text to stdout; ``--json out.json`` writes the full document next to
+it.  ``--baseline other_run_dir`` diffs self-time per span against
+another run.
+
+Usage: python -m handyrl_tpu_torch.scripts.attribution_report <run_dir>
+       [--top N] [--json out.json] [--baseline other_run_dir]
+"""
+
+import argparse
+import json
+import os
+import sys
+
+from ..telemetry.attribution import self_time_tree, top_self
+from ..telemetry.export import collect_run
+
+
+def _median(values):
+    values = sorted(values)
+    if not values:
+        return None
+    mid = len(values) // 2
+    return (values[mid] if len(values) % 2
+            else (values[mid - 1] + values[mid]) / 2.0)
+
+
+def read_metrics(run_dir):
+    path = os.path.join(run_dir, "metrics.jsonl")
+    records = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    records.append(json.loads(line))
+    return records
+
+
+def epoch_trend(records):
+    """Per-epoch perf rows + run-level medians from metrics.jsonl."""
+    rows = []
+    for rec in records:
+        wall = rec.get("epoch_wall_sec") or 0.0
+        row = {
+            "epoch": rec.get("epoch"),
+            "epoch_wall_sec": wall,
+            "mfu": rec.get("mfu"),
+            "achieved_tflops": rec.get("achieved_tflops"),
+            "roofline_verdict": rec.get("roofline_verdict"),
+        }
+        for key, share in (("batch_wait_sec", "batch_wait_share"),
+                           ("untracked_residual_sec",
+                            "residual_share")):
+            value = rec.get(key)
+            row[share] = (round(value / wall, 4)
+                          if isinstance(value, (int, float)) and wall > 0
+                          else None)
+        rows.append(row)
+    medians = {}
+    for key in ("mfu", "achieved_tflops", "batch_wait_share",
+                "residual_share", "epoch_wall_sec"):
+        values = [r[key] for r in rows
+                  if isinstance(r.get(key), (int, float))]
+        if values:
+            medians[key] = round(_median(values), 4)
+    return rows, medians
+
+
+def build_report(run_dir, top_n=15):
+    roles, spans = collect_run(run_dir)
+    tree = self_time_tree(spans)
+    records = read_metrics(run_dir)
+    rows, medians = epoch_trend(records)
+    return {
+        "run_dir": run_dir,
+        "processes": len(roles),
+        "spans": len(spans),
+        "epochs": len(rows),
+        "tree": tree,
+        "top_self": top_self(tree, top_n),
+        "epoch_trend": rows,
+        "medians": medians,
+    }
+
+
+def diff_trees(tree, base_tree):
+    """Per-span self-time delta vs a baseline run, largest first."""
+    rows = []
+    for key in sorted(set(tree) | set(base_tree)):
+        now = tree.get(key, {}).get("self_sec", 0.0)
+        was = base_tree.get(key, {}).get("self_sec", 0.0)
+        rows.append([key, round(now - was, 6), round(now, 6),
+                     round(was, 6)])
+    rows.sort(key=lambda r: (-abs(r[1]), r[0]))
+    return rows
+
+
+def render(report, diff=None, baseline_dir=None, top_n=15):
+    lines = []
+    lines.append(f"attribution report: {report['run_dir']}")
+    lines.append(f"  processes={report['processes']} "
+                 f"spans={report['spans']} epochs={report['epochs']}")
+    if report["medians"]:
+        parts = [f"{k}={v}" for k, v in sorted(
+            report["medians"].items())]
+        lines.append("  medians: " + " ".join(parts))
+    lines.append("")
+    lines.append(f"top self-time spans (of {len(report['tree'])}):")
+    width = max((len(k) for k, _ in report["top_self"]), default=4)
+    for key, self_sec in report["top_self"]:
+        node = report["tree"][key]
+        lines.append(f"  {key:<{width}}  self={self_sec:>10.4f}s  "
+                     f"total={node['total_sec']:>10.4f}s  "
+                     f"count={node['count']}")
+    trend = report["epoch_trend"]
+    if trend:
+        lines.append("")
+        lines.append("epoch trend (mfu / batch-wait share / "
+                     "residual share):")
+        for row in trend[-10:]:
+            lines.append(
+                f"  epoch {row['epoch']}: wall="
+                f"{row['epoch_wall_sec']}s mfu={row['mfu']} "
+                f"wait={row['batch_wait_share']} "
+                f"residual={row['residual_share']} "
+                f"[{row['roofline_verdict']}]")
+    if diff is not None:
+        lines.append("")
+        lines.append(f"self-time delta vs baseline {baseline_dir} "
+                     "(now - base, largest movers):")
+        for key, delta, now, was in diff[:top_n]:
+            sign = "+" if delta >= 0 else ""
+            lines.append(f"  {key:<{width}}  {sign}{delta:.4f}s  "
+                         f"({was:.4f}s -> {now:.4f}s)")
+    return "\n".join(lines)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("run_dir")
+    parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--json", dest="json_out", default=None,
+                        help="also write the full report document here")
+    parser.add_argument("--baseline", default=None,
+                        help="another run directory to diff self-time "
+                             "against")
+    args = parser.parse_args(argv)
+
+    report = build_report(args.run_dir, top_n=args.top)
+    diff = None
+    if args.baseline:
+        base = build_report(args.baseline, top_n=args.top)
+        diff = diff_trees(report["tree"], base["tree"])
+        report["baseline"] = args.baseline
+        report["self_time_delta"] = diff
+    print(render(report, diff=diff, baseline_dir=args.baseline,
+                 top_n=args.top))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"\nwrote {args.json_out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

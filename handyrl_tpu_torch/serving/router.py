@@ -1,0 +1,531 @@
+"""Replica-pool router: one endpoint over N serving replicas.
+
+A copy of ``handyrl_tpu.serving.router`` (stdlib only): the same
+verbs, replies and counters, so either package's clients and replicas
+join either package's router.
+
+The thin frontend over :mod:`.registry` (docs/serving.md "Pool
+routing"): clients speak the EXACT serving protocol — the same
+``infer``/``stats`` verbs, the same typed ``ok``/``shed``/``error``
+reply dicts, so an unmodified :class:`~.client.ServeClient` pointed at
+the router cannot tell it from a single frontend — while replicas
+speak the registry verbs on the same port:
+
+  ============  =====================================  ===============
+  request       payload                                reply
+  ============  =====================================  ===============
+  ``infer``     ``{"obs", "epoch", "seat"?}``          forwarded
+                                                       replica reply /
+                                                       typed shed
+  ``stats``     ``None``                               router counters
+  ``register``  advert dict (``name`` required)        ``{"status":
+                                                       "ok",
+                                                       "generation",
+                                                       "heartbeat_interval"}``
+  ``beat``      advert dict                            ack / typed
+                                                       error (unknown
+                                                       name: re-register)
+  ``drain``     ``{"name"}``                           none
+                                                       (fire-and-forget)
+  ============  =====================================  ===============
+
+Routing semantics (the pool's failure model):
+
+  * **spread** — unpinned requests go least-loaded (or rendezvous-hash
+    on the request's ``seat``); a request whose replica dies or sheds
+    mid-flight RE-ROUTES to the next candidate (counted ``reroutes``)
+    up to ``router.max_attempts`` distinct replicas;
+  * **pins re-route, not die** — an epoch-pinned request only routes
+    to a replica ADVERTISING that committed snapshot; when its replica
+    is evicted the pin lands on any other advertiser (each replica's
+    ``model_resolver`` + LRU make every committed epoch servable
+    everywhere), and only a pin NOBODY advertises answers the typed
+    ``snapshot unavailable`` error;
+  * **per-replica sheds stay local** — a single replica's ``slo``/
+    ``overload`` shed triggers a re-route the client never sees;
+    the router sheds typed ``pool_slo``/``pool_overload`` (counted
+    ``pool_sheds``) only when EVERY attempted replica shed, and
+    ``pool_down`` when no routable replica exists at all;
+  * **FailureWindow per replica** — transport failures to one replica
+    inside the window mark it SUSPECT (drained from routing until its
+    next heartbeat), so a dying host stops receiving new traffic
+    while its in-flight connections finish instead of black-holing
+    request after request.
+
+Reconciliation invariant (same as the replica frontend, proven by the
+chaos drill): every arriving request is
+accounted as exactly one of ``ok``/``shed``/``errors`` —
+``submitted == ok + shed + errors`` at all times.
+
+``healthz()`` answers from the registry snapshot ALONE (bookkeeping
+reads, no per-replica probe): load balancers poll it at high frequency
+and must never fan out a dial per probe.
+"""
+
+import socket
+import threading
+import time
+
+from .. import telemetry
+from ..connection import DEFAULT_MAX_FRAME_BYTES, FramedConnection, \
+    open_socket_connection
+from ..resilience.supervisor import FailureWindow
+from .registry import ServiceRegistry
+
+_PEER_GONE = (ConnectionResetError, BrokenPipeError, EOFError, OSError)
+
+
+class RouterFrontend:
+    """One pool endpoint (see module docstring).
+
+    Thread contract: lifecycle (``start``/``respawn``/``close``/
+    ``inject_kill``) and the stats readers belong to the hosting
+    learner's server thread; the accept loop (which also runs the
+    registry sweep once per pass) and the per-connection handlers run
+    on their own daemon threads.  ``clock`` is injectable for exact
+    expiry tests.
+    """
+
+    ACCEPT_TIMEOUT = 0.5   # accept-loop shutdown/sweep poll, seconds
+    CONN_TIMEOUT = 1.0     # per-connection recv poll, seconds
+    POOL_IDLE_CONNS = 4    # pooled idle forward connections per replica
+
+    def __init__(self, cfg, registry=None, clock=time.monotonic,
+                 max_frame_bytes=0):
+        self.cfg = cfg
+        self.clock = clock
+        self.max_frame_bytes = int(max_frame_bytes
+                                   or DEFAULT_MAX_FRAME_BYTES)
+        self.registry = registry if registry is not None else \
+            ServiceRegistry(cfg.heartbeat_timeout, clock=clock)
+        self._lock = threading.Lock()
+        self._listener = None
+        self._accept_thread = None
+        self._stop = False
+        self._kill = False
+        self._conns = set()
+        self.port = 0
+        self.generation = 0          # router incarnations (respawns)
+        self.conns_refused = 0
+        # per-replica circuit breakers (a FailureWindow trip
+        # drains the replica from routing until its next heartbeat)
+        self._windows = {}
+        self.replica_trips = 0
+        # idle forward-connection pool, keyed by replica endpoint so a
+        # re-registered replica on a fresh port never inherits a stale
+        # socket
+        self._idle = {}
+        # -- reconciliation counters (submitted == ok+shed+errors) --
+        self.submitted = 0
+        self.ok = 0
+        self.shed = 0
+        self.errors = 0
+        self.shed_by = {}
+        self.inflight = 0
+        self.reroutes = 0            # failed/shed attempts re-routed
+        self.pool_sheds = 0          # typed pool-level escalations
+        self._epoch_counts = {"submitted": 0, "ok": 0, "shed": 0,
+                              "errors": 0, "reroutes": 0,
+                              "pool_sheds": 0}
+
+    # -- lifecycle -----------------------------------------------------
+    def _ensure_listener(self):
+        if self._listener is not None:
+            return
+        server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        server.bind(("", int(self.cfg.port)))
+        server.listen(128)
+        self._listener = server
+        self.port = server.getsockname()[1]
+
+    def start(self):
+        self._stop = False
+        self._kill = False
+        self._ensure_listener()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, daemon=True, name="router")
+        self._accept_thread.start()
+        print(f"serving router on :{self.port}")
+
+    @property
+    def alive(self):
+        return (self._accept_thread is not None
+                and self._accept_thread.is_alive())
+
+    def inject_kill(self):
+        """Chaos: the router dies like a crashed process — listener
+        closed, live connections severed, no goodbye.  Replicas keep
+        running; their announcers re-register into the respawn."""
+        self._kill = True
+        self._teardown_sockets()
+
+    def respawn(self):
+        """Relaunch after a death: rebind (port 0 picks fresh) and let
+        announcers re-register.  The registry's state survives — stale
+        entries age out through the normal sweep."""
+        self._teardown_sockets()
+        self.generation += 1
+        self.start()
+
+    def close(self):
+        self._stop = True
+        self._teardown_sockets()
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=5)
+
+    def _teardown_sockets(self):
+        with self._lock:
+            listener, self._listener = self._listener, None
+            conns, self._conns = list(self._conns), set()
+            idle, self._idle = list(self._idle.values()), {}
+        if listener is not None:
+            try:
+                listener.close()
+            except OSError:
+                pass
+        for conn in conns:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        for bucket in idle:
+            for conn in bucket:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+
+    # -- accept + per-connection loops ---------------------------------
+    def _accept_loop(self):
+        listener = self._listener
+        if listener is None:
+            return
+        listener.settimeout(self.ACCEPT_TIMEOUT)
+        while not (self._stop or self._kill):
+            # the sweep rides the accept poll: a silent replica is
+            # evicted within heartbeat_timeout + one poll interval
+            for name in self.registry.sweep():
+                print(f"router: replica {name!r} evicted "
+                      "(heartbeat timeout)")
+            try:
+                sock, _ = listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break  # listener closed under us (kill/close)
+            with self._lock:
+                full = len(self._conns) >= int(self.cfg.max_connections)
+                if full:
+                    self.conns_refused += 1
+            if full:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                continue
+            conn = FramedConnection(
+                sock, max_frame_bytes=self.max_frame_bytes)
+            threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True,
+                name="router-conn").start()
+
+    def _serve_conn(self, conn):
+        with self._lock:
+            self._conns.add(conn)
+        try:
+            # bounded recv: the deadline turns a silent peer into a
+            # periodic timeout so shutdown/kill can interrupt the loop
+            conn.sock.settimeout(self.CONN_TIMEOUT)
+            while not (self._stop or self._kill):
+                try:
+                    verb, payload = conn.recv()
+                except socket.timeout:
+                    continue
+                except Exception:
+                    break  # gone peer / truncated frame / garbage
+                if verb == "infer":
+                    self._handle_infer(conn, payload)
+                elif verb == "stats":
+                    conn.send({"status": "ok", **self.stats()})
+                elif verb == "register":
+                    self._handle_register(conn, payload)
+                elif verb == "beat":
+                    self._handle_beat(conn, payload)
+                elif verb == "drain":
+                    # fire-and-forget by protocol (the battle plane's
+                    # ``quit`` discipline): a goodbye needs no ack
+                    if isinstance(payload, dict) and payload.get("name"):
+                        self.registry.drain(str(payload["name"]))
+                else:
+                    conn.send({"status": "error",
+                               "reason": f"unknown verb {verb!r}"})
+        except _PEER_GONE:
+            pass
+        finally:
+            with self._lock:
+                self._conns.discard(conn)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    # -- registry verbs ------------------------------------------------
+    def _handle_register(self, conn, payload):
+        if not (isinstance(payload, dict) and payload.get("name")):
+            conn.send({"status": "error",
+                       "reason": "register needs a name"})
+            return
+        name = str(payload["name"])
+        gen = self.registry.register(name, payload, now=self.clock())
+        print(f"router: replica {name!r} registered "
+              f"(generation {gen}, pool {self.registry.pool_size()})")
+        conn.send({"status": "ok", "generation": gen,
+                   "heartbeat_interval": self.cfg.heartbeat_interval})
+
+    def _handle_beat(self, conn, payload):
+        if not (isinstance(payload, dict) and payload.get("name")):
+            conn.send({"status": "error",
+                       "reason": "beat needs a name"})
+            return
+        known = self.registry.beat(str(payload["name"]), payload,
+                                   now=self.clock())
+        if known:
+            conn.send({"status": "ok"})
+        else:
+            # evicted (or never registered): the typed error is the
+            # announcer's re-register trigger
+            conn.send({"status": "error",
+                       "reason": "unknown replica — re-register"})
+
+    # -- forwarding ----------------------------------------------------
+    def _checkout(self, endpoint):
+        with self._lock:
+            bucket = self._idle.get(endpoint)
+            if bucket:
+                return bucket.pop()
+        host, port = endpoint
+        conn = open_socket_connection(
+            host, port, max_frame_bytes=self.max_frame_bytes)
+        return conn
+
+    def _checkin(self, endpoint, conn):
+        with self._lock:
+            bucket = self._idle.setdefault(endpoint, [])
+            if len(bucket) < self.POOL_IDLE_CONNS and not (
+                    self._stop or self._kill):
+                bucket.append(conn)
+                return
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+    def _forward(self, endpoint, payload):
+        """One attempt against one replica: returns its reply dict or
+        raises on transport failure (connect/recv errors, timeout)."""
+        conn = self._checkout(endpoint)
+        try:
+            # per-attempt deadline: a wedged replica raises
+            # socket.timeout out of the recv instead of parking the
+            # handler (the settimeout bounds the recv)
+            conn.sock.settimeout(self.cfg.reply_timeout)
+            conn.send(("infer", payload))
+            reply = conn.recv()
+        except Exception:
+            try:
+                conn.close()
+            except OSError:
+                pass
+            raise
+        self._checkin(endpoint, conn)
+        if not isinstance(reply, dict):
+            raise ConnectionError(f"malformed replica reply {reply!r}")
+        return reply
+
+    def _note_failure(self, name):
+        """One transport failure against one replica; a FailureWindow
+        trip drains it from routing until its next heartbeat — the
+        dying-host path: in-flight forwards finish, nothing new lands
+        on the corpse."""
+        now = self.clock()
+        with self._lock:
+            window = self._windows.get(name)
+            if window is None:
+                window = self._windows[name] = FailureWindow(
+                    int(self.cfg.replica_failures),
+                    float(self.cfg.failure_window))
+            tripped = window.record(now)
+            if tripped:
+                self.replica_trips += 1
+        if tripped:
+            self.registry.drain(name, suspect=True)
+            print(f"router: replica {name!r} marked suspect "
+                  "(failure window tripped) — draining until its "
+                  "next heartbeat")
+
+    def _count(self, outcome, reason=None):
+        with self._lock:
+            if outcome == "ok":
+                self.ok += 1
+            elif outcome == "shed":
+                self.shed += 1
+                self.shed_by[reason] = self.shed_by.get(reason, 0) + 1
+            else:
+                self.errors += 1
+            self._epoch_counts[outcome if outcome in
+                               ("ok", "shed") else "errors"] += 1
+
+    def _shed_reply(self, conn, reason, pool_level=False):
+        self._count("shed", reason)
+        if pool_level:
+            with self._lock:
+                self.pool_sheds += 1
+                self._epoch_counts["pool_sheds"] += 1
+        conn.send({"status": "shed", "reason": reason})
+
+    def _handle_infer(self, conn, payload):
+        t0 = self.clock()
+        with self._lock:
+            self.submitted += 1
+            self._epoch_counts["submitted"] += 1
+            if self.inflight >= int(self.cfg.max_inflight):
+                admitted = False
+            else:
+                admitted = True
+                self.inflight += 1
+        if not admitted:
+            self._shed_reply(conn, "overload")
+            return
+        span0 = telemetry.span_begin()
+        try:
+            pin = payload.get("epoch") if isinstance(payload, dict) \
+                else None
+            seat = payload.get("seat") if isinstance(payload, dict) \
+                else None
+            tried = set()
+            shed_reasons = []
+            attempts = 0
+            while attempts < int(self.cfg.max_attempts):
+                name = self.registry.pick(
+                    seat=seat, pin=pin, exclude=tried,
+                    policy=self.cfg.policy, now=self.clock())
+                if name is None:
+                    break
+                endpoint = self.registry.endpoint(name)
+                if endpoint is None or not endpoint[1]:
+                    tried.add(name)
+                    continue
+                if attempts > 0:
+                    # a failed/shed attempt found another candidate:
+                    # the re-route the client never sees
+                    with self._lock:
+                        self.reroutes += 1
+                        self._epoch_counts["reroutes"] += 1
+                tried.add(name)
+                attempts += 1
+                self.registry.note_inflight(name, +1)
+                try:
+                    reply = self._forward(endpoint, payload)
+                except Exception:
+                    self._note_failure(name)
+                    continue
+                finally:
+                    self.registry.note_inflight(name, -1)
+                status = reply.get("status")
+                if status == "shed":
+                    # per-replica shed: stays local, try elsewhere
+                    shed_reasons.append(reply.get("reason"))
+                    continue
+                ms = (self.clock() - t0) * 1e3
+                if status == "ok":
+                    self._count("ok")
+                    telemetry.span_end(
+                        "route.request", span0, replica=name,
+                        attempts=attempts, epoch=reply.get("epoch"),
+                        ms=round(ms, 3))
+                else:
+                    # a typed replica error (bad request, unroutable
+                    # pin raced a prune) is deterministic: forward it,
+                    # re-routing would just repeat it elsewhere
+                    self._count("error")
+                conn.send(reply)
+                return
+            # nothing served: escalate with a TYPED outcome
+            if attempts == 0 and not shed_reasons:
+                if pin is not None and self.registry.pool_size(
+                        self.clock()) > 0:
+                    # live pool, but nobody advertises the pin
+                    self._count("error")
+                    conn.send({"status": "error",
+                               "reason": f"snapshot {pin} unavailable "
+                                         "in the pool"})
+                else:
+                    self._shed_reply(conn, "pool_down",
+                                     pool_level=True)
+            elif shed_reasons and len(shed_reasons) == attempts:
+                # every attempted replica shed: the POOL breached —
+                # per-replica sheds stay local, this one escalates
+                reason = ("pool_slo" if "slo" in shed_reasons
+                          else f"pool_{shed_reasons[0]}")
+                self._shed_reply(conn, reason, pool_level=True)
+            else:
+                # transport failures ate the attempt budget
+                self._shed_reply(conn, "pool_down", pool_level=True)
+        finally:
+            with self._lock:
+                self.inflight -= 1
+
+    # -- views ---------------------------------------------------------
+    def healthz(self):
+        """Load-balancer probe body: answered from the registry's
+        bookkeeping alone — constant-time, no replica is dialed."""
+        pool = self.registry.pool_size(self.clock())
+        return {"ok": bool(self.alive and pool > 0),
+                "pool_size": pool,
+                "generation": self.generation}
+
+    def epoch_stats(self):
+        """Per-epoch reduction for metrics.jsonl; resets the epoch
+        accumulators.  Keys are the docs/observability.md contract."""
+        with self._lock:
+            counts = dict(self._epoch_counts)
+            self._epoch_counts = {"submitted": 0, "ok": 0, "shed": 0,
+                                  "errors": 0, "reroutes": 0,
+                                  "pool_sheds": 0}
+        return {
+            "router_requests": counts["submitted"],
+            "router_ok": counts["ok"],
+            "router_shed": counts["shed"],
+            "router_errors": counts["errors"],
+            "router_pool_size": self.registry.pool_size(self.clock()),
+            "reroutes": counts["reroutes"],
+            "pool_sheds": counts["pool_sheds"],
+        }
+
+    def stats(self):
+        """Cumulative snapshot (status endpoint + the ``stats`` verb);
+        ``submitted == ok + shed + errors`` is the reconciliation
+        invariant the chaos drill checks."""
+        with self._lock:
+            out = {
+                "port": self.port,
+                "alive": self.alive,
+                "generation": self.generation,
+                "connections": len(self._conns),
+                "connections_refused": self.conns_refused,
+                "submitted": self.submitted,
+                "ok": self.ok,
+                "shed": self.shed,
+                "shed_by": dict(self.shed_by),
+                "errors": self.errors,
+                "inflight": self.inflight,
+                "reroutes": self.reroutes,
+                "pool_sheds": self.pool_sheds,
+                "replica_trips": self.replica_trips,
+            }
+        out["registry"] = self.registry.snapshot(self.clock())
+        return out
+
+
+__all__ = ["RouterFrontend"]

@@ -1,0 +1,163 @@
+"""Span-derived time attribution: where did the epoch's wall time go.
+
+A copy of ``handyrl_tpu.telemetry.attribution`` (stdlib only).
+
+The span log says WHAT ran; this module folds it into the accounting an
+operator actually wants: a per-epoch SELF-TIME tree (per span name per
+role — a span's self time is its duration minus the time its nested
+children cover, so a parent that merely waits on instrumented work
+attributes ~0 to itself), plus an EXPLICIT residual so the epoch wall
+clock reconciles exactly:
+
+    epoch_wall_sec == sum(profile_*_sec) + untracked_residual_sec
+
+The residual is DEFINED by that identity over the record's own
+(rounded) values, so nothing hides: time outside every SectionTimers
+section — snapshot fetch, checkpoint save, serving work on the learner
+thread — lands in the residual instead of silently vanishing.  The
+residual can go slightly negative: the sections tick on the trainer
+thread while ``epoch_wall_sec`` is the learner thread's window, and the
+two clocks bracket the epoch boundary differently (documented skew,
+not an error).
+
+Two consumers share :func:`self_time_tree`:
+
+  * the runtime :class:`Attributor` — folds the process-local flight-
+    recorder ring at each epoch boundary (cheap: the ring is bounded),
+    publishes the snapshot to the status endpoint's ``perf`` section,
+    and rides flight-recorder dumps via ``register_dump_extra`` so a
+    crash leaves its time-attribution behind next to its timeline;
+  * ``python -m handyrl_tpu_torch.scripts.attribution_report`` — the
+    offline version over a run directory's full ``spans-*.jsonl`` set,
+    merged cross-process on the shared CLOCK_MONOTONIC timeline.
+"""
+
+from . import spans as _spans
+
+# containment tolerance, seconds: span timestamps are recorded rounded
+# to 1e-6, so a child's rounded end may trail its parent's by an ulp
+_EPS = 2e-6
+
+
+def self_time_tree(records):
+    """Fold span records into ``{"role/name": {count, total_sec,
+    self_sec}}``.
+
+    Containment is computed per (pid, tid) on the shared monotonic
+    clock: a span is a child of the innermost still-open span of its
+    thread that fully covers it, and each child's duration is
+    subtracted from that parent's self time exactly once.  Zero-
+    duration instants (events) aggregate with zero time.  Records from
+    different processes never nest (per-thread stacks), they just
+    share the timeline.
+    """
+    tree = {}
+    by_thread = {}
+    for rec in records:
+        name = rec.get("name")
+        if not name:
+            continue
+        by_thread.setdefault(
+            (rec.get("pid", 0), rec.get("tid", 0)), []).append(rec)
+
+    def _fold(key, dur, self_sec):
+        node = tree.get(key)
+        if node is None:
+            node = tree[key] = {
+                "count": 0, "total_sec": 0.0, "self_sec": 0.0}
+        node["count"] += 1
+        node["total_sec"] += dur
+        node["self_sec"] += self_sec
+
+    for recs in by_thread.values():
+        # sort by start; ties open the LONGER span first so it parents
+        recs.sort(key=lambda r: (r.get("ts", 0.0),
+                                 -float(r.get("dur", 0.0))))
+        stack = []  # [role/name key, end, dur, child_sec]
+        for rec in recs:
+            ts = float(rec.get("ts", 0.0))
+            dur = float(rec.get("dur", 0.0))
+            end = ts + dur
+            key = f"{rec.get('role', '')}/{rec['name']}"
+            # close every span that ended before this one starts
+            while stack and stack[-1][1] <= ts + _EPS:
+                closed = stack.pop()
+                _fold(closed[0], closed[2],
+                      max(0.0, closed[2] - closed[3]))
+            if dur <= 0.0:
+                _fold(key, 0.0, 0.0)  # instant event
+                continue
+            if stack and end <= stack[-1][1] + _EPS:
+                # fully inside the innermost open span: its child
+                stack[-1][3] += dur
+            stack.append([key, end, dur, 0.0])
+        while stack:
+            closed = stack.pop()
+            _fold(closed[0], closed[2],
+                  max(0.0, closed[2] - closed[3]))
+
+    for node in tree.values():
+        node["total_sec"] = round(node["total_sec"], 6)
+        node["self_sec"] = round(node["self_sec"], 6)
+    return tree
+
+
+def top_self(tree, n=10):
+    """The ``n`` heaviest self-time rows, ``[[key, self_sec], ...]``."""
+    ordered = sorted(tree.items(),
+                     key=lambda kv: (-kv[1]["self_sec"], kv[0]))
+    return [[key, node["self_sec"]] for key, node in ordered[:n]]
+
+
+def untracked_residual(record):
+    """The reconciliation residual of one metrics record, from the
+    identity ``epoch_wall_sec == sum(profile_*_sec) + residual`` over
+    the record's own (already rounded) values — so the emitted triple
+    reconciles EXACTLY, by construction."""
+    wall = float(record.get("epoch_wall_sec") or 0.0)
+    tracked = 0.0
+    for key, value in record.items():
+        if (key.startswith("profile_") and key.endswith("_sec")
+                and isinstance(value, (int, float))):
+            tracked += float(value)
+    return round(wall - tracked, 6)
+
+
+class Attributor:
+    """Per-epoch runtime attribution over the process-local span ring.
+
+    The learner calls :meth:`note_epoch` once per epoch (after the
+    record is assembled); the fold covers ring spans recorded since
+    the previous epoch mark.  ``last`` is published by one atomic
+    assignment of a fresh dict — the status-endpoint thread reads it
+    without a lock, and never sees a half-built snapshot."""
+
+    def __init__(self, top_n=10):
+        self.top_n = int(top_n)
+        self._mark = None
+        self.last = None
+        self.epochs = 0
+
+    def note_epoch(self, record):
+        """Fold this epoch's ring spans; returns (and publishes) the
+        snapshot.  No-op (returns None) when telemetry is off."""
+        if not _spans.enabled():
+            return None
+        mark = self._mark
+        self._mark = _spans.now()
+        recs = _spans.ring_snapshot()
+        if mark is not None:
+            recs = [r for r in recs if r.get("ts", 0.0) >= mark]
+        tree = self_time_tree(recs)
+        snap = {
+            "epoch": record.get("epoch"),
+            "epoch_wall_sec": record.get("epoch_wall_sec"),
+            "untracked_residual_sec":
+                record.get("untracked_residual_sec"),
+            "spans": len(recs),
+            "tree": tree,
+            "top_self": top_self(tree, self.top_n),
+        }
+        self.last = snap
+        self.epochs += 1
+        return snap

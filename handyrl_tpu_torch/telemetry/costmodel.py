@@ -14,9 +14,13 @@ The runtime half of ``handyrl_tpu.telemetry.costmodel``:
     runs a step function's first call for each label and input shape
     under ``torch.utils.flop_counter.FlopCounterMode`` and records the
     FLOPs that call's matmuls and convolutions did, backward included.
-    That counter counts no bytes, so ``arithmetic_intensity`` is None
-    and ``roofline_verdict`` is ``"unknown"`` until a byte count
-    exists;
+    In the same traced call a :class:`ByteCounter` (a
+    ``TorchDispatchMode``) sums the bytes of every aten op's tensor
+    inputs and outputs, views excluded.  Eager PyTorch fuses nothing,
+    so this is the step's UNFUSED memory traffic, each intermediate
+    counted once written and once per read: an upper bound on what the
+    card must move, not XLA's post-fusion ``bytes accessed``, and the
+    two packages' ``arithmetic_intensity`` values are not comparable;
   * **the epoch reduction**, :meth:`CostModel.epoch_metrics`: (steps
     this epoch, seconds inside the step calls) -> the metrics.jsonl keys
     ``mfu`` / ``achieved_tflops`` / ``arithmetic_intensity`` /
@@ -115,6 +119,38 @@ def _shapes(tree):
     return ()
 
 
+def _tensor_bytes(tree):
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def ByteCounter():
+    """A ``TorchDispatchMode`` that sums, over every aten op run inside
+    it, the bytes of the op's tensor inputs and outputs (each read once,
+    each written once); view ops move nothing and are skipped.  The
+    total is the unfused traffic of eager execution."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _ByteCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not getattr(func, "is_view", False):
+                self.bytes += _tensor_bytes((args, kwargs)) \
+                    + _tensor_bytes(out)
+                self.ops += 1
+            return out
+
+    return _ByteCounter()
+
+
 class CostModel:
     """Per-step-function FLOP registry and the per-epoch reduction.
     One per trainer, used on the trainer thread only; ``kind`` is the
@@ -141,11 +177,13 @@ class CostModel:
         self._seen.add(key)
         from torch.utils.flop_counter import FlopCounterMode
 
-        with FlopCounterMode(display=False) as counter:
+        with FlopCounterMode(display=False) as counter, \
+                ByteCounter() as moved:
             out = fn(*args)
-        prog = self._programs.setdefault(label, {"flops": 0.0,
-                                                 "harvests": 0})
+        prog = self._programs.setdefault(
+            label, {"flops": 0.0, "bytes": 0.0, "harvests": 0})
         prog["flops"] = float(counter.get_total_flops())
+        prog["bytes"] = float(moved.bytes)
         prog["harvests"] += 1
         return out
 
@@ -159,20 +197,41 @@ class CostModel:
         calls.  Every key is always present; a quantity this run cannot
         know is None."""
         prog = self.program(label)
-        peak_tflops = self.peaks[0]
+        peak_tflops, peak_gbs = self.peaks
         out = {
             "mfu": None,
             "achieved_tflops": None,
             "arithmetic_intensity": None,
             "roofline_verdict": "unknown",
         }
-        # no byte count: arithmetic_intensity and the verdict stay
-        # unknown (FlopCounterMode counts FLOPs only)
         if not prog or prog["flops"] <= 0:
             return out
+        if prog.get("bytes", 0.0) > 0:
+            intensity = prog["flops"] / prog["bytes"]
+            out["arithmetic_intensity"] = _sig(intensity)
+            if peak_tflops and peak_gbs:
+                # ridge point in flops/byte: peak TFLOP/s over peak
+                # GB/s is (1e12 flops/s) / (1e9 B/s) = 1e3 flops/B
+                ridge = peak_tflops / peak_gbs * 1e3
+                out["roofline_verdict"] = (
+                    "compute-bound" if intensity >= ridge
+                    else "memory-bound")
         if steps > 0 and device_sec > 0:
             achieved = prog["flops"] * steps / device_sec / 1e12
             out["achieved_tflops"] = _sig(achieved)
             if peak_tflops:
                 out["mfu"] = _sig(achieved / peak_tflops)
         return out
+
+    def stats(self):
+        """Cumulative snapshot for the status endpoint's ``perf``
+        section (the JAX package's keys)."""
+        peak_tflops, peak_gbs = self.peaks
+        return {
+            "device_kind": self.kind,
+            "peak_tflops": peak_tflops,
+            "peak_hbm_gbs": peak_gbs,
+            "cost_analysis": self.cfg.cost_analysis,
+            "programs": {label: dict(prog)
+                         for label, prog in self._programs.items()},
+        }

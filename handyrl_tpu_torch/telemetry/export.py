@@ -1,0 +1,96 @@
+"""Span log -> Chrome/Perfetto ``trace.json`` conversion.
+
+A copy of ``handyrl_tpu.telemetry.export``: the span-log format is the
+JAX package's, so this reads either package's run directories.
+
+The span files are per-process jsonl (``spans-<pid>.jsonl``, first line
+a ``{"meta": {pid, role}}`` header) written by :mod:`.spans`; Linux's
+``CLOCK_MONOTONIC`` is system-wide, so timestamps from every process of
+one run share a timeline and can be merged without skew correction.
+
+The output is the Trace Event Format both ``chrome://tracing`` and
+https://ui.perfetto.dev load directly: one complete event (``ph: "X"``)
+per span, instant events (``ph: "i"``) for zero-duration markers, and
+process-name metadata rows so tracks read ``learner`` / ``gather-0`` /
+``worker-3`` instead of bare pids.  Spans that carry a propagated trace
+context keep it in ``args.trace`` — selecting a trace id in the UI (or
+grepping the json) shows one episode's worker -> gather -> learner
+journey across process tracks.
+"""
+
+import glob
+import json
+import os
+
+
+def read_span_log(path):
+    """One ``spans-*.jsonl`` file -> (meta dict, [span records])."""
+    meta, spans = {}, []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue  # torn tail line from a killed process
+            if "meta" in rec:
+                meta = rec["meta"]
+            else:
+                spans.append(rec)
+    return meta, spans
+
+
+def collect_run(run_dir):
+    """Every span record of one run directory, plus {pid: role}."""
+    roles, spans = {}, []
+    for path in sorted(glob.glob(os.path.join(run_dir, "spans-*.jsonl"))):
+        meta, recs = read_span_log(path)
+        if meta.get("pid") is not None:
+            roles[meta["pid"]] = meta.get("role", "")
+        spans.extend(recs)
+    return roles, spans
+
+
+def build_trace(spans, roles=None):
+    """Span records -> a Trace Event Format document (dict)."""
+    events = []
+    for pid, role in sorted((roles or {}).items()):
+        events.append({
+            "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+            "args": {"name": role or f"pid-{pid}"},
+        })
+    for rec in spans:
+        args = dict(rec.get("attrs") or {})
+        if "trace" in rec:
+            args["trace"] = format(rec["trace"], "x")
+            args["parent"] = format(rec.get("parent", 0), "x")
+        ev = {
+            "name": rec.get("name", "?"),
+            "pid": rec.get("pid", 0),
+            "tid": rec.get("tid", 0),
+            "ts": round(rec.get("ts", 0.0) * 1e6, 1),   # seconds -> us
+        }
+        dur = rec.get("dur", 0.0)
+        if dur > 0:
+            ev["ph"] = "X"
+            ev["dur"] = round(dur * 1e6, 1)
+        else:
+            ev["ph"] = "i"
+            ev["s"] = "t"  # thread-scoped instant
+        if args:
+            ev["args"] = args
+        events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def export_run(run_dir, out_path=None):
+    """Render one run directory's span logs into ``trace.json``;
+    returns (path, event count)."""
+    roles, spans = collect_run(run_dir)
+    doc = build_trace(spans, roles)
+    out_path = out_path or os.path.join(run_dir, "trace.json")
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return out_path, len(doc["traceEvents"])

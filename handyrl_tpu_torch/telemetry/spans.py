@@ -1,16 +1,497 @@
-"""Span-family metric helpers.
+"""Span-based tracing, trace-context propagation, and the flight recorder.
 
-A copy of the stdlib-only reductions of ``handyrl_tpu.telemetry.spans``;
-the spans themselves (trace context, flight recorder) are not ported
-yet.
+A copy of ``handyrl_tpu.telemetry.spans`` (stdlib only), so that the
+span-log lines and ``flightrec.json`` have the JAX package's format and
+either package's exporter reads either package's logs.  Three
+mechanisms, cheap enough to stay armed in production:
+
+  * **Spans** — ``with trace_span("batch.make"):`` records one
+    ``{name, ts, dur, pid, tid, role, trace, parent, attrs}`` dict
+    against an injectable monotonic clock.  Completed spans land in a
+    per-thread buffer (no lock on the hot path; the flush takes one)
+    and stream to a per-process ``spans-<pid>.jsonl`` in the run
+    directory, which ``python -m handyrl_tpu_torch.scripts.export_trace``
+    renders into a Chrome/Perfetto ``trace.json``.  When telemetry is
+    off every entry point is a constant-time no-op.
+
+  * **Trace context** — a compact ``(trace_id, span_id)`` pair rides the
+    framed ``(verb, payload)`` control plane inside a backward-
+    compatible envelope (:func:`wrap_trace` / :func:`unwrap_trace`, used
+    by ``connection.TracedConnection`` and the ``QueueCommunicator``):
+    a message from a pre-envelope peer passes through untouched, and an
+    enveloped message adopts the sender's context into the receiving
+    thread, so one episode can be followed worker -> gather -> learner
+    across processes in a single trace.
+
+  * **Flight recorder** — a bounded ring of the last N spans/events
+    that :func:`dump`\\ s to ``flightrec.json`` on a stall, a crash or
+    SIGTERM: the causal timeline of the seconds before the wedge.
+    :func:`install_signal_dump` chains a ``pre_dump`` callable (the
+    learner's emergency checkpoint) ahead of the dump.
+
+Worker/gather/batcher child processes configure from the same args
+dict the learner ships them.
 """
 
+import atexit
+import json
+import os
+import signal
+import sys
+import threading
+import time
+from collections import deque
+
+# the trace-context envelope head.  NOT a protocol verb: commlint is
+# taught that wrap_trace/unwrap_trace are transparent codecs, and a
+# receiver that predates the envelope still interoperates because
+# senders only wrap when a context is actually set.
+TRACE_HEAD = "!tr"
+
+_SPAN_FLUSH_EVERY = 16      # spans buffered per thread before a file write
+_DEFAULT_RING = 2048        # flight-recorder capacity (flightrec_spans)
+
+
+class _State:
+    """Process-wide telemetry state (one per process, configured from
+    the args dict every child already receives)."""
+
+    def __init__(self):
+        self.enabled = False
+        self.sample_rate = 1.0
+        self.clock = time.monotonic
+        self.role = ""
+        self.primary = True
+        self.log_dir = None          # None = no span log file
+        self.ring = deque(maxlen=_DEFAULT_RING)
+        self.dump_count = 0
+        self.dump_path = None
+        # REENTRANT on purpose: the SIGTERM dump handler runs on
+        # whatever thread holds the interpreter, which may be mid-flush
+        # inside this very lock — a plain Lock would deadlock the
+        # dying process instead of letting it write its flight record
+        self.lock = threading.RLock()
+        self.buffers = []             # every thread's span buffer
+        self.span_file = None
+        self.rng = None               # lazy; seeded per process
+        # name -> zero-arg callable whose result rides every flight-
+        # recorder dump (the attribution snapshot hooks in here);
+        # reset by configure() like the rest of the state
+        self.dump_extras = {}
+
+
+_state = _State()
+_tls = threading.local()
+
+
+# -- configuration ------------------------------------------------------
+
+def configure(enabled=True, sample_rate=1.0, ring=_DEFAULT_RING,
+              log_dir=None, role="", primary=True, clock=None):
+    """(Re)arm this process's telemetry.  Resets the ring and buffers —
+    call once at process start (learner init, child entry points)."""
+    global _state
+    state = _State()
+    state.enabled = bool(enabled)
+    state.sample_rate = float(sample_rate)
+    state.clock = clock if clock is not None else time.monotonic
+    state.role = role or f"pid-{os.getpid()}"
+    state.primary = bool(primary)
+    state.ring = deque(maxlen=max(1, int(ring or _DEFAULT_RING)))
+    if enabled and log_dir is not None:
+        state.log_dir = log_dir
+        state.dump_path = os.path.join(
+            log_dir,
+            "flightrec.json" if primary
+            else f"flightrec-{os.getpid()}.json")
+    _state = state
+    _tls.__dict__.clear()
+    return state
+
+
+def configure_from_args(args, role="", primary=True):
+    """Configure from a train-args mapping (the dict the learner ships
+    to every worker/gather/batcher child).  The span log lives next to
+    ``metrics_path``; with no metrics sink configured, spans stay in
+    the in-memory ring only (the flight recorder still works via an
+    explicit dump path-less ring; dumps are skipped)."""
+    metrics = str(args.get("metrics_path") or "")
+    log_dir = os.path.dirname(metrics) or "." if metrics else None
+    return configure(
+        enabled=bool(args.get("telemetry", True)),
+        sample_rate=float(args.get("trace_sample_rate", 1.0) or 0.0),
+        ring=int(args.get("flightrec_spans", _DEFAULT_RING)
+                 or _DEFAULT_RING),
+        log_dir=log_dir, role=role, primary=primary)
+
+
+def enabled():
+    return _state.enabled
+
+
+def now():
+    """The telemetry clock's current stamp (injectable — tests drive
+    it; production is CLOCK_MONOTONIC, shared across processes)."""
+    return _state.clock()
+
+
+def ring_snapshot():
+    """A defensive copy of the flight-recorder ring (oldest first) —
+    the attribution fold's input.  Hot-path appends don't take the
+    lock, so retry a torn copy instead of crashing the reader."""
+    for _ in range(4):
+        try:
+            return list(_state.ring.copy())
+        except RuntimeError:  # deque mutated during iteration
+            continue
+    return []
+
+
+def register_dump_extra(name, fn):
+    """Attach ``fn()``'s result under ``doc[name]`` in every flight-
+    recorder dump (e.g. the last attribution snapshot rides next to
+    the span timeline).  A failing extra is skipped, never fatal;
+    reserved doc fields cannot be shadowed."""
+    if name in ("reason", "role", "pid", "dumped_at", "spans"):
+        raise ValueError(f"dump extra name {name!r} is reserved")
+    _state.dump_extras[name] = fn
+
+
+def stats():
+    """Counters for the status endpoint / tests."""
+    return {
+        "enabled": _state.enabled,
+        "role": _state.role,
+        "ring_spans": len(_state.ring),
+        "dumps": _state.dump_count,
+    }
+
+
+# -- trace context ------------------------------------------------------
+
+def _ids():
+    state = _state
+    if state.rng is None:
+        import random
+
+        # per-process seed: ids must differ across the spawned fleet
+        state.rng = random.Random(
+            (os.getpid() << 20) ^ int(time.time() * 1e3) & 0xFFFFFFFF)
+    return state.rng.getrandbits(64)
+
+
+def new_trace():
+    """Fresh (trace_id, span_id) context pair."""
+    return (_ids(), _ids())
+
+
+def maybe_trace():
+    """A fresh context with probability ``trace_sample_rate`` (the
+    per-episode sampling decision), else None."""
+    state = _state
+    if not state.enabled or state.sample_rate <= 0.0:
+        return None
+    if state.sample_rate < 1.0:
+        if state.rng is None:
+            _ids()  # seed the rng
+        if state.rng.random() >= state.sample_rate:
+            return None
+    return new_trace()
+
+
+def current_trace():
+    return getattr(_tls, "ctx", None)
+
+
+def set_trace(ctx):
+    _tls.ctx = tuple(ctx) if ctx is not None else None
+
+
+def clear_trace():
+    _tls.ctx = None
+
+
+def wrap_trace(msg):
+    """Envelope ``msg`` with the calling thread's trace context, or
+    return it untouched when no context is set — the wire format stays
+    byte-identical for untraced traffic, which is what makes the
+    envelope backward compatible by construction."""
+    ctx = getattr(_tls, "ctx", None)
+    if ctx is None:
+        return msg
+    return (TRACE_HEAD, ctx, msg)
+
+
+def unwrap_trace(msg):
+    """Strip the envelope, adopting the sender's context into this
+    thread; a raw pre-envelope message clears the context instead (a
+    stale adopted context must not bleed into unrelated spans)."""
+    if isinstance(msg, tuple) and len(msg) == 3 \
+            and msg[0] == TRACE_HEAD:
+        set_trace(msg[1])
+        return msg[2]
+    clear_trace()
+    return msg
+
+
+# -- span recording -----------------------------------------------------
+
+def _buffer():
+    buf = getattr(_tls, "buf", None)
+    if buf is None:
+        buf = _tls.buf = []
+        with _state.lock:
+            _state.buffers.append(buf)
+    return buf
+
+
+def record_span(name, t0, dur, **attrs):
+    """Record one completed span with explicit times (the context
+    manager and SectionTimers both funnel here).  Cheap: two dict
+    builds, one ring append, one buffer append."""
+    state = _state
+    if not state.enabled:
+        return
+    ctx = getattr(_tls, "ctx", None)
+    rec = {
+        "name": name,
+        "ts": round(t0, 6),
+        "dur": round(dur, 6),
+        "pid": os.getpid(),
+        "tid": threading.get_ident() & 0xFFFFFF,
+        "role": state.role,
+    }
+    if ctx is not None:
+        rec["trace"], rec["parent"] = ctx
+    if attrs:
+        rec["attrs"] = attrs
+    state.ring.append(rec)  # deque append: atomic under the GIL
+    if state.log_dir is not None:
+        buf = _buffer()
+        buf.append(rec)
+        if len(buf) >= _SPAN_FLUSH_EVERY:
+            _flush_buffer(buf)
+
+
+def add_event(name, **attrs):
+    """Zero-duration marker (rendered as an instant event in Perfetto;
+    the flight recorder's way of noting 'a stall fired here')."""
+    record_span(name, _state.clock(), 0.0, **attrs)
+
+
+class trace_span:
+    """``with trace_span("batch.make"):`` — records one span on exit.
+    A plain class, not @contextmanager: when telemetry is off the
+    whole enter/exit costs two attribute reads and no generator."""
+
+    __slots__ = ("name", "attrs", "t0")
+
+    def __init__(self, name, **attrs):
+        self.name = name
+        self.attrs = attrs
+        self.t0 = 0.0
+
+    def __enter__(self):
+        if _state.enabled:
+            self.t0 = _state.clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if _state.enabled:
+            record_span(self.name, self.t0, _state.clock() - self.t0,
+                        **self.attrs)
+        return False
+
+
+def span_begin():
+    """Explicit-start form for spans that open and close in different
+    calls (a rollout-pool slot's episode): returns the start stamp."""
+    return _state.clock() if _state.enabled else 0.0
+
+
+def span_end(name, t0, **attrs):
+    if _state.enabled:
+        record_span(name, t0, _state.clock() - t0, **attrs)
+
+
+class payload_trace:
+    """Adopt the trace context stamped inside a finished rollout
+    payload (``payload["trace"]``) for the duration of its upstream
+    send, so the envelope carries the episode's own context rather
+    than whatever the worker thread last held."""
+
+    __slots__ = ("ctx",)
+
+    def __init__(self, payload):
+        self.ctx = payload.get("trace") \
+            if isinstance(payload, dict) else None
+
+    def __enter__(self):
+        if self.ctx is not None:
+            set_trace(self.ctx)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.ctx is not None:
+            clear_trace()
+        return False
+
+
+# -- span log file ------------------------------------------------------
+
+def _flush_buffer(buf):
+    state = _state
+    if state.log_dir is None or not buf:
+        del buf[:]
+        return
+    with state.lock:
+        # copy then delete ONLY the drained prefix: record_span appends
+        # from other threads without the lock, and an append landing
+        # between these two statements must survive for the next flush
+        drained = buf[:]
+        del buf[:len(drained)]
+        try:
+            if state.span_file is None:
+                os.makedirs(state.log_dir, exist_ok=True)
+                path = os.path.join(state.log_dir,
+                                    f"spans-{os.getpid()}.jsonl")
+                state.span_file = open(path, "a")
+                state.span_file.write(json.dumps(
+                    {"meta": {"pid": os.getpid(),
+                              "role": state.role}}) + "\n")
+            for rec in drained:
+                state.span_file.write(json.dumps(rec) + "\n")
+            state.span_file.flush()
+        except OSError:
+            state.log_dir = None  # disk gone: stop trying, keep the ring
+
+
+def flush():
+    """Drain every thread's buffer to the span log (epoch boundaries,
+    process exit)."""
+    with _state.lock:
+        buffers = list(_state.buffers)
+    for buf in buffers:
+        _flush_buffer(buf)
+
+
+@atexit.register
+def _flush_at_exit():  # pragma: no cover - interpreter teardown
+    try:
+        flush()
+    except Exception:
+        pass
+
+
+# -- flight recorder ----------------------------------------------------
+
+def dump(reason, path=None):
+    """Write the ring's contents (oldest first) as ``flightrec.json``.
+    Returns the path written, or None when there is nowhere to write
+    (no run directory configured).  Each call overwrites: the LAST
+    dump before death is the one the operator wants."""
+    state = _state
+    path = path or state.dump_path
+    if not state.enabled or path is None:
+        return None
+    with state.lock:
+        # hot-path appends don't take the lock, so snapshot the ring
+        # defensively: a concurrent append mid-copy must not crash the
+        # very dump that exists to capture the wedge
+        for _ in range(4):
+            try:
+                spans = list(state.ring.copy())
+                break
+            except RuntimeError:  # deque mutated during iteration
+                continue
+        else:
+            spans = []
+        state.dump_count += 1
+        doc = {
+            "reason": reason,
+            "role": state.role,
+            "pid": os.getpid(),
+            "dumped_at": round(state.clock(), 6),
+            "spans": spans,
+        }
+        for name, fn in list(state.dump_extras.items()):
+            try:
+                doc[name] = fn()
+            except Exception:
+                pass  # a dead extra must not block the post-mortem
+        try:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, path)
+        except OSError:
+            return None
+    print(f"flight recorder: dumped {len(spans)} spans to {path} "
+          f"({reason})")
+    return path
+
+
+def dump_count():
+    return _state.dump_count
+
+
+def stall_hook(loop, silent):
+    """StallWatchdog ``on_stall`` callback: note the event in the ring,
+    then dump — the wedge's causal timeline, not just its stack."""
+    add_event("stall", loop=loop, silent_sec=round(silent, 3))
+    flush()
+    dump("stall_event")
+
+
+def crash_dump(where, exc):
+    """Crash-path dump (the trainer thread's except block)."""
+    add_event("crash", where=where, error=repr(exc))
+    flush()
+    dump("crash")
+
+
+def install_signal_dump(pre_dump=None):
+    """Dump on SIGTERM — a preemption or chaos kill leaves its flight
+    record behind.  Main-thread only (signal module restriction); the
+    handler re-raises SystemExit so supervised children still exit
+    nonzero and ride the normal failure -> respawn path.
+
+    ``pre_dump`` runs FIRST, inside the grace window and regardless of
+    whether telemetry is enabled: the learner hooks its emergency
+    checkpoint + WAL seal here (durable state outranks the post-mortem
+    record).  Exceptions from it are printed and swallowed — a failing
+    emergency save must not block the dump or the exit."""
+    if not _state.enabled and pre_dump is None:
+        return False
+
+    def _on_term(signum, frame):  # pragma: no cover - exercised live
+        if pre_dump is not None:
+            try:
+                pre_dump()
+            except Exception:
+                import traceback
+
+                traceback.print_exc()
+        if _state.enabled:
+            add_event("sigterm")
+            flush()
+            dump("sigterm")
+        sys.exit(1)
+
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+        return True
+    except ValueError:  # not the main thread
+        return False
+
+
+# -- metrics helpers ----------------------------------------------------
 
 def summarize_lags(lags):
     """Per-epoch policy-version-lag reduction: ``{policy_lag_mean,
-    policy_lag_p95, policy_lag_max}`` over the episodes admitted this
+    policy_lag_p95, policy_lag_max}`` over the episodes consumed this
     epoch (lag = learner epoch at intake - snapshot epoch that
-    generated the episode: the off-policy health signal of an
+    generated the episode — the central off-policy health signal of an
     IMPALA-style learner)."""
     if not lags:
         return {"policy_lag_mean": 0.0, "policy_lag_p95": 0.0,

@@ -29,7 +29,12 @@ Gathers send an explicit ``("beat", stats)`` after
 learner's ``FleetRegistry`` tells idle from wedged.  The chaos section
 drives gather kills, surges (burst kills, a respawn hold, a hold of
 the gathers' uploads) and frame faults on the gather's learner
-connection.  Telemetry is left for a later item.
+connection.  Telemetry is the JAX package's: each worker records an
+``episode.rollout`` span per episode under a sampled trace context and
+stamps the context into the finished payload; workers wrap their
+gather pipe and gathers their learner connection in a
+``TracedConnection``, so the context crosses worker -> gather ->
+learner in the exported trace.
 
 Ports (the JAX package's, so operational docs carry over):
   9999 — entry: one-shot handshake assigning worker-id blocks
@@ -48,15 +53,18 @@ import time
 from collections import OrderedDict, deque
 from socket import gethostname
 
+from . import telemetry
 from .connection import (
     DEFAULT_MAX_FRAME_BYTES,
     QueueCommunicator,
+    TracedConnection,
     _mp,
     accept_socket_connections,
     open_multiprocessing_connections,
     open_socket_connection,
     send_recv,
 )
+from .telemetry import payload_trace
 
 ENTRY_PORT = 9999
 WORKER_PORT = 9998
@@ -179,18 +187,39 @@ class Worker:
             if self.pipeline.push_episode(payload):
                 return
             payload["shm_spilled"] = True
-        send_recv(self.conn, (verb, payload))
+        # the envelope carries the episode's own context upstream
+        with payload_trace(payload):
+            send_recv(self.conn, (verb, payload))
 
     def _run_job(self, job):
         runner, reply_verb = self.roles[job["role"]]
-        payload = runner(self._resolve(job), job)
+        payload = self._traced_run(runner, job, self._resolve(job))
+        self._ship(reply_verb, payload)
+
+    @staticmethod
+    def _traced_run(runner, job, models):
+        """One sequential job under a fresh (sampled) trace context:
+        the rollout span is recorded here, and the finished payload is
+        stamped with its context plus the snapshot epoch that generated
+        it (the learner reduces those stamps into ``policy_lag_*`` and
+        follows the context across processes in the exported trace)."""
+        ctx = telemetry.maybe_trace()
+        telemetry.set_trace(ctx)
+        t0 = telemetry.span_begin()
+        try:
+            payload = runner(models, job)
+            telemetry.span_end("episode.rollout", t0, mode=job["role"])
+        finally:
+            telemetry.clear_trace()
         if isinstance(payload, dict):
+            if ctx is not None:
+                payload.setdefault("trace", ctx)
             labels = [job["model_id"][p] for p in job["player"]]
             gen = max([label for label in labels if label >= 0],
                       default=-1)
             if gen >= 0:
                 payload.setdefault("gen_model_epoch", gen)
-        self._ship(reply_verb, payload)
+        return payload
 
     def _run_lockstep(self):
         pool = self.pool
@@ -232,6 +261,7 @@ class Worker:
             self._report()
             if self.pipeline is not None:
                 self.pipeline.close()  # unmap; the learner owns unlink
+            telemetry.flush()  # ship the span-log tail before exit
 
     def _report(self):
         import torch
@@ -261,7 +291,11 @@ def _spawn_worker(conn, args, wid):
     import torch
 
     torch.set_num_threads(1)
-    Worker(args, conn, wid).run()
+    telemetry.configure_from_args(args, role=f"worker-{wid}",
+                                  primary=False)
+    # the codec wraps post-spawn, in the owning process: sends carry
+    # this worker's episode contexts, recvs adopt the gather's
+    Worker(args, TracedConnection(conn), wid).run()
 
 
 class Gather(QueueCommunicator):
@@ -448,7 +482,16 @@ def _maybe_chaos_wrap(conn, args, gather_id):
 
 
 def gather_loop(args, conn, gather_id):
-    gather = Gather(args, _maybe_chaos_wrap(conn, args, gather_id),
+    telemetry.configure_from_args(args, role=f"gather-{gather_id}",
+                                  primary=False)
+    # a chaos kill (or any preemption) is a SIGTERM: leave the flight
+    # record behind on the way out
+    telemetry.install_signal_dump()
+    # trace codec OUTSIDE the chaos wrapper, so injected frame faults
+    # hit enveloped frames exactly like real traffic
+    gather = Gather(args,
+                    TracedConnection(
+                        _maybe_chaos_wrap(conn, args, gather_id)),
                     gather_id)
     try:
         gather.run()
@@ -459,6 +502,7 @@ def gather_loop(args, conn, gather_id):
         raise SystemExit(1)
     finally:
         gather.shutdown()
+        telemetry.flush()  # ship the span-log tail before exit
 
 
 def _default_num_gathers(num_parallel):

@@ -92,8 +92,7 @@ def test_both_packages_refuse_the_same_values(bad):
 
 @pytest.mark.parametrize("key,value", [
     ("mesh", {"dp": 2}), ("distributed", {"num_processes": 2}),
-    ("serving", {"mode": "on"}), ("chaos", {"shm_tear_prob": 0.1}),
-    ("status_port", 9000),
+    ("chaos", {"shm_tear_prob": 0.1}),
 ])
 def test_unported_layers_are_refused(key, value):
     raw = _shipped()

@@ -6,11 +6,13 @@ CLI, imports every module of the training slice and trains three
 steps from the replay ring, replays an episode WAL into the ring
 (the resilience slice), and exports the model to ONNX, runs the file
 and averages two checkpoints with the tools (the interop slice), and
-runs a Trainer's fused Anakin step (the Anakin slice); afterwards no
-``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*`` module may be
-loaded.  An AST scan of the package, its ``interop/``, ``scripts/``,
-``anakin/`` and ``telemetry/`` subpackages included, finds no such
-import anywhere, lazy ones included.  And the card is never replaced by the CPU behind
+runs a Trainer's fused Anakin step (the Anakin slice), and serves a
+batch over TCP through the serving frontend (the serving slice);
+afterwards no ``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*``
+module may be loaded.  An AST scan of the package, its ``interop/``,
+``scripts/``, ``anakin/``, ``telemetry/``, ``serving/`` and
+``utils/`` subpackages included, finds no such import anywhere, lazy
+ones included.  And the card is never replaced by the CPU behind
 the caller's back.
 """
 
@@ -143,6 +145,31 @@ CHILD = textwrap.dedent("""
     trainer.train()
     assert trainer.last_metrics["anakin_games"] == 8
 
+    # the serving slice: the serving tier and telemetry, one request
+    # served over TCP from the CPU, and the run tools
+    import handyrl_tpu_torch.serving.router
+    import handyrl_tpu_torch.telemetry.status
+    import handyrl_tpu_torch.utils.profiling
+    from handyrl_tpu_torch.scripts import attribution_report, export_trace
+    from handyrl_tpu_torch.serving import (
+        ServeClient, ServingConfig, ServingFrontend)
+
+    svc = InferenceService(model, cfg, epoch=1, device="cpu")
+    svc.start()
+    fe = ServingFrontend(svc, env, ServingConfig.from_config(
+        {"mode": "on", "port": 0}))
+    fe.start()
+    client = ServeClient("127.0.0.1", fe.port, timeout=30)
+    try:
+        reply = client.infer_batch(batch)
+        assert reply["epoch"] == 1
+        assert reply["outputs"]["policy"].shape == (4, 4)
+    finally:
+        client.close()
+        fe.close()
+        svc.close()
+    assert export_trace.main([]) == 1 and attribution_report
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -180,7 +207,7 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
     walked = {os.path.relpath(os.path.dirname(path), PACKAGE)
               for path in sources}
     assert {"interop", "scripts", "models", "pipeline", "anakin",
-            "telemetry"} <= walked
+            "telemetry", "serving", "utils"} <= walked
     bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]

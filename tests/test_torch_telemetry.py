@@ -181,13 +181,17 @@ def test_harvest_counts_flops_once_per_shape():
     assert model.call("step", step, torch.ones(16, 8)) == 16
     # forward 2*16*8*4 and the weight gradient's as many (the input
     # needs no gradient)
-    assert model.program("step") == {"flops": 2 * 2 * 16 * 8 * 4,
-                                     "harvests": 1}
+    prog = model.program("step")
+    assert prog["flops"] == 2 * 2 * 16 * 8 * 4 and prog["harvests"] == 1
+    # the same traced call counts the bytes its aten ops moved: at
+    # least the input, the weight and its gradient once each
+    assert prog["bytes"] >= 4 * (16 * 8 + 2 * 8 * 4)
     model.call("step", step, torch.ones(16, 8))
     assert model.program("step")["harvests"] == 1
     model.call("step", step, torch.ones(32, 8))     # a new geometry
-    assert model.program("step") == {"flops": 2 * 2 * 32 * 8 * 4,
-                                     "harvests": 2}
+    prog32 = model.program("step")
+    assert prog32["flops"] == 2 * 2 * 32 * 8 * 4
+    assert prog32["harvests"] == 2 and prog32["bytes"] > prog["bytes"]
     assert len(calls) == 3
     off = CostModel(PerfConfig(cost_analysis=False))
     off.call("step", step, torch.ones(4, 8))

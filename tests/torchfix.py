@@ -5,7 +5,8 @@ each one an intra-op thread pool as wide as the machine: at the port
 tests' small shapes those pools only contend with each other and with
 the JAX tests next door.  Each port test module imports
 ``one_torch_thread`` (autouse) so its tests run single-threaded, and
-passes :data:`CHILD_ENV` to the processes it starts.
+passes :data:`CHILD_ENV` to the processes it starts; the same fixture
+turns the port's process-wide telemetry off after each test.
 """
 
 import os
@@ -23,6 +24,11 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(previous)
+    # a learner built in a test arms the process-wide telemetry with a
+    # span log in the test's directory: the next test starts with it off
+    from handyrl_tpu_torch import telemetry
+
+    telemetry.configure(enabled=False)
 
 
 def make_episodes(env_name, count, seed=0, observation=False,
