@@ -65,7 +65,8 @@ from a seed:
                  the same gates but burn-in, and the same readings;
  12. league    — (a) ``--train`` on the shipped config with
                  ``generation_opponent: {past_epochs: 3, prob: 0.5}``,
-                 4 epochs: league episodes in epochs 2-3, each
+                 4 epochs of 100 + 100 episodes: league episodes in
+                 epochs 2-3, each
                  ``league_opponent_mean`` key a past epoch whose
                  checkpoint exists, no worker fallback, no worker on
                  CUDA; (b) ``scripts.make_onnx_model`` of the last
@@ -86,7 +87,7 @@ from a seed:
                  pure self-play and 3 frozen snapshots, timed in
                  interleaved blocks and profiled, FLOPs from the cost
                  model; (c) ``--train`` on the shipped config.yaml with
-                 ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 100
+                 ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 40
                  fused steps, workers only evaluating; (d)
                  tests/test_learning.py's Anakin loop on the card (32
                  games x 60 steps), its 0.545 win-rate floor;
@@ -94,7 +95,7 @@ from a seed:
                  ``InferenceService`` on the card with two shm workers,
                  a ``ServingFrontend`` on port 0 and eight
                  ``ServeClient`` threads sending one game's four geese
-                 per request for 15 s, one client in four pinned to
+                 per request for 10 s, one client in four pinned to
                  epoch 1 (the second seeded snapshot, through
                  ``model_resolver``): every ok reply equals the card's
                  local forward of its rows and snapshot (strict
@@ -119,9 +120,35 @@ from a seed:
                  linked by trace id; the profiler window holds CUDA
                  kernels; the attribution tree's heaviest rows; (d)
                  14a's load in interleaved blocks with telemetry on and
-                 off (served rows/s and p99; not a gate).
+                 off (served rows/s and p99; not a gate);
+ 15. chaos     — (a) ``--train`` on phase 7's config (4 epochs of 100 +
+                 100 episodes) with every shm fault armed (torn, full
+                 and truncated pushes, stalled pops, dropped and
+                 delayed beats) and a surge at epoch 2 holding uploads
+                 3 s: every epoch lands, the injected faults and the
+                 ring headers' counts, shm + spilled episodes equal the
+                 arrivals, a hold backlog after the surge, no worker on
+                 CUDA, the guard keys; (b) 14c's config (6 epochs of 100
+                 + 100 episodes) with the router beating every 0.5 s and
+                 ``chaos.serve_kill_epoch: 2`` under one client's load
+                 through the router: kill,
+                 eviction and readmission in the log and on the status
+                 endpoint's clock, the announcer's generation 0 -> 1,
+                 the router's counts reconciled, no call past its
+                 deadline; (c) phase 6's fused replay step with the
+                 retrace, numerics and host-transfer guards armed
+                 against the bare step: losses bit for bit, the median
+                 step in interleaved blocks, the syncs the guard counts
+                 beside ``torch.cuda.set_sync_debug_mode("warn")``'s.
 
-Every phase prints one ``phaseN {json}`` line (phases 12-14 one per
+Phase 7 also holds every epoch record to the runtime guards' keys (no
+stall, no lock-order inversion, no nonfinite step, one update-step
+signature).  Depth cut to make room for phase 15 (gates
+unchanged): phase 8's drills, phase 7's restart and phase 12's league
+run epochs of 100 + 100 episodes, phase 13c 3 epochs of 40 fused steps,
+14a's load 10 s and 14d's blocks 2 s.
+
+Every phase prints one ``phaseN {json}`` line (phases 12-15 one per
 part) and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
@@ -132,9 +159,9 @@ Run from the repository root:  python3 chip_smoke.py
 Full outputs land in chiprun_out/chip_smoke/.
 
 ``python3 chip_smoke.py --phases 1-5,13`` runs the listed phases and
-every phase they need (``NEEDS``: phase 6 trains on phase 4's episodes
-with phase 2's weights, phase 14 serves phase 2's weights; phase 1
-always runs); a bad list exits 2.
+every phase they need (``NEEDS``: phases 6 and 15 train on phase 4's
+episodes with phase 2's weights, phase 14 serves phase 2's weights;
+phase 1 always runs); a bad list exits 2.
 
 ``python3 chip_smoke.py --grad-error [draws]`` instead studies phase 6's
 float32 gradient error on the card (ROADMAP C6): per draw, each
@@ -1128,6 +1155,8 @@ def _train_entry(cwd):
             raise AssertionError(f"nonfinite losses: {r}")
         if not r.get("eval_games"):
             raise AssertionError(f"no eval games counted: {r}")
+    out["guards"] = guard_rows(records)
+    guard_gates(records, "phase 7")
     # the workers' exit reports share one pipe, so two may land on one
     # line: read them by pattern, not by line
     workers = {int(w): {"cuda_initialized": c == "True",
@@ -1163,11 +1192,14 @@ def _train_entry(cwd):
         raise AssertionError("--eval of models/3.ckpt printed no result")
 
     # restart from epoch 3: the optimizer state resumes, the WAL refills
-    # the ring on the card, one more epoch
+    # the ring on the card, one more epoch (of 100 + 100 fresh episodes,
+    # phase 8's cut: the restart's gates read the resume, not the epoch)
     steps = records[-1]["steps"]
     proc2, records2, wall2 = run_training(
         train, cwd, train_config(dict(TRAIN_CUTS, epochs=4,
-                                      restart_epoch=3)))
+                                      restart_epoch=3,
+                                      minimum_episodes=100,
+                                      update_episodes=100)))
     _check_run(proc2, "train_restart")
     out["restart"] = {"wall_s": wall2, "epochs": epoch_rows(
         records2[len(records):], steps=steps),
@@ -1183,6 +1215,32 @@ def _train_entry(cwd):
             os.path.join(cwd, "models", "4.ckpt")):
         raise AssertionError("the restart trained no further epoch")
     return out
+
+
+# the runtime guards' keys in every epoch record (on by default)
+GUARD_KEYS = ("retrace_count", "host_transfers", "numerics_contract_breaks",
+              "weak_upcasts", "nonfinite_steps", "stall_events",
+              "lock_contention_sec", "lock_order_inversions", "fd_count",
+              "thread_count", "shm_segments", "resource_growth")
+
+
+def guard_rows(records):
+    return [{k: r.get(k) for k in ("epoch", "epoch_steps") + GUARD_KEYS}
+            for r in records]
+
+
+def guard_gates(records, tag):
+    """Every guard key in every record; no stall, no lock-order
+    inversion, no nonfinite step; one update-step signature."""
+    for r in records:
+        missing = [k for k in GUARD_KEYS if r.get(k) is None]
+        if missing:
+            raise AssertionError(f"{tag}: guard keys {missing} missing "
+                                 f"in epoch {r.get('epoch')}")
+        if r["stall_events"] or r["lock_order_inversions"] or \
+                r["nonfinite_steps"] or r["retrace_count"] != 1:
+            raise AssertionError(f"{tag}: guards tripped: "
+                                 f"{guard_rows([r])}")
 
 
 def startup(records):
@@ -1220,13 +1278,17 @@ def wal_replay(stdout):
 # outlast the wait for two epochs and a respawned service; a respawn
 # that lands after the second epoch's record pushes the signal one
 # epoch later, which a run of 3 epochs would already have finished
+# both configs cut the epoch to 100 + 100 episodes (phase 10's cut): a
+# relaunch's epoch then waits for ~200 fresh episodes, not 600
 DRILL_CUTS = {"epochs": 10, "metrics_path": "metrics.jsonl",
+              "minimum_episodes": 100, "update_episodes": 100,
               "chaos": {"kill_prob": 0.2, "max_kills": 1,
                         "infer_kill_epoch": 1}}
 # 8b: max_respawns 1 makes the worker machine's gather breaker trip on
 # the first refused re-dial, so the machine re-enters its session
 # through the entry port instead of a lone gather re-dialling
 REMOTE_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+               "minimum_episodes": 100, "update_episodes": 100,
                "supervise_learner": True, "max_respawns": 1,
                "chaos": {"learner_kill_epoch": 2}}
 WORKER_LINE = re.compile(r"closed worker (\d+): cuda initialized (\w+)")
@@ -1915,6 +1977,7 @@ def _geister_train_entry(cwd):
 # the shipped config.yaml with league-lite on, and what a bounded run
 # forces
 LEAGUE_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
+               "minimum_episodes": 100, "update_episodes": 100,
                "generation_opponent": {"past_epochs": 3, "prob": 0.5}}
 EVAL_GAMES_12 = 20
 BATTLE_GAMES = 10
@@ -2226,8 +2289,8 @@ ANAKIN_ATOL = 1e-5                  # selected_prob, value: card vs CPU
 ANAKIN_DISCRETE = ("observation", "action", "action_mask", "episode_mask",
                    "turn_mask", "observation_mask", "outcome", "progress",
                    "reward", "return")
-# the shipped config.yaml cut to 3 epochs of 100 fused steps
-ANAKIN_CUTS = {"epochs": 3, "updates_per_epoch": 100,
+# the shipped config.yaml cut to 3 epochs of 40 fused steps
+ANAKIN_CUTS = {"epochs": 3, "updates_per_epoch": 40,
                "metrics_path": "metrics.jsonl",
                "anakin": {"mode": "on", "num_envs": ANAKIN_ENVS}}
 # the shipped config's loss keys
@@ -2544,7 +2607,7 @@ def anakin_train_entry():
 
 def _anakin_train_entry(cwd):
     """13c: ``--train`` on the shipped config with ``anakin: {mode: on,
-    num_envs: 1024}``, 3 epochs of 100 fused steps; then the port's
+    num_envs: 1024}``, 3 epochs of 40 fused steps; then the port's
     ``--eval`` of the last checkpoint."""
     from handyrl_tpu_torch.durability import read_verified
     from handyrl_tpu_torch.models.convert import from_flax
@@ -2903,10 +2966,10 @@ def jax_curve():
 
 SERVE_CLIENTS = 8                  # ServeClient threads of 14a and 14d
 SERVE_ROWS = 4                     # one game's geese per request
-SERVE_SECONDS = 15.0               # 14a's load
+SERVE_SECONDS = 10.0               # 14a's load
 SERVE_PIN_EVERY = 4                # one client in four pins epoch 1
 TEL_BLOCKS = ("on", "off", "off", "on")   # 14d, interleaved
-TEL_SECONDS = 3.0
+TEL_SECONDS = 2.0
 DRILL_CLIENTS = 3                  # 14b's pinned load
 DRILL = {"mode": "on", "port": 0, "heartbeat_interval": 0.1,
          "heartbeat_timeout": 1.0, "reply_timeout": 5.0,
@@ -3758,10 +3821,467 @@ def served_phase(torch, model, model2, report, finish):
     return drained
 
 
-ALL_PHASES = frozenset(range(1, 15))
+# ---------------------------------------------------------------------
+# phase 15: chaos and guards
+# ---------------------------------------------------------------------
+
+# 15a: phase 7's config (TicTacToe 32x3, 6 workers, the pipeline, the
+# WAL), 4 epochs of 100 + 100 episodes (phase 8's cut), every shm fault
+# armed and a surge at epoch 2 whose upload hold browns out both planes
+CHAOS_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
+              "minimum_episodes": 100, "update_episodes": 100,
+              "chaos": {"seed": 7, "shm_tear_prob": 0.05,
+                        "shm_full_prob": 0.05, "shm_truncate_prob": 0.05,
+                        "shm_stall_prob": 0.1, "shm_beat_drop_prob": 0.1,
+                        "shm_beat_delay_prob": 0.1, "surge_epoch": 2,
+                        "surge_hold_uploads": 3.0}}
+CHAOS_WORKER = re.compile(
+    r"closed worker (\d+): cuda initialized (\w+), pipeline fallbacks "
+    r"(\d+), served rows \d+, local rows \d+, episodes shipped (\d+), "
+    r"spilled (\d+), held (\d+)(?:, shm chaos torn_injected=(\d+) "
+    r"full_injected=(\d+) truncated_injected=(\d+) "
+    r"stalls_injected=(\d+))?")
+INJECTED = ("torn_injected", "full_injected", "truncated_injected",
+            "stalls_injected")
+# 15b: 14c's config with the router's beats at 0.5 s (timeout 2 s) and
+# the replica killed at epoch 2; epochs of 100 + 100 episodes, and 6 of
+# them: the 4 after the kill outlast the respawn backoff (0.5 s) and the
+# readmission even where 100 episodes arrive in a fraction of a second.
+# Latency shedding is off (slo_ms 0): the drill reads the kill, and a
+# breached window would shed the readmitted replica's first requests
+SERVE_KILL_CUTS = {"epochs": 6, "metrics_path": "metrics.jsonl",
+                   "minimum_episodes": 100, "update_episodes": 100,
+                   "serving": {"mode": "on", "port": 0, "slo_ms": 0.0},
+                   "router": {"mode": "on", "port": 0,
+                              "heartbeat_interval": 0.5,
+                              "heartbeat_timeout": 2.0},
+                   "chaos": {"serve_kill_epoch": 2}}
+KILL_CLIENT_TIMEOUT = 10.0         # each ServeClient call's deadline
+# 15c: phase 6's fused replay step, armed and unarmed
+GUARD_TIMED = 30                   # timed steps of each
+GUARD_BLOCK = 10                   # interleaved blocks of this many
+GUARD_WARMUP = 5
+GUARD_SYNC_STEPS = 10              # armed steps under sync debug "warn"
+GUARD_PARITY_STEPS = 3
+
+
+def chaos_entry(torch, drained, params, smi):
+    """Phase 15, one ``phase15 {json}`` line per part (15a-15c)."""
+    import shutil
+
+    out = {"card": smi}
+    for tag, fn in (("a", _shm_chaos_train), ("b", _serve_kill_train)):
+        cwd = tempfile.mkdtemp(prefix=f"chaos_{tag}_")
+        try:
+            out[tag] = fn(cwd)
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+        emit("phase15", {tag: out[tag]})
+        (shm_chaos_gates if tag == "a" else serve_kill_gates)(out[tag])
+    out["c"] = guard_cost(torch, drained, params)
+    emit("phase15", {"c": out["c"]})
+    guard_cost_gates(out["c"])
+    return out
+
+
+def _shm_chaos_train(cwd):
+    """15a: ``--train`` under shm chaos and a surge brownout."""
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    proc, records, wall = run_training(train, cwd,
+                                       train_config(CHAOS_CUTS))
+    _check_run(proc, "chaos_train")
+    stdout = proc.stdout
+    workers = {}
+    for m in CHAOS_WORKER.finditer(stdout):
+        counts = [int(v) if v else 0 for v in m.groups()[6:]]
+        workers[int(m.group(1))] = {
+            "cuda_initialized": m.group(2) == "True",
+            "fallbacks": int(m.group(3)), "shipped": int(m.group(4)),
+            "spilled": int(m.group(5)), "held": int(m.group(6)),
+            **dict(zip(INJECTED, counts))}
+    stats = [json.loads(line.split("=", 1)[1]) for line in
+             stdout.splitlines()
+             if line.startswith("inference service stats =")]
+    service = stats[-1] if stats else {}
+    injected = {k: sum(w[k] for w in workers.values())
+                + service.get("chaos", {}).get(k, 0) for k in INJECTED}
+    arrivals = sum(r.get("episodes_shm", 0) + r.get("episodes_spilled", 0)
+                   for r in records)
+    return {
+        "cuts": CHAOS_CUTS, "wall_s": wall,
+        "num_workers": train_config(CHAOS_CUTS)["train_args"]["worker"][
+            "num_parallel"],
+        "epochs": [{k: r.get(k) for k in (
+            "epoch", "epoch_steps", "epoch_wall_sec", "episodes_received",
+            "episodes_shm", "episodes_spilled", "upload_backlog",
+            "shm_ring_full_count", "shm_torn_slots", "host_transfers",
+            "infer_batches", "policy_lag_max")} for r in records],
+        "guards": guard_rows(records),
+        "records": records,
+        "workers": workers, "injected": injected,
+        "service_chaos": service.get("chaos"),
+        "ring_full_count": service.get("shm_ring_full_count"),
+        "ring_torn_slots": service.get("shm_torn_slots"),
+        "corrupt_slots": service.get("corrupt_slots"),
+        "torn_reclaimed": service.get("torn_reclaimed"),
+        "arrivals_shm_plus_spilled": arrivals,
+        "episodes_received": (records[-1]["episodes_received"]
+                              if records else None),
+        "surge_lines": sum("surge — holding" in line
+                           for line in stdout.splitlines())}
+
+
+def shm_chaos_gates(a):
+    recs = a.pop("records")
+    if [r["epoch"] for r in recs] != [0, 1, 2, 3]:
+        raise AssertionError(f"15a: 4 epochs did not land: "
+                             f"{[r['epoch'] for r in recs]}")
+    for key in ("torn_injected", "full_injected", "truncated_injected"):
+        if not a["injected"][key]:
+            raise AssertionError(f"15a: no {key}: {a['injected']}")
+    if not a["ring_full_count"] or not a["ring_torn_slots"]:
+        raise AssertionError(
+            f"15a: the ring headers counted no refused or skipped slot: "
+            f"full {a['ring_full_count']}, torn {a['ring_torn_slots']}")
+    if a["arrivals_shm_plus_spilled"] != a["episodes_received"]:
+        raise AssertionError(
+            f"15a: shm + spilled episodes {a['arrivals_shm_plus_spilled']}"
+            f" != received {a['episodes_received']}")
+    if not any(r.get("upload_backlog") for r in recs if r["epoch"] >= 2):
+        raise AssertionError("15a: no upload_backlog after the surge: "
+                             f"{[r.get('upload_backlog') for r in recs]}")
+    if len(a["workers"]) != a["num_workers"] or any(
+            w["cuda_initialized"] for w in a["workers"].values()):
+        raise AssertionError(f"15a: worker reports {a['workers']}")
+    guard_gates(recs, "15a")
+
+
+def _serve_kill_train(cwd):
+    """15b: ``--train`` with serving and a router; the replica is killed
+    at epoch 2 while a client sends through the router.  The status
+    endpoint is polled every 50 ms for the kill, the eviction (the pool
+    empty) and the readmission (generation 1 routable again)."""
+    import yaml
+
+    from handyrl_tpu_torch.connection import find_free_port
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.serving import ServeClient, ServeError, ShedError
+
+    status_port = find_free_port()
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(train_config(dict(SERVE_KILL_CUTS,
+                                          status_port=status_port)), f)
+    env = make_env({"env": "TicTacToe"})
+    env.reset()
+    obs = np.stack([env.observation(env.turns()[0])] * SERVE_ROWS)
+    proc, log = _popen([sys.executable, "-m", "handyrl_tpu_torch",
+                        "--train", *CLI_DEVICE], cwd, "serve_kill")
+    calls, stop, final = [], threading.Event(), {}
+    port = [None]
+
+    def client_loop():
+        client = None
+        while not stop.is_set():
+            if client is None:
+                if port[0] is None:
+                    time.sleep(0.05)
+                    continue
+                try:
+                    client = ServeClient("127.0.0.1", port[0],
+                                         timeout=KILL_CLIENT_TIMEOUT)
+                except OSError:
+                    time.sleep(0.1)
+                    continue
+            t0 = time.monotonic()
+            try:
+                client.infer_batch(obs)
+                kind = "ok"
+            except ShedError as exc:
+                kind = "shed:" + str(exc).split(": ")[-1]
+            except ServeError:
+                kind = "error"
+            except OSError:
+                kind = "connection"
+                client.close()
+                client = None
+            calls.append((t0, time.monotonic() - t0, kind))
+            time.sleep(0.01)
+        if client is not None:
+            # the router's own counts once the load has stopped
+            for _ in range(3):
+                time.sleep(0.2)
+                final.update(client.stats())
+            client.close()
+
+    thread = threading.Thread(target=client_loop, daemon=True)
+    thread.start()
+    t0 = time.monotonic()
+    timeline = {}
+    try:
+        deadline = t0 + SERVE_TRAIN_TIMEOUT
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError("15b --train never finished")
+            try:
+                snap = _status(status_port)
+            except (OSError, ValueError):
+                time.sleep(0.05)
+                continue
+            now = time.monotonic() - t0
+            router = snap.get("router") or {}
+            port[0] = port[0] or router.get("port")
+            ann = (snap.get("serving") or {}).get("announcer") or {}
+            pool = (router.get("registry") or {}).get("pool_size")
+            if "kill" not in timeline and ann and not ann.get("alive"):
+                timeline["kill"] = now
+            if "kill" in timeline and "evicted" not in timeline and \
+                    pool == 0:
+                timeline["evicted"] = now
+            if "evicted" in timeline and "readmitted" not in timeline \
+                    and pool and ann.get("generation") == 1:
+                timeline["readmitted"] = now
+                timeline["generation"] = ann.get("generation")
+            if "readmitted" in timeline and not stop.is_set() and sum(
+                    1 for t, _d, kind in list(calls) if kind == "ok"
+                    and t - t0 > timeline["readmitted"]) >= 5:
+                # served again: stop the load and read the router's
+                # counts at rest
+                stop.set()
+                thread.join(timeout=KILL_CLIENT_TIMEOUT + 5)
+            time.sleep(0.05)
+        code = proc.wait()
+    finally:
+        stop.set()
+        thread.join(timeout=KILL_CLIENT_TIMEOUT + 5)
+        _stop(proc)
+    stdout = _read(log)
+    if code != 0:
+        raise RuntimeError(f"15b --train exited {code}:\n{stdout[-3000:]}")
+    records = _records(cwd)
+    kill = stdout.find("CHAOS: killing the serving replica at epoch 2")
+    marks = {"kill": kill,
+             "evicted": min([i for i in (
+                 stdout.find("marked suspect", kill),
+                 stdout.find("evicted", kill)) if i >= 0] or [-1]),
+             "respawned": stdout.find("serving frontend respawned", kill),
+             "registered_gen1": stdout.find("registered (generation 1",
+                                            kill)}
+    kinds = Counter(kind for _, _, kind in calls)
+    runs = []  # the calls' outcomes in order, run-length encoded
+    for t, _d, kind in calls:
+        if runs and runs[-1][1] == kind:
+            runs[-1][2] += 1
+        else:
+            runs.append([round(t - t0, 3), kind, 1])
+    after_readmit = sum(1 for t, _, kind in calls
+                        if kind == "ok" and "readmitted" in timeline
+                        and t - t0 > timeline["readmitted"])
+    return {
+        "cuts": SERVE_KILL_CUTS, "epochs": [r["epoch"] for r in records],
+        "records": [{k: r.get(k) for k in (
+            "epoch", "serve_requests", "serve_ok", "serve_respawns",
+            "router_requests", "router_ok", "router_shed",
+            "router_pool_size", "pool_sheds", "reroutes")}
+            for r in records],
+        "timeline_s": timeline,
+        "eviction_delay_s": (timeline["evicted"] - timeline["kill"]
+                             if "evicted" in timeline else None),
+        "readmission_s": (timeline["readmitted"] - timeline["kill"]
+                          if "readmitted" in timeline else None),
+        "log_order": marks, "calls": dict(kinds), "call_runs": runs,
+        "ok_after_readmission": after_readmit,
+        "slowest_call_s": max((d for _, d, _ in calls), default=None),
+        "router_final": {k: final.get(k) for k in (
+            "submitted", "ok", "shed", "errors", "reroutes",
+            "pool_sheds")}}
+
+
+def serve_kill_gates(b):
+    if b["epochs"] != list(range(SERVE_KILL_CUTS["epochs"])):
+        raise AssertionError(f"15b: training did not complete: {b}")
+    order = b["log_order"]
+    if not (0 <= order["kill"] < order["evicted"]
+            < order["registered_gen1"]) or order["respawned"] < 0:
+        raise AssertionError(f"15b: the log does not show kill, eviction, "
+                             f"respawn in order: {order}")
+    if b["timeline_s"].get("generation") != 1:
+        raise AssertionError(f"15b: the announcer's generation did not "
+                             f"move 0 -> 1: {b['timeline_s']}")
+    final = b["router_final"]
+    if final["submitted"] is None or final["submitted"] != (
+            final["ok"] + final["shed"] + final["errors"]):
+        raise AssertionError(f"15b: router counts do not reconcile: "
+                             f"{final}")
+    if b["slowest_call_s"] is None or \
+            b["slowest_call_s"] > KILL_CLIENT_TIMEOUT + 1.0:
+        raise AssertionError(f"15b: a client call hung past its deadline "
+                             f"({b['slowest_call_s']} s)")
+    if not b["ok_after_readmission"]:
+        raise AssertionError("15b: no request served after readmission")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and no autotuning, for the
+    bitwise armed-vs-unarmed gate."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def guard_cost(torch, episodes, params):
+    """15c: phase 6's fused GeeseNet replay step with RetraceGuard,
+    NumericsGuard and HostTransferGuard armed against the bare step:
+    the same losses bit for bit, the median step in interleaved blocks,
+    and the syncs the guard counts beside those
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    import warnings
+
+    from handyrl_tpu_torch.analysis import (
+        HostTransferGuard,
+        NumericsGuard,
+        RetraceGuard,
+    )
+    from handyrl_tpu_torch.staging import (
+        DeviceReplay,
+        make_replay_update_step,
+    )
+
+    ring = DeviceReplay(RING_CFG, len(episodes), 4096 << 20, DEV)
+    ring.offer(episodes)
+    ring.ingest(max_episodes=10 ** 6)
+    state = ring.device_state()
+    batch = TRAIN_ARGS["batch_size"]
+
+    def build(armed):
+        step, _ = _geese_update(torch, params, DEV, "bfloat16")
+        fused = make_replay_update_step(ring, step, batch, seed=SEED)
+        if not armed:
+            return fused, None
+        retrace = RetraceGuard(max_compiles=1, name="replay_step")
+        numerics = NumericsGuard(name="replay_step")
+        return retrace.wrap(numerics.wrap(fused)), (retrace, numerics)
+
+    def losses(metrics):
+        return torch.stack([torch.stack([m[k].float() for k in LOSS_KEYS])
+                            for m in metrics]).cpu()
+
+    out = {"steps": GUARD_TIMED, "block": GUARD_BLOCK}
+    # (1) the armed step is the step: losses bit for bit, from the same
+    # weights and the same draws (a fresh generator per run)
+    runs = {}
+    with deterministic(torch):
+        for tag in ("unarmed", "armed", "unarmed_again"):
+            fused, _ = build(tag == "armed")
+            guard = (HostTransferGuard() if tag == "armed"
+                     else contextlib.nullcontext())
+            with guard:
+                metrics = [fused(state) for _ in range(GUARD_PARITY_STEPS)]
+            runs[tag] = losses(metrics)
+    out["parity"] = {
+        "steps": GUARD_PARITY_STEPS,
+        "armed_equals_unarmed": bool(torch.equal(runs["armed"],
+                                                 runs["unarmed"])),
+        "unarmed_repeats_bitwise": bool(torch.equal(
+            runs["unarmed_again"], runs["unarmed"])),
+        "totals": runs["unarmed"][:, LOSS_KEYS.index("total")].tolist()}
+
+    # (2) the cost: the same step armed and bare, in interleaved blocks
+    steps = {"unarmed": build(False), "armed": build(True)}
+    transfer = HostTransferGuard()
+    for tag, (fused, _) in steps.items():
+        with (transfer if tag == "armed" else contextlib.nullcontext()):
+            for _ in range(GUARD_WARMUP):
+                fused(state)
+    torch.cuda.synchronize()
+    transfer.snapshot()
+    ms = {"unarmed": [], "armed": []}
+    for block in range(GUARD_TIMED // GUARD_BLOCK):
+        order = ("unarmed", "armed") if block % 2 == 0 \
+            else ("armed", "unarmed")
+        for tag in order:
+            fused = steps[tag][0]
+            events = [(torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+                      for _ in range(GUARD_BLOCK)]
+            with (transfer if tag == "armed" else contextlib.nullcontext()):
+                for start, stop in events:
+                    start.record()
+                    fused(state)
+                    stop.record()
+            torch.cuda.synchronize()
+            ms[tag] += [a.elapsed_time(b) for a, b in events]
+    timed_transfers = transfer.snapshot()
+    retrace, numerics = steps["armed"][1]
+    med = {tag: statistics.median(v) for tag, v in ms.items()}
+    out["timing"] = {
+        "step_ms_median_unarmed": med["unarmed"],
+        "step_ms_median_armed": med["armed"],
+        "step_ms_p90_unarmed": _percentile(ms["unarmed"], 0.9),
+        "step_ms_p90_armed": _percentile(ms["armed"], 0.9),
+        "cost_share": med["armed"] / med["unarmed"] - 1.0,
+        "host_transfers_per_timed_step": timed_transfers / GUARD_TIMED,
+        "retrace_count": retrace.compiles,
+        "numerics": numerics.stats()}
+
+    # (3) what the guard sees beside the debug mode, over the same steps,
+    # and over one epoch-end metrics copy (the trainer's)
+    fused = steps["armed"][0]
+
+    def syncs(caught):
+        # the mode's own notice that it is a prototype is no sync
+        return sum("synchronizing CUDA operation" in str(w.message)
+                   for w in caught)
+
+    with warnings.catch_warnings(record=True) as caught, transfer:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics = [fused(state) for _ in range(GUARD_SYNC_STEPS)]
+            step_warnings = syncs(caught)
+            step_transfers = transfer.snapshot()
+            keys = sorted(metrics[0])
+            torch.stack([torch.stack([m[k].float() for k in keys])
+                         for m in metrics]).cpu().numpy()
+            fetch_warnings = syncs(caught) - step_warnings
+            fetch_transfers = transfer.snapshot()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["syncs"] = {
+        "steps": GUARD_SYNC_STEPS,
+        "guard_host_transfers": step_transfers,
+        "sync_debug_warnings": step_warnings,
+        "epoch_fetch_guard_host_transfers": fetch_transfers,
+        "epoch_fetch_sync_debug_warnings": fetch_warnings,
+        "first_warnings": sorted({str(w.message)[:120]
+                                  for w in caught})[:5]}
+    out["finite"] = all(float(m["nonfinite"]) == 0 for m in metrics)
+    return out
+
+
+def guard_cost_gates(c):
+    if not c["parity"]["armed_equals_unarmed"]:
+        raise AssertionError(f"15c: the armed step's losses differ from "
+                             f"the bare step's: {c['parity']}")
+    t = c["timing"]
+    if t["retrace_count"] != 1 or t["numerics"]["numerics_contract_breaks"]:
+        raise AssertionError(f"15c: the guards tripped on a stable step: "
+                             f"{t}")
+    if not c["finite"]:
+        raise AssertionError("15c: a guarded step was not finite")
+
+
+ALL_PHASES = frozenset(range(1, 16))
 # what a phase takes from another: phase 2's weights, phase 4's drained
 # episodes; every phase reads phase 1's card line
-NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}}
+NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}, 15: {2, 4}}
 
 
 def parse_phases(spec):
@@ -3958,6 +4478,26 @@ def main(phases=ALL_PHASES):
               f"{d['net_rows_per_s_off']:.0f} rows/s, p99 "
               f"{d['serve_p99_ms_on']:.2f}/{d['serve_p99_ms_off']:.2f} ms; "
               f"phase 14 {p14['phase_s']:.1f} s on {smi}", flush=True)
+    # 15. chaos and guards: shm faults and the surge brownout under
+    # --train, the serving-replica kill, what the guards cost
+    if 15 in phases:
+        report["phase15"] = p15 = chaos_entry(torch, drained, params, smi)
+        p15["phase_s"] = lap()
+        a, b, c = p15["a"], p15["b"], p15["c"]
+        print("chaos: " + ", ".join(
+            f"epoch {r['epoch']} {r['epoch_steps']} steps shm "
+            f"{r['episodes_shm']} spilled {r['episodes_spilled']} backlog "
+            f"{r['upload_backlog']} host_transfers {r['host_transfers']}"
+            for r in a["epochs"])
+            + f"; injected {a['injected']}; replica kill: evicted "
+            f"{b['eviction_delay_s']} s, readmitted {b['readmission_s']} s "
+            f"after the kill, router {b['router_final']}; guards: "
+            f"{c['timing']['step_ms_median_armed']:.2f} ms armed vs "
+            f"{c['timing']['step_ms_median_unarmed']:.2f} ms bare, "
+            f"{c['syncs']['guard_host_transfers']} guard transfers vs "
+            f"{c['syncs']['sync_debug_warnings']} sync warnings in "
+            f"{c['syncs']['steps']} steps; phase 15 {p15['phase_s']:.1f} s "
+            f"on {smi}", flush=True)
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "

@@ -8,27 +8,31 @@ quantities the learner reads (``effective_eval_rate``,
 
 Keys of layers the port does not have yet are parsed and refused with
 a "not ported yet" error when set, never silently ignored: ``mesh``
-and ``distributed`` (multihost); and, inside ``chaos``, the shm-plane
-and serving-replica keys (``shm_*``, ``serve_kill_epoch``).
-``serving`` and ``router`` (the network serving tier, validated by
-``ServingConfig`` / ``RouterConfig`` with the JAX package's
-cross-checks: serving needs the pipeline, the router needs serving)
-and ``status_port`` take effect as in the JAX package.  ``anakin``
-(the fused on-device rollout, validated by ``AnakinConfig``, with the
-JAX package's cross-check that it needs ``updates_per_epoch > 0``) and
-``perf`` (the cost model's peak overrides, validated by ``PerfConfig``)
-take effect as in the JAX package.  The resilience keys take effect as in the JAX
-package: the episode WAL (``wal_enabled``, ``wal_flush_interval``,
+and ``distributed`` (multihost).  ``serving`` and ``router`` (the
+network serving tier, validated by ``ServingConfig`` / ``RouterConfig``
+with the JAX package's cross-checks: serving needs the pipeline, the
+router needs serving) and ``status_port`` take effect as in the JAX
+package.  ``anakin`` (the fused on-device rollout, validated by
+``AnakinConfig``, with the JAX package's cross-check that it needs
+``updates_per_epoch > 0``) and ``perf`` (the cost model's peak
+overrides, validated by ``PerfConfig``) take effect as in the JAX
+package.  The resilience keys take effect as in the JAX package: the
+episode WAL (``wal_enabled``, ``wal_flush_interval``,
 ``wal_segment_mb``, ``wal_keep_episodes``), ``preempt_grace_seconds``,
 ``heartbeat_interval``/``heartbeat_timeout``, ``max_respawns``,
 ``respawn_backoff``, ``max_frame_bytes``, ``supervise_learner`` and
-the rest of ``chaos``; so does ``generation_opponent`` (league-lite:
-past-self opponents, validated as in the JAX package), and so do the
-telemetry keys (``telemetry``, ``trace_sample_rate``,
-``flightrec_spans``, ``profile_dir``).  The guard switches
-(``host_transfer_guard``, ``numerics_guard``, ``stall_watchdog``,
-``lock_order_guard``, ``resource_ledger``, ...) keep their defaults
-for schema compatibility and have no effect in the port yet.
+every ``chaos`` key (the shm faults and ``serve_kill_epoch``
+included); so does ``generation_opponent`` (league-lite: past-self
+opponents, validated as in the JAX package), and so do the telemetry
+keys (``telemetry``, ``trace_sample_rate``, ``flightrec_spans``,
+``profile_dir``).  The runtime guards take effect as in the JAX
+package: ``max_update_compiles``, ``host_transfer_guard``,
+``numerics_guard`` / ``max_nonfinite_steps``, ``stall_watchdog`` /
+``max_stall_seconds``, ``lock_order_guard`` and ``resource_ledger`` /
+``max_fd_growth``.  One switch stays inert: ``sharding_contract_guard``
+with ``max_resharding_copies`` means something only once there are
+shardings (meshes and multihost), so it keeps its default, is
+validated, and writes no ``resharding_copies``.
 """
 
 from __future__ import annotations
@@ -240,7 +244,7 @@ class TrainConfig:
             raise ValueError(
                 "heartbeat_timeout must exceed heartbeat_interval")
         # chaos keys and ranges validate in the dataclass the injector
-        # runs with (which also refuses the unported shm/serving keys)
+        # runs with
         from .resilience.chaos import ChaosConfig
 
         ChaosConfig.from_config(self.chaos)

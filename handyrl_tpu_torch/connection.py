@@ -287,6 +287,9 @@ class QueueCommunicator:
         self.send_drops = 0
         self.disconnects = 0
         self.unknown_verbs: Dict[str, int] = {}
+        # StallWatchdog beat (set by the learner): the writer and
+        # reader threads prove liveness once per loop pass
+        self.liveness_hook = None
         for conn in conns:
             self.add_connection(conn)
         self.shutdown_flag = False
@@ -353,6 +356,9 @@ class QueueCommunicator:
 
     def _send_loop(self):
         while not self.shutdown_flag:
+            hook = self.liveness_hook
+            if hook is not None:
+                hook("send_loop")
             try:
                 conn, send_data = self.output_queue.get(timeout=0.3)
             except queue.Empty:
@@ -385,6 +391,9 @@ class QueueCommunicator:
 
     def _recv_loop(self):
         while not self.shutdown_flag:
+            hook = self.liveness_hook
+            if hook is not None:
+                hook("recv_loop")
             with self._lock:
                 conns = list(self.conns)
             if not conns:

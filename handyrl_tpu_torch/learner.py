@@ -83,8 +83,25 @@ hosts the pool router with this learner's frontend announced into it,
 and ``status_port`` serves the read-only status JSON; each tier is
 supervised behind backoff and a windowed breaker.
 
-Left for later items: the runtime guards (retrace, sharding, numerics,
-lock order, stall), the resource ledger, meshes and multihost.
+The runtime guards are the JAX package's (:mod:`.analysis.guards`), on
+by default: each update step runs through a ``RetraceGuard`` and a
+``NumericsGuard`` (``max_update_compiles`` and ``max_nonfinite_steps``
+budgets), a ``HostTransferGuard`` is armed around the trainer thread,
+a ``StallWatchdog`` samples the server loop and the communicator's
+reader and writer, a ``LockOrderGuard`` wraps the control plane's
+locks and a ``ResourceLedger`` samples fds, threads and shm segments
+(``max_fd_growth``).  Every epoch record carries ``retrace_count``,
+``host_transfers``, ``numerics_contract_breaks``, ``weak_upcasts``,
+``nonfinite_steps``, ``stall_events``, ``lock_contention_sec``,
+``lock_order_inversions``, ``fd_count``, ``thread_count``,
+``shm_segments`` and ``resource_growth``.  The sharding guard waits for
+meshes and multihost, which are not ported.
+
+Chaos reaches every layer the JAX package's does: besides the gather
+and service kills, ``chaos.serve_kill_epoch`` silences this replica's
+frontend and announcer once, and ``_serving_tick`` respawns both; the
+workers' shm brownout stamps episodes with their backlog depth, which
+intake reduces into ``upload_backlog`` per epoch.
 """
 
 import functools
@@ -107,6 +124,14 @@ except ImportError:  # pragma: no cover
     psutil = None
 
 from . import telemetry
+from .analysis import (
+    HostTransferGuard,
+    LockOrderGuard,
+    NumericsGuard,
+    ResourceLedger,
+    RetraceGuard,
+    StallWatchdog,
+)
 from .anakin import AnakinConfig, AnakinEngine
 from .batch import make_batch
 from .connection import MultiProcessJobExecutor
@@ -371,8 +396,24 @@ class Trainer:
                                  device=self.device)
         self.emergency = None      # threading.Event armed by SIGTERM
         self.manifest = None       # set by the Learner
+        self.stall_beat = None     # StallWatchdog beat (set by Learner)
         self.started_at = None     # monotonic: training loop entered
         self.first_step_at = None  # monotonic: first step enqueued
+        # the runtime guards of every update step: its call signatures
+        # must stay one per run (max_update_compiles > 0 asserts it
+        # after every step), its arguments keep their first dtypes and
+        # its in-graph nonfinite flag stays 0; device->host syncs are
+        # counted while the trainer thread runs
+        self.retrace_guard = RetraceGuard(
+            max_compiles=args.get("max_update_compiles", 0),
+            name="update_step")
+        self.num_guard = (
+            NumericsGuard(max_nonfinite=args.get("max_nonfinite_steps", 0),
+                          name="update_step")
+            if args.get("numerics_guard", True) else None)
+        self.transfer_guard = (HostTransferGuard()
+                               if args.get("host_transfer_guard", True)
+                               else None)
 
         self.spec = model.spec
         self.module = build_module(self.spec, self.device).train()
@@ -409,20 +450,28 @@ class Trainer:
         self.device_replay = (None if self.anakin is not None
                               else self._maybe_device_replay())
         self._replay_step = None
+        self._host_step = None
         self.batcher = None
         if self.device_replay is not None:
             # seeded from the config seed and the resumed step count, so
             # a restart draws a fresh, reproducible stream
-            self._replay_step = make_replay_update_step(
+            self._replay_step = self._guarded(make_replay_update_step(
                 self.device_replay, self.update_step,
                 batch_size=args["batch_size"],
-                seed=int(args.get("seed", 0)) * 1_000_003 + self.steps)
+                seed=int(args.get("seed", 0)) * 1_000_003 + self.steps))
             self._step_label = "replay_step"
         elif self.anakin is None:
             print("WARNING: device_replay is off — training from the "
                   "host batcher path (batches assembled on the CPU and "
                   "copied to the device every step)")
             self.batcher = Batcher(self.args, self.episodes)
+            self._host_step = self._guarded(self.update_step)
+
+    def _guarded(self, step):
+        """``step`` behind the numerics guard, then the retrace guard."""
+        if self.num_guard is not None:
+            step = self.num_guard.wrap(step)
+        return self.retrace_guard.wrap(step)
 
     def _maybe_build_anakin(self):
         """Arm the fused on-device rollout + update when ``anakin`` is
@@ -453,7 +502,7 @@ class Trainer:
             print(f"WARNING: anakin unavailable ({exc}); falling back "
                   "to the worker path")
             return
-        self._anakin_step = self.anakin.make_fused_step()
+        self._anakin_step = self._guarded(self.anakin.make_fused_step())
         self._step_label = "anakin_step"
         # the carry folds the resumed step count into its generator's
         # seed, so a restart continues on fresh data reproducibly
@@ -596,6 +645,10 @@ class Trainer:
         Returns ``(None, steps)`` if the training thread has died."""
         self.update_flag = True
         while True:
+            if self.stall_beat is not None:
+                # the caller IS the server loop: a long epoch stays
+                # distinguishable from a wedged server
+                self.stall_beat("server")
             try:
                 return self.update_queue.get(timeout=1)
             except queue.Empty:
@@ -621,7 +674,7 @@ class Trainer:
             with self.timers.section("update"):
                 batch = stage_batch(batch, self.device, self.compute_dtype)
                 metric_acc.append(self.costmodel.call(
-                    self._step_label, self.update_step, batch))
+                    self._step_label, self._host_step, batch))
             self.trace.tick()
             if self.first_step_at is None:
                 self.first_step_at = time.monotonic()
@@ -642,6 +695,9 @@ class Trainer:
             self._maybe_emergency_save()
             with self.timers.section("ingest"):
                 replay.ingest(max_episodes=8)
+            # a ring growth re-lays the buffers: designed, so it widens
+            # the retrace budget instead of tripping it
+            self.retrace_guard.allowance = replay.growths
             if cap and batch_cnt >= cap:
                 time.sleep(0.01)
                 continue
@@ -740,8 +796,21 @@ class Trainer:
         record.update(
             epoch_steps=batch_cnt, lr=lr,
             grad_norm_mean=float(metrics["grad_norm"].mean()),
-            nonfinite_steps=int(metrics["nonfinite"].sum()),
             is_clip_frac=round(float(metrics["clip_frac"].mean()), 4))
+        # the guards' counters: the signature count is cumulative and
+        # must stay flat after the first epoch; host transfers are the
+        # epoch's delta and must not grow with the step count
+        record["retrace_count"] = self.retrace_guard.compiles
+        if self.transfer_guard is not None:
+            record["host_transfers"] = self.transfer_guard.snapshot()
+        if self.num_guard is not None:
+            # the steps' flags rode the epoch's one host copy; note_step
+            # raises NumericsError past an armed max_nonfinite_steps
+            for flag in metrics["nonfinite"]:
+                self.num_guard.note_step(flag)
+            record.update(self.num_guard.snapshot())
+        else:
+            record["nonfinite_steps"] = int(metrics["nonfinite"].sum())
         replay = self.device_replay
         if replay is not None:
             record.update(replay="device", replay_device=str(replay.device),
@@ -792,6 +861,10 @@ class Trainer:
 
     def run(self):
         print("waiting training")
+        if self.transfer_guard is not None:
+            # armed for the trainer's whole life; train() reports the
+            # per-epoch delta
+            self.transfer_guard.__enter__()
         try:
             # Anakin warms nothing: the first fused step makes its data
             if self.device_replay is not None:
@@ -850,6 +923,8 @@ class Trainer:
             except Exception:
                 pass
         finally:
+            if self.transfer_guard is not None:
+                self.transfer_guard.__exit__(None, None, None)
             self.trace.close()  # this thread owns the profiler window
 
 
@@ -905,6 +980,16 @@ class Learner:
     _router_respawns = 0
     _router_respawn_at = 0.0
     _router_disabled = False
+    _serve_kill_epoch = 0
+    _serve_killed = False
+    # the runtime guards (built in __init__; off = None)
+    stall_watchdog = None
+    lock_guard = None
+    resource_ledger = None
+    # the workers' shm brownout: deepest hold backlog stamped on an
+    # episode at intake, this epoch (metrics) and this run (status)
+    _upload_backlog_epoch = 0
+    _upload_backlog_peak = 0
 
     def __init__(self, args, net=None, device=DEFAULT_DEVICE, remote=False):
         from .config import Config
@@ -1024,6 +1109,7 @@ class Learner:
 
         self.infer_service = None
         self._infer_kill_epoch = chaos.infer_kill_epoch
+        self._serve_kill_epoch = chaos.serve_kill_epoch
         self._infer_killed = False
         self._infer_respawns = 0
         self._infer_respawn_at = 0.0
@@ -1036,9 +1122,10 @@ class Learner:
             with self._startup.section("service"):
                 self.infer_service = InferenceService(
                     self.model, pipeline_cfg, epoch=self.model_epoch,
-                    device=self.device)
+                    device=self.device, chaos=chaos)
                 self.infer_service.start()
         self._build_serving()
+        self._build_guards()
 
         # SIGTERM = preemption notice: durable state first (the
         # emergency checkpoint and the WAL seal inside the grace
@@ -1122,6 +1209,44 @@ class Learner:
             self.status = StatusServer(status_port, self._status_snapshot,
                                        healthz_fn=healthz_fn)
 
+    def _build_guards(self):
+        """The control plane's runtime guards, as the JAX learner arms
+        them: the stall watchdog over the server loop (beating from
+        ``trainer.update`` too) and the communicator's reader and
+        writer, with the flight recorder's dump on a stall; the lock
+        guard (armed in :meth:`run`, once the fleet's supervisor
+        exists); the resource ledger."""
+        if self.args.get("stall_watchdog", True):
+            self.stall_watchdog = StallWatchdog(
+                max_stall_seconds=float(
+                    self.args.get("max_stall_seconds", 60.0) or 60.0))
+            self.worker.liveness_hook = self.stall_watchdog.beat
+            self.trainer.stall_beat = self.stall_watchdog.beat
+            self.stall_watchdog.on_stall = telemetry.stall_hook
+            self.stall_watchdog.start()
+        if self.args.get("lock_order_guard", True):
+            self.lock_guard = LockOrderGuard()
+        if self.args.get("resource_ledger", True):
+            self.resource_ledger = ResourceLedger(
+                max_fd_growth=int(self.args.get("max_fd_growth", 0) or 0))
+
+    def _arm_lock_guard(self):
+        """Wrap every control-plane lock this configuration has in the
+        lock guard's timing proxy (absent subsystems are skipped)."""
+        if self.lock_guard is None:
+            return
+        for obj, attr in (
+                (self.worker, "_lock"),
+                (self.worker, "_admit_lock"),
+                (getattr(self.worker, "supervisor", None), "_lock"),
+                (self.fleet, "_lock"),
+                (self.infer_service, "_lock"),
+                (self.serve_frontend, "_lock"),
+                (self.router_frontend, "_lock"),
+                (self.stall_watchdog, "_lock"),
+        ):
+            self.lock_guard.arm(obj, attr)
+
     def _status_snapshot(self):
         """Live JSON for the status endpoint: fleet + telemetry + the
         latest per-epoch metrics record.  Read-only by construction."""
@@ -1136,9 +1261,15 @@ class Learner:
             "telemetry": telemetry.stats(),
             "last_record": self._last_record,
         }
+        if self.lock_guard is not None:
+            snap["locks"] = self.lock_guard.stats()
+        if self.resource_ledger is not None:
+            snap["resources"] = self.resource_ledger.stats()
         if self.wal is not None:
             snap["wal"] = self.wal.stats()
         trainer = self.trainer
+        if trainer.num_guard is not None:
+            snap["numerics"] = trainer.num_guard.stats()
         perf = trainer.costmodel.stats()
         perf["attribution"] = self.attributor.last
         snap["perf"] = perf
@@ -1154,6 +1285,8 @@ class Learner:
                 "respawns": self._infer_respawns,
                 "episodes_shm": self.episodes_shm,
                 "episodes_spilled": self.episodes_spilled,
+                # the run's peak: every key here is cumulative-monotone
+                "upload_backlog_peak": self._upload_backlog_peak,
             }
         if self.serve_frontend is not None:
             snap["serving"] = {
@@ -1342,6 +1475,18 @@ class Learner:
                 print(f"CHAOS: killing the inference service at epoch "
                       f"{self.model_epoch}")
                 self.infer_service.inject_kill()
+        if (self.serve_frontend is not None
+                and self._serve_kill_epoch > 0 and not self._serve_killed
+                and self.model_epoch >= self._serve_kill_epoch):
+            # pool-routing chaos: this replica goes SILENT (frontend and
+            # announcer die without a goodbye); the router must evict it
+            # on missing beats, and _serving_tick respawns both
+            self._serve_killed = True
+            print(f"CHAOS: killing the serving replica at epoch "
+                  f"{self.model_epoch}", flush=True)
+            if self.serve_announcer is not None:
+                self.serve_announcer.kill()
+            self.serve_frontend.inject_kill()
         os.makedirs(_models_dir(), exist_ok=True)
         # the JAX package's checkpoint format: both packages read it
         state = {"params": to_flax(model.module), "steps": steps,
@@ -1388,9 +1533,17 @@ class Learner:
     def feed_episodes(self, episodes):
         arrived = [e for e in episodes if e is not None]
         for episode in arrived:
+            # the shm plane's stamps, popped before the WAL or the ring
+            # see the episode: a control-plane spill, and the worker's
+            # hold-backlog depth at ship time
             if episode.pop("shm_spilled", False):
                 self.episodes_spilled += 1
                 self._spilled_epoch += 1
+            backlog = int(episode.pop("upload_backlog", 0))
+            self._upload_backlog_epoch = max(self._upload_backlog_epoch,
+                                             backlog)
+            self._upload_backlog_peak = max(self._upload_backlog_peak,
+                                            backlog)
         # admission control: past-budget episodes are counted and
         # dropped; they still tick the intake clock below.  Each
         # admitted episode's lag feeds the epoch's policy_lag_* record
@@ -1571,9 +1724,13 @@ class Learner:
             record.update(self.infer_service.epoch_stats())
             record["infer_respawns"] = self._infer_respawns
             record["infer_param_loads"] = self.infer_service.param_loads
+            # shm + spilled episodes reconcile against arrivals: a surge
+            # hold shows as spills and backlog, never as loss
             record["episodes_shm"] = self._shm_epoch
             record["episodes_spilled"] = self._spilled_epoch
+            record["upload_backlog"] = self._upload_backlog_epoch
             self._shm_epoch = self._spilled_epoch = 0
+            self._upload_backlog_epoch = 0
         if self.serve_frontend is not None:
             # per-epoch request/ok/shed/error counts, QPS and the log2
             # histogram's latency reduction; sheds are typed replies
@@ -1582,6 +1739,18 @@ class Learner:
         if self.router_frontend is not None:
             record.update(self.router_frontend.epoch_stats())
             record["router_respawns"] = self._router_respawns
+        if self.stall_watchdog is not None:
+            # control-plane loops silent past max_stall_seconds this
+            # epoch; steady state 0
+            record["stall_events"] = self.stall_watchdog.snapshot()
+        if self.lock_guard is not None:
+            # waits on control-plane locks and ABBA order inversions
+            # this epoch; steady state (~0, 0)
+            record.update(self.lock_guard.snapshot())
+        if self.resource_ledger is not None:
+            # fd/thread/shm populations and fd growth over the
+            # post-warm-up baseline (ResourceError past max_fd_growth)
+            record.update(self.resource_ledger.snapshot())
         # wall-time reconciliation: the residual is DEFINED over the
         # record's own rounded values, so epoch_wall_sec ==
         # sum(profile_*_sec) + untracked_residual_sec holds exactly
@@ -1766,6 +1935,8 @@ class Learner:
         next_epoch_at = (self.args["minimum_episodes"]
                          + self.args["update_episodes"])
         while self.worker.connection_count() > 0 or not self.shutdown_flag:
+            if self.stall_watchdog is not None:
+                self.stall_watchdog.beat("server")
             try:
                 conn, (verb, payload) = self.worker.recv(timeout=0.3)
             except queue.Empty:
@@ -1968,6 +2139,7 @@ class Learner:
                                           daemon=True)
         trainer_thread.start()
         self.worker.run()
+        self._arm_lock_guard()
         try:
             self.server()
         finally:
@@ -1976,6 +2148,10 @@ class Learner:
             trainer_thread.join(timeout=30)
             self.trainer.stop_feeds()
             self.worker.shutdown()
+            if self.stall_watchdog is not None:
+                # the loops stop beating by design now: a late sample
+                # must not report teardown as a stall
+                self.stall_watchdog.stop()
             if self.status is not None:
                 self.status.close()
             if self.serve_announcer is not None:

@@ -17,11 +17,17 @@ so a run can show that the service did the work.
 Recurrent models are never wrapped: their hidden state lives on the
 worker.  A training worker finds the service with
 :func:`attach_pipeline`, a handshake over the learner's control plane.
-The chaos-driven surge brownout comes with the resilience item.
+
+The client owns the worker side of the chaos drills: with ``chaos``
+shm faults armed its three ring endpoints are wrapped in
+:class:`~..resilience.chaos.ChaosRing` (seeded as in the JAX package),
+and ``chaos.surge_hold_uploads`` browns out its episode shipping
+(:meth:`PipelineClient.ship_episode`).
 """
 
+import random
 import time
-from collections import Counter
+from collections import Counter, deque
 
 import numpy as np
 
@@ -51,9 +57,11 @@ def attach_pipeline(conn, env, args):
     None — pipeline off, the learner refused (shutting down), or the
     rings could not be mapped — and the worker keeps local inference."""
     from ..connection import send_recv
+    from ..resilience.chaos import ChaosConfig
     from .config import PipelineConfig
 
     cfg = PipelineConfig.from_config(args.get("pipeline") or {})
+    chaos = ChaosConfig.from_config(args.get("chaos") or {})
     if not cfg.enabled:
         return None
     lockstep = int(args.get("lockstep_episodes", 1) or 1)
@@ -65,7 +73,7 @@ def attach_pipeline(conn, env, args):
     if not desc:
         return None
     try:
-        return PipelineClient(desc, cfg)
+        return PipelineClient(desc, cfg, chaos=chaos)
     except (FileNotFoundError, OSError, ValueError) as exc:
         print(f"pipeline attach failed ({exc!r}); "
               "falling back to local inference")
@@ -73,11 +81,27 @@ def attach_pipeline(conn, env, args):
 
 
 class PipelineClient:
-    """One worker's mapped endpoint of the shm transport."""
+    """One worker's mapped endpoint of the shm transport.
+
+    Beyond the request/reply round trip, the client owns the worker
+    side of the SURGE BROWNOUT (``chaos.surge_hold_uploads`` browns out
+    shm-shipped episodes as the gather holds its control-plane
+    uploads): when the job stream (:meth:`note_jobs`) first carries a
+    model id at or past ``chaos.surge_epoch``, :meth:`ship_episode`
+    stages finished episodes in a bounded FIFO backlog
+    (``pipeline.traj_slots``) for the hold window instead of the
+    trajectory ring; overflow spills to the control plane (stamped
+    ``shm_spilled``, counted, never dropped), and the drain after the
+    hold is paced, a small block per shipped episode.  Episodes shipped
+    while a backlog remains carry its depth (``upload_backlog``)."""
 
     DEGRADE_AFTER = 3  # consecutive reply timeouts before giving up
+    DRAIN_BLOCK = 2    # backlog items drained per shipped episode
 
-    def __init__(self, desc, cfg, clock=time.monotonic, sleep=time.sleep):
+    def __init__(self, desc, cfg, clock=time.monotonic, sleep=time.sleep,
+                 chaos=None):
+        from ..resilience.chaos import maybe_chaos_ring
+
         self.cfg = cfg
         self.clock = clock
         self.sleep = sleep
@@ -86,6 +110,25 @@ class PipelineClient:
         self.req = ShmRing.attach(**desc["req"])
         self.rsp = ShmRing.attach(**desc["rsp"])
         self.traj = ShmRing.attach(**desc["traj"])
+        if chaos is not None and chaos.shm_faults_enabled:
+            # this endpoint produces on req/traj and consumes rsp: the
+            # wrappers arm exactly the faults its role can express, from
+            # one RNG seeded as the JAX client seeds it
+            rng = random.Random((chaos.seed << 20) ^ 0x5AD0
+                                ^ int(self.client_id))
+            self.req = maybe_chaos_ring(self.req, chaos, rng=rng)
+            self.rsp = maybe_chaos_ring(self.rsp, chaos, rng=rng)
+            self.traj = maybe_chaos_ring(self.traj, chaos, rng=rng)
+        # surge brownout: armed from the chaos config, triggered by the
+        # job stream (note_jobs)
+        self._surge_epoch = chaos.surge_epoch if chaos else 0
+        self._surge_hold = chaos.surge_hold_uploads if chaos else 0.0
+        self._surge_pending = (chaos is not None and chaos.surges_enabled
+                               and self._surge_hold > 0)
+        self._hold_until = 0.0
+        self.backlog = deque()
+        self.backlog_cap = int(cfg.traj_slots)
+        self.episodes_held = 0     # episodes staged by a hold
         self.seq = 0
         self.fallbacks = 0         # served calls answered locally
         self.fallback_causes = Counter()  # why, one key per fallback
@@ -201,6 +244,83 @@ class PipelineClient:
             return True
         self.episodes_spilled += 1
         return False
+
+    # -- surge brownout -----------------------------------------------
+    def note_jobs(self, jobs):
+        """Arm the surge hold when the job stream first carries a model
+        id at or past ``chaos.surge_epoch`` (the gather's trigger)."""
+        if not self._surge_pending:
+            return
+        for job in jobs:
+            ids = (job or {}).get("model_id") or {}
+            if any(v >= self._surge_epoch for v in ids.values()):
+                self._surge_pending = False
+                self._hold_until = self.clock() + self._surge_hold
+                print(f"pipeline client {self.client_id}: surge — "
+                      f"holding shm episode shipping for "
+                      f"{self._surge_hold:.1f}s")
+                return
+
+    def holding(self):
+        return self.clock() < self._hold_until
+
+    def _spill_overflow(self, episode):
+        """An episode the hold window cannot buffer: stamped and counted
+        for the control plane, spilled, never dropped."""
+        episode["shm_spilled"] = True
+        episode["upload_backlog"] = len(self.backlog)
+        self.episodes_spilled += 1
+        return episode
+
+    def ship_episode(self, episode):
+        """Route one finished episode: the trajectory ring, the surge
+        backlog, or the control plane.  Returns the episodes the CALLER
+        must ship over the control plane, each stamped ``shm_spilled``:
+        empty when everything rode shared memory or was staged."""
+        if self.holding():
+            self.backlog.append(episode)
+            self.episodes_held += 1
+            spill = []
+            while len(self.backlog) > self.backlog_cap:
+                spill.append(self._spill_overflow(self.backlog.popleft()))
+            return spill
+        # paced FIFO drain: the current episode joins the tail and a
+        # small block ships from the head, so a post-hold backlog drains
+        # over the next few episodes instead of as one burst
+        self.backlog.append(episode)
+        spill = []
+        budget = min(len(self.backlog), 1 + self.DRAIN_BLOCK)
+        while self.backlog and budget > 0:
+            budget -= 1
+            ep = self.backlog.popleft()
+            if self.backlog:
+                ep["upload_backlog"] = len(self.backlog)
+            if not self.push_episode(ep):  # counted spilled inside
+                ep["shm_spilled"] = True
+                spill.append(ep)
+        return spill
+
+    def flush_backlog(self):
+        """Exit drain: everything still held ships NOW, over the ring
+        where it fits, else returned for the control plane."""
+        self._hold_until = 0.0
+        spill = []
+        while self.backlog:
+            ep = self.backlog.popleft()
+            if not self.push_episode(ep):
+                ep["shm_spilled"] = True
+                spill.append(ep)
+        return spill
+
+    def chaos_counts(self):
+        """Faults this endpoint's chaos rings injected, summed over its
+        three rings (empty when shm chaos is off)."""
+        if not hasattr(self.traj, "torn_injected"):
+            return {}
+        keys = ("torn_injected", "full_injected", "truncated_injected",
+                "stalls_injected")
+        return {key: sum(getattr(ring, key) for ring in
+                         (self.req, self.rsp, self.traj)) for key in keys}
 
     def close(self):
         self.board.close()

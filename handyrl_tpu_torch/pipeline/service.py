@@ -44,10 +44,18 @@ pinned group dispatches with that snapshot's module from the LRU
 never re-copies a snapshot per dispatch.  Every dispatch records an
 ``infer.batch`` span (rows, window wait, epoch).
 
-Not ported yet: the GSPMD/mesh dispatch, the retrace and sharding
-guards, and the shm chaos hooks.
+Shm chaos (``chaos.shm_*``): the service's board and its end of every
+client's rings are wrapped in :class:`~..resilience.chaos.ChaosBoard` /
+:class:`~..resilience.chaos.ChaosRing`, seeded as in the JAX service,
+so reply pushes can tear, truncate or be refused, request and
+trajectory pops can stall, and heartbeats can be withheld or
+backdated; ``stats()`` then carries the injected counts (``chaos``).
+
+Not ported yet: the GSPMD/mesh dispatch, the service's own retrace
+guard (``infer_compiles``) and the sharding guard.
 """
 
+import random
 import threading
 import time
 import traceback
@@ -133,7 +141,9 @@ class InferenceService:
     BUCKET_FLOOR = 8
 
     def __init__(self, model, cfg, epoch=0, device=DEFAULT_DEVICE,
-                 clock=time.monotonic, sleep=time.sleep):
+                 clock=time.monotonic, sleep=time.sleep, chaos=None):
+        from ..resilience.chaos import maybe_chaos_board
+
         self.cfg = cfg
         self.device = resolve_device(device)
         self.clock = clock
@@ -161,7 +171,17 @@ class InferenceService:
         # non-live pin unroutable (a typed error upstream)
         self.model_resolver = None
         self.net_requests = 0        # cumulative network-plane frames
-        self.board = ShmBoard.create()
+        # shm chaos: this side produces replies and consumes requests
+        # and trajectories, and its heartbeat can be withheld or
+        # backdated; one RNG seeded as the JAX service seeds it
+        self._chaos = chaos if (chaos is not None
+                                and (chaos.shm_faults_enabled
+                                     or chaos.shm_beat_faults_enabled)
+                                ) else None
+        self._chaos_rng = (random.Random((chaos.seed << 20) ^ 0xB0A2)
+                           if self._chaos is not None else None)
+        self.board = maybe_chaos_board(ShmBoard.create(), self._chaos,
+                                       rng=self._chaos_rng)
         self._thread = None
         self._stop = False
         self._kill = False           # chaos: die WITHOUT a parting beat
@@ -194,15 +214,21 @@ class InferenceService:
             for shape, dtype in leaf_specs)
         need = 16 + 2 * rows_max * max(1, row_bytes)
         slot = max(int(self.cfg.slot_bytes), need)
+        from ..resilience.chaos import maybe_chaos_ring
+
+        def ring(slots, slot_bytes):
+            return maybe_chaos_ring(ShmRing.create(slots, slot_bytes),
+                                    self._chaos, rng=self._chaos_rng)
+
         with self._lock:
             cid = self._next_cid
             self._next_cid += 1
             client = _Client(
                 cid,
-                req=ShmRing.create(self.cfg.ring_slots, slot),
-                rsp=ShmRing.create(self.cfg.ring_slots, slot),
-                traj=ShmRing.create(self.cfg.traj_slots,
-                                    int(self.cfg.traj_slot_mb) << 20),
+                req=ring(self.cfg.ring_slots, slot),
+                rsp=ring(self.cfg.ring_slots, slot),
+                traj=ring(self.cfg.traj_slots,
+                          int(self.cfg.traj_slot_mb) << 20),
                 leaf_specs=leaf_specs,
                 example=spec["example"],
                 rows_max=rows_max,
@@ -337,11 +363,27 @@ class InferenceService:
             out["infer_dispatch_ms_p99"] = 1e3 * _percentile(secs, 0.99)
         return out
 
+    def chaos_counts(self):
+        """Faults the service's chaos wrappers injected (empty when shm
+        chaos is off)."""
+        if self._chaos is None:
+            return {}
+        with self._lock:
+            rings = [r for c in self._clients.values()
+                     for r in (c.req, c.rsp, c.traj)]
+        counts = {key: sum(getattr(r, key, 0) for r in rings)
+                  for key in ("torn_injected", "full_injected",
+                              "truncated_injected", "stalls_injected")}
+        counts["beats_dropped"] = getattr(self.board, "beats_dropped", 0)
+        counts["beats_delayed"] = getattr(self.board, "beats_delayed", 0)
+        return counts
+
     def stats(self):
         """Cumulative snapshot (status endpoint)."""
         with self._lock:
             n = len(self._clients)
-        return {
+        chaos = self.chaos_counts()
+        return {**({"chaos": chaos} if chaos else {}),
             "clients": n,
             "epoch": self._epoch,
             "alive": self.alive,

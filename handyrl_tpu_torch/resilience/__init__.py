@@ -11,8 +11,8 @@ copy (plain Python, no framework):
     the ``fleet_size`` / ``respawns`` / ``heartbeat_misses`` metrics.
   * :mod:`.chaos` — fault injection: kill gathers at configured
     rates/points, delay/drop/truncate control-plane frames, SIGKILL the
-    learner itself (:class:`LearnerKillSwitch`).  The shm-plane hooks
-    are not ported yet; their keys are refused.
+    learner itself (:class:`LearnerKillSwitch`), and fault the shm
+    pipeline plane (:class:`ChaosRing` / :class:`ChaosBoard`).
   * :mod:`.guardian` — :class:`LearnerGuard` relaunches a crashed
     learner with ``restart_epoch: auto`` behind the same backoff and
     circuit breaker.
@@ -21,10 +21,14 @@ Nothing here touches the device.
 """
 
 from .chaos import (
+    ChaosBoard,
     ChaosConfig,
     ChaosConnection,
     ChaosMonkey,
+    ChaosRing,
     LearnerKillSwitch,
+    maybe_chaos_board,
+    maybe_chaos_ring,
 )
 from .guardian import LearnerGuard
 from .health import FleetRegistry
@@ -32,12 +36,16 @@ from .supervisor import BackoffPolicy, SlotState, Supervisor
 
 __all__ = [
     "BackoffPolicy",
+    "ChaosBoard",
     "ChaosConfig",
     "ChaosConnection",
     "ChaosMonkey",
+    "ChaosRing",
     "FleetRegistry",
     "LearnerGuard",
     "LearnerKillSwitch",
     "SlotState",
     "Supervisor",
+    "maybe_chaos_board",
+    "maybe_chaos_ring",
 ]

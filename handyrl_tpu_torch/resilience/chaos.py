@@ -1,7 +1,7 @@
-"""Fault injection: kill children, corrupt control-plane frames.
+"""Fault injection: kill children, corrupt frames, fault the shm plane.
 
-A copy of ``handyrl_tpu.resilience.chaos`` without its shm-plane
-hooks.  The chaos harness makes failure a configured input:
+A copy of ``handyrl_tpu.resilience.chaos``.  The chaos harness makes
+failure a configured input:
 
   * :class:`ChaosMonkey` kills supervised gathers at a configured
     rate/point and fires scheduled surges (burst kills + a respawn
@@ -10,15 +10,22 @@ hooks.  The chaos harness makes failure a configured input:
     once per run directory (the durability drill);
   * :class:`ChaosConnection` wraps a connection and drops, delays, or
     truncates whole frames, driving the receiver's ``FrameError`` /
-    dead-peer paths.
+    dead-peer paths;
+  * :class:`ChaosRing` / :class:`ChaosBoard` wrap the shm pipeline
+    plane (:mod:`handyrl_tpu_torch.pipeline.shm`): torn slots (a
+    producer dying mid-RESERVE-THEN-FILL), forced full-ring
+    backpressure, truncated payloads, stalled consumers, and withheld
+    or backdated service heartbeats.
 
-:class:`ChaosConfig` parses the JAX package's full key set.  The keys
-of hooks the port does not have yet — the shm rings and board
-(``shm_*``) and the serving-replica kill (``serve_kill_epoch``) — are
-refused with "not ported yet" when set, never silently ignored.
+:class:`ChaosConfig` parses and validates the JAX package's full key
+set, and every key takes effect: the serving-replica kill
+(``serve_kill_epoch``) is the learner's, the surge's upload hold
+(``surge_hold_uploads``) browns out both the gathers and the workers'
+shm shipping.
 
-All randomness flows through one injectable RNG (``seed`` in the
-config), so chaos tests are seedable.
+All randomness flows through injectable RNGs seeded from ``seed`` in
+the config, with the JAX package's seeds, so the same seed injects the
+same fault sequence in both packages.
 """
 
 import os
@@ -29,12 +36,6 @@ import struct
 import time
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Dict, Optional
-
-
-# keys whose hooks the port does not have yet: refused when set
-_NOT_PORTED = ("shm_tear_prob", "shm_full_prob", "shm_truncate_prob",
-               "shm_stall_prob", "shm_beat_drop_prob",
-               "shm_beat_delay_prob", "serve_kill_epoch")
 
 
 @dataclass
@@ -113,13 +114,6 @@ class ChaosConfig:
         if unknown:
             raise ValueError(f"unknown chaos keys: {sorted(unknown)}")
         cfg = cls(**raw)
-        unported = [f.name for f in fields(cls)
-                    if f.name in _NOT_PORTED and getattr(cfg, f.name)]
-        if unported:
-            raise ValueError(
-                f"chaos keys {unported} set: not ported yet to "
-                f"handyrl_tpu_torch (the shm and serving chaos hooks; "
-                f"use main.py for the JAX package)")
         for name in ("kill_prob", "frame_drop_prob",
                      "frame_truncate_prob", "frame_delay_prob",
                      "shm_tear_prob", "shm_full_prob",
@@ -174,6 +168,22 @@ class ChaosConfig:
     @property
     def infer_kill_enabled(self) -> bool:
         return self.infer_kill_epoch > 0
+
+    @property
+    def serve_kill_enabled(self) -> bool:
+        return self.serve_kill_epoch > 0
+
+    @property
+    def shm_faults_enabled(self) -> bool:
+        return (self.shm_tear_prob > 0.0
+                or self.shm_full_prob > 0.0
+                or self.shm_truncate_prob > 0.0
+                or self.shm_stall_prob > 0.0)
+
+    @property
+    def shm_beat_faults_enabled(self) -> bool:
+        return (self.shm_beat_drop_prob > 0.0
+                or self.shm_beat_delay_prob > 0.0)
 
 
 class ChaosMonkey:
@@ -303,6 +313,172 @@ class LearnerKillSwitch:
               "drill, resume should recover")
         self._kill()
         return True
+
+
+class ChaosRing:
+    """A :class:`~handyrl_tpu_torch.pipeline.shm.ShmRing` wrapper
+    injecting shm-plane faults from the seeded chaos RNG.
+
+    Producer faults ride ``push`` (each side of a ring only exercises
+    its own role's methods, so wrapping both endpoints never doubles a
+    fault class):
+
+      * **tear**: a producer dying mid-RESERVE-THEN-FILL.  The odd
+        seqlock stamp and the head bump publish the reservation, then
+        nothing: no payload, no even stamp, exactly what a SIGKILLed
+        writer leaves.  Returns True: a dead producer reports nothing,
+        so the item is lost as it would be with a real death;
+      * **full**: forced backpressure, refused and counted in the shm
+        header like a genuinely full ring;
+      * **truncate**: half the payload lands under a complete stamp,
+        with the cut length recorded, so every codec's decode fails
+        (a truncated pickle raises in ``loads``, a raw request frame in
+        ``np.frombuffer``): the consumer must skip the slot, never
+        crash and never read garbage silently.
+
+    The consumer fault rides ``pop``: **stall** pretends nothing is
+    readable, so the ring backs up and the producer's full-ring path
+    engages on its own.  Everything else delegates to the wrapped ring.
+    The layout is the JAX package's byte for byte, and so is the order
+    of the RNG draws: one per push, one per pop.
+    """
+
+    def __init__(self, inner, cfg: ChaosConfig,
+                 rng: Optional[random.Random] = None):
+        self.inner = inner
+        self.cfg = cfg
+        self.rng = rng if rng is not None else random.Random(cfg.seed)
+        self.torn_injected = 0
+        self.full_injected = 0
+        self.truncated_injected = 0
+        self.stalls_injected = 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __len__(self):
+        return len(self.inner)
+
+    @staticmethod
+    def _parts_bytes(parts):
+        if isinstance(parts, (bytes, bytearray, memoryview)):
+            return bytes(parts)
+        return b"".join(bytes(p) for p in parts)
+
+    def _fits(self, length, shm):
+        ring = self.inner
+        head = ring._get(shm._HEAD)
+        return (length <= ring.slot_bytes
+                and head - ring._get(shm._TAIL) < ring.slots)
+
+    def _tear(self, shm):
+        """The real push's reservation prefix, then nothing; a consumer
+        with evidence the writer is gone reclaims it (``skip_torn``)."""
+        ring = self.inner
+        head = ring._get(shm._HEAD)
+        shm._put(ring._buf, shm._Q, ring._slot_off(head), 2 * head + 1)
+        ring._set(shm._HEAD, head + 1)
+        self.torn_injected += 1
+        return True
+
+    def _truncate(self, payload, shm):
+        """A complete-looking slot (even stamp) holding the first half
+        of the payload, with the CUT length recorded: a full length
+        would hand the raw request codec a stale tail that decodes
+        silently into wrong observations."""
+        ring = self.inner
+        head = ring._get(shm._HEAD)
+        off = ring._slot_off(head)
+        cut = max(1, len(payload) // 2)
+        shm._put(ring._buf, shm._Q, off, 2 * head + 1)
+        ring._set(shm._HEAD, head + 1)
+        shm._put(ring._buf, shm._Q, off + 8, cut)
+        pos = off + shm._SLOT_HDR
+        ring._buf[pos:pos + cut] = payload[:cut]
+        shm._put(ring._buf, shm._Q, off, 2 * head + 2)
+        self.truncated_injected += 1
+        return True
+
+    def push(self, parts) -> bool:
+        from ..pipeline import shm
+
+        cfg = self.cfg
+        draw = self.rng.random()
+        if draw < (cfg.shm_tear_prob + cfg.shm_full_prob
+                   + cfg.shm_truncate_prob):
+            ring = self.inner
+            if ring._buf is None:
+                return False  # closed: delegate semantics
+            payload = self._parts_bytes(parts)
+            if not self._fits(len(payload), shm):
+                # a genuinely full/oversize ring refuses before any
+                # fault could fire: keep the real (counted) refusal
+                return ring.push(parts)
+            if draw < cfg.shm_tear_prob:
+                return self._tear(shm)
+            draw -= cfg.shm_tear_prob
+            if draw < cfg.shm_full_prob:
+                ring._set(shm._FULL, ring._get(shm._FULL) + 1)
+                self.full_injected += 1
+                return False
+            return self._truncate(payload, shm)
+        return self.inner.push(parts)
+
+    def pop(self, loads=bytes):
+        if self.rng.random() < self.cfg.shm_stall_prob:
+            self.stalls_injected += 1
+            return None  # stalled consumer: the item stays queued
+        return self.inner.pop(loads)
+
+
+class ChaosBoard:
+    """A :class:`~handyrl_tpu_torch.pipeline.shm.ShmBoard` wrapper that
+    withholds or backdates heartbeats: workers watching the board see
+    the beat age out (drop) or jitter old (delay) while the service is
+    in fact alive, the ambiguity the fallback and self-degradation
+    paths have to resolve.  Reads delegate untouched."""
+
+    def __init__(self, inner, cfg: ChaosConfig,
+                 rng: Optional[random.Random] = None):
+        self.inner = inner
+        self.cfg = cfg
+        self.rng = rng if rng is not None else random.Random(cfg.seed)
+        self.beats_dropped = 0
+        self.beats_delayed = 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def beat(self, epoch=None, now=None):
+        cfg = self.cfg
+        draw = self.rng.random()
+        if draw < cfg.shm_beat_drop_prob:
+            self.beats_dropped += 1
+            return  # withheld: the board's age keeps growing
+        draw -= cfg.shm_beat_drop_prob
+        if draw < cfg.shm_beat_delay_prob:
+            self.beats_delayed += 1
+            now = ((time.monotonic() if now is None else now)
+                   - cfg.shm_beat_delay)
+        self.inner.beat(epoch=epoch, now=now)
+
+
+def maybe_chaos_ring(ring, cfg: Optional[ChaosConfig],
+                     rng: Optional[random.Random] = None):
+    """``ring`` in a :class:`ChaosRing` when shm faults are armed,
+    otherwise untouched (zero overhead off)."""
+    if cfg is None or not cfg.shm_faults_enabled:
+        return ring
+    return ChaosRing(ring, cfg, rng=rng)
+
+
+def maybe_chaos_board(board, cfg: Optional[ChaosConfig],
+                      rng: Optional[random.Random] = None):
+    """``board`` in a :class:`ChaosBoard` when beat faults are armed,
+    otherwise untouched."""
+    if cfg is None or not cfg.shm_beat_faults_enabled:
+        return board
+    return ChaosBoard(board, cfg, rng=rng)
 
 
 class ChaosConnection:

@@ -6,4 +6,8 @@ arguments of its twin under the repository's ``scripts/``:
   aux_swa          <first_epoch> <last_epoch> [stride]
   export_model     [model.ckpt] [out.npz]
   make_onnx_model  [model.ckpt] [out.onnx] [--device DEV]
+  plot_metrics     <train.log | metrics.jsonl> [out_prefix]
+  perf_ledger      <run_dir | bench.json>... [--check] [--ledger PATH]
+  export_trace     <run_dir> [out.json]
+  attribution_report <run_dir> [--top N] [--baseline OTHER_RUN]
 """

@@ -1,0 +1,524 @@
+"""Plot training curves from a learner stdout log (or metrics jsonl).
+
+A copy of the repository's ``scripts/plot_metrics.py``, with the same
+arguments, output file names and plots.  The learner's stdout format
+(``updated model(N)``, ``win rate ... = W (w / n)``, ``loss = k:v ...``,
+``generation stats = m +- s``, ``epoch N``) and its ``metrics_path``
+jsonl are the same in both packages, so either package's run plots.
+Keys a run lacks are skipped (``series``), so the port's records, which
+carry no ``resharding_copies``, plot as they are.  Parsing needs only
+the standard library; rendering imports matplotlib when it runs.
+
+Usage:
+  python -m handyrl_tpu_torch.scripts.plot_metrics train.log [out_prefix]
+  python -m handyrl_tpu_torch.scripts.plot_metrics metrics.jsonl [out_prefix]
+"""
+
+import json
+import os
+import sys
+
+
+def parse_stdout_log(path):
+    """Parse learner stdout into a list of per-epoch records."""
+    epochs = []
+    current = None
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if line.startswith("epoch "):
+                try:
+                    current = {"epoch": int(line.split()[1])}
+                except (IndexError, ValueError):
+                    current = {"epoch": len(epochs)}
+                epochs.append(current)
+            elif current is None:
+                continue
+            elif line.startswith("win rate"):
+                parts = line.split()
+                name = "win_rate"
+                if parts[2] != "=":
+                    name += "_" + parts[2].strip("()")
+                try:
+                    games = int(parts[-1].strip("()"))
+                    wp = float(parts[-4]) if games > 0 else 0.0
+                    current[name] = wp
+                    current[name + "_games"] = games
+                except (IndexError, ValueError):
+                    pass
+            elif line.startswith("loss = "):
+                for item in line[len("loss = "):].split():
+                    k, _, v = item.partition(":")
+                    try:
+                        current["loss_" + k] = float(v)
+                    except ValueError:
+                        pass
+            elif line.startswith("generation stats"):
+                parts = line.split()
+                try:
+                    current["generation_mean"] = float(parts[3])
+                    current["generation_std"] = float(parts[5])
+                except (IndexError, ValueError):
+                    pass
+            elif line.startswith("updated"):
+                try:
+                    current["steps"] = int(
+                        line.split("(")[1].rstrip().rstrip(")"))
+                except (IndexError, ValueError):
+                    pass
+    return epochs
+
+
+RAW_LOSS_KEYS = ("p", "v", "r", "ent", "total")
+
+
+def parse_jsonl(path):
+    """Load metrics jsonl, normalizing the learner's raw per-epoch loss
+    keys (p/v/r/ent/total) to the loss_ prefix the plots expect."""
+    epochs = []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            rec = json.loads(line)
+            for k in RAW_LOSS_KEYS:
+                if k in rec:
+                    rec["loss_" + k] = rec.pop(k)
+            epochs.append(rec)
+    return epochs
+
+
+def moving_average(xs, n):
+    if n <= 1 or len(xs) < n:
+        return xs
+    out = []
+    for i in range(len(xs)):
+        lo, hi = max(0, i - n // 2), min(len(xs), i + n // 2 + 1)
+        out.append(sum(xs[lo:hi]) / (hi - lo))
+    return out
+
+
+def series(xs, epochs, key):
+    """(x, y) points for one metric, skipping records that lack the
+    key — older metrics.jsonl files predate newer metric keys and must
+    still plot instead of raising KeyError."""
+    return [(x, e[key]) for x, e in zip(xs, epochs)
+            if key in e and e[key] is not None]
+
+
+def plot(epochs, out_prefix):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    xs = [e.get("epoch", i) for i, e in enumerate(epochs)]
+
+    # win rates (every win_rate* series)
+    wr_keys = sorted({
+        k for e in epochs for k in e
+        if k.startswith("win_rate") and not k.endswith("_games")})
+    if wr_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in wr_keys:
+            ys = [e.get(k) for e in epochs]
+            pts = [(x, y) for x, y in zip(xs, ys) if y is not None]
+            if pts:
+                ax.plot(*zip(*pts), label=k, alpha=0.35)
+                ax.plot(
+                    [p[0] for p in pts],
+                    moving_average([p[1] for p in pts], 9),
+                    label=k + " (avg)")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("win rate")
+        ax.set_ylim(0, 1)
+        ax.legend()
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_win_rate.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_win_rate.png")
+
+    # loss components
+    loss_keys = sorted({
+        k for e in epochs for k in e if k.startswith("loss_")})
+    if loss_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in loss_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k)
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("loss / data count")
+        ax.legend()
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_loss.png", dpi=120, bbox_inches="tight")
+        print(f"wrote {out_prefix}_loss.png")
+
+    # guard counters (analysis.guards via the metrics jsonl):
+    # retrace_count is cumulative and must stay FLAT after epoch 1;
+    # host_transfers is the per-epoch delta and must not grow with the
+    # step count — a rising line on either is a hot-path regression.
+    # The resource-ledger populations ride here too: fd/thread/shm
+    # counts must PLATEAU after bring-up — a staircase is a per-epoch
+    # leak compounding
+    guard_keys = [k for k in ("retrace_count", "host_transfers",
+                              "resharding_copies", "stall_events",
+                              "lock_contention_sec",
+                              "lock_order_inversions",
+                              "nonfinite_steps",
+                              "numerics_contract_breaks",
+                              "weak_upcasts",
+                              "fd_count", "thread_count",
+                              "shm_segments", "resource_growth")
+                  if any(k in e for e in epochs)]
+    if guard_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in guard_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("count")
+        ax.legend()
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_guards.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_guards.png")
+
+    # fleet health (resilience.FleetRegistry via the metrics jsonl):
+    # fleet_size should sit flat at the configured gather count —
+    # dips are crashes, and matching respawn increments mean the
+    # supervisor brought the fleet back; a climbing heartbeat_misses
+    # or conn_drops line means gathers are wedging or dying faster
+    # than they respawn
+    fleet_keys = [k for k in ("fleet_size", "fleet_workers", "respawns",
+                              "heartbeat_misses", "conn_drops",
+                              "unknown_verbs")
+                  if any(k in e for e in epochs)]
+    if fleet_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in fleet_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("count")
+        ax.legend()
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_fleet.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_fleet.png")
+
+    # pipeline telemetry (handyrl_tpu.telemetry via the metrics jsonl):
+    # policy_lag_* is the off-policy staleness of the consumed episodes
+    # (an IMPALA learner's central health signal — a climbing lag means
+    # the actors cannot keep up with the update rate); batch_wait_sec
+    # vs device_step_sec splits each epoch's wall time into feed
+    # starvation vs device work, and queue_depth is the feed backlog at
+    # the epoch boundary
+    lag_keys = [k for k in ("policy_lag_mean", "policy_lag_p95",
+                            "policy_lag_max", "queue_depth")
+                if any(k in e for e in epochs)]
+    sec_keys = [k for k in ("batch_wait_sec", "device_step_sec",
+                            "epoch_wall_sec")
+                if any(k in e for e in epochs)]
+    if lag_keys or sec_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in lag_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("episodes (lag) / batches (depth)")
+        ax2 = ax.twinx()
+        for k in sec_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax2.plot(*zip(*pts), label=k, linestyle="--")
+        ax2.set_ylabel("seconds per epoch")
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_pipeline.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_pipeline.png")
+
+    # off-policy robustness (IMPACT / lag-aware intake via the metrics
+    # jsonl): episodes_rejected_stale counts arrivals the staleness
+    # budget dropped, target_net_age is steps since the target net
+    # last synced (or the Polyak horizon), and is_clip_frac (right
+    # axis, a fraction) is how often the importance-ratio clip engaged
+    # — rising together with policy_lag_p95 means the learner is
+    # actually absorbing stale data rather than silently training on it
+    off_cnt_keys = [k for k in ("episodes_rejected_stale",
+                                "target_net_age", "policy_lag_p95")
+                    if any(k in e for e in epochs)]
+    off_frac_keys = [k for k in ("is_clip_frac",)
+                     if any(k in e for e in epochs)]
+    if off_cnt_keys or off_frac_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in off_cnt_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("episodes (rejected/lag) / steps (age)")
+        ax2 = ax.twinx()
+        for k in off_frac_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax2.plot(*zip(*pts), label=k, linestyle="--")
+        ax2.set_ylabel("clipped-IS fraction")
+        ax2.set_ylim(0, 1)
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_offpolicy.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_offpolicy.png")
+
+    # pipelined inference (handyrl_tpu.pipeline via the metrics jsonl):
+    # infer_batch_size_{mean,p95} shows how well the batching window
+    # coalesces requests across workers (pinned at one worker's rows =
+    # the window never spans processes), shm_ring_full_count is the
+    # transport's backpressure (climbing = rings undersized, episodes
+    # spilling to the control plane), and infer_queue_wait_sec (right
+    # axis) is what the window costs in latency.  The brownout /
+    # degradation triple rides the same panel: episodes_shm vs
+    # episodes_spilled splits each epoch's intake between the ring
+    # and the control-plane spill (a surge hold shows as a spill
+    # burst, never a dip in their sum), upload_backlog is the deepest
+    # worker-side hold backlog observed, and shm_torn_slots counts
+    # slots reclaimed from producers that died mid-write (flat at 0
+    # outside churn).  The GSPMD dispatch guard pair rides here too:
+    # infer_resharding_copies must stay flat at 0 (a climb = snapshots
+    # landing on the wrong layout, one silent copy per dispatch) and
+    # infer_compiles must plateau at the bucket-geometry count (a
+    # climb = snapshots recompiling the forward).  All render through
+    # series(), so pre-PR-11 metrics files still plot
+    inf_cnt_keys = [k for k in ("infer_batch_size_mean",
+                                "infer_batch_size_p95",
+                                "infer_batches",
+                                "shm_ring_full_count",
+                                "shm_torn_slots",
+                                "episodes_shm",
+                                "episodes_spilled",
+                                "upload_backlog",
+                                "infer_respawns",
+                                "infer_resharding_copies",
+                                "infer_compiles")
+                    if any(k in e for e in epochs)]
+    inf_sec_keys = [k for k in ("infer_queue_wait_sec",)
+                    if any(k in e for e in epochs)]
+    if inf_cnt_keys or inf_sec_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in inf_cnt_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("rows (batch size) / count")
+        ax2 = ax.twinx()
+        for k in inf_sec_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax2.plot(*zip(*pts), label=k, linestyle="--")
+        ax2.set_ylabel("window wait, seconds")
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_inference.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_inference.png")
+
+    # anakin throughput (handyrl_tpu.anakin via the metrics jsonl):
+    # anakin_frames_per_sec / anakin_games_per_sec are the fused
+    # on-device rollout's production rate — the raw-speed number the
+    # architecture exists to move; a dip means the fused step slowed
+    # (retrace/reshard regressions show on the guards plot) or the
+    # epoch boundary stretched.  steps ride the right axis so the
+    # update cadence is visible next to the frame rate
+    ank_rate_keys = [k for k in ("anakin_frames_per_sec",
+                                 "anakin_games_per_sec")
+                     if any(k in e for e in epochs)]
+    ank_cnt_keys = [k for k in ("anakin_frames",)
+                    if any(k in e for e in epochs)]
+    if ank_rate_keys or ank_cnt_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in ank_rate_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("frames / games per second")
+        ax2 = ax.twinx()
+        for k in ank_cnt_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax2.plot(*zip(*pts), label=k, linestyle="--")
+        ax2.set_ylabel("frames per epoch")
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_anakin.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_anakin.png")
+
+    # serving tier (handyrl_tpu.serving via the metrics jsonl): the
+    # request/shed/error counts show admission control working (sheds
+    # are typed replies — a shed burst with flat errors is the SLO
+    # doing its job; climbing errors mean timeouts or unroutable
+    # pins), and the latency percentiles ride the right axis in ms.
+    # All render through series(), so pre-serving metrics files plot
+    srv_cnt_keys = [k for k in ("serve_requests", "serve_ok",
+                                "serve_shed", "serve_errors",
+                                "serve_qps", "serve_respawns")
+                    if any(k in e for e in epochs)]
+    srv_ms_keys = [k for k in ("serve_p50_ms", "serve_p99_ms")
+                   if any(k in e for e in epochs)]
+    if srv_cnt_keys or srv_ms_keys:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in srv_cnt_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("requests / outcomes / QPS")
+        ax2 = ax.twinx()
+        for k in srv_ms_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax2.plot(*zip(*pts), label=k, linestyle="--")
+        ax2.set_ylabel("latency, ms")
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_serving.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_serving.png")
+
+    # pool router: pool membership on the right axis against
+    # the routed-request counters — an eviction shows as a pool_size
+    # drop with a reroute burst, a whole-pool breach as pool_sheds.
+    # Same series() skip-absent discipline: pre-router files plot
+    rtr_cnt_keys = [k for k in ("router_requests", "router_ok",
+                                "router_shed", "router_errors",
+                                "reroutes", "pool_sheds",
+                                "router_respawns")
+                    if any(k in e for e in epochs)]
+    rtr_pool_key = ("router_pool_size"
+                    if any("router_pool_size" in e for e in epochs)
+                    else None)
+    if rtr_cnt_keys or rtr_pool_key:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in rtr_cnt_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("requests / outcomes")
+        ax2 = ax.twinx()
+        if rtr_pool_key:
+            pts = series(xs, epochs, rtr_pool_key)
+            if pts:
+                ax2.plot(*zip(*pts), label=rtr_pool_key,
+                         linestyle="--")
+        ax2.set_ylabel("routable replicas")
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_router.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_router.png")
+
+    # perf attribution (telemetry.costmodel/.attribution via the
+    # metrics jsonl): mfu and achieved_tflops are the roofline
+    # accounting — flat-and-low with a memory-bound verdict means the
+    # batch/fusion shape caps throughput, not scheduling; the right
+    # axis shows each epoch's wall decomposed into the batch-wait and
+    # untracked-residual SHARES (fractions of epoch_wall_sec), so a
+    # perf regression shows as one of the shares growing.  mfu is None
+    # on hosts with no peak table row and no perf.* override — the
+    # series() skip keeps those files plotting
+    perf_abs_keys = [k for k in ("mfu", "achieved_tflops")
+                     if any(e.get(k) is not None for e in epochs)]
+    perf_share_pairs = [
+        ("batch_wait_sec", "batch_wait share"),
+        ("untracked_residual_sec", "residual share"),
+    ]
+    have_shares = any(
+        e.get(k) is not None and (e.get("epoch_wall_sec") or 0) > 0
+        for e in epochs for k, _ in perf_share_pairs)
+    if perf_abs_keys or have_shares:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        for k in perf_abs_keys:
+            pts = series(xs, epochs, k)
+            if pts:
+                ax.plot(*zip(*pts), label=k, marker=".")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("MFU (fraction) / achieved TFLOP/s")
+        ax2 = ax.twinx()
+        for k, label in perf_share_pairs:
+            pts = [(x, e[k] / e["epoch_wall_sec"])
+                   for x, e in zip(xs, epochs)
+                   if e.get(k) is not None
+                   and (e.get("epoch_wall_sec") or 0) > 0]
+            if pts:
+                ax2.plot(*zip(*pts), label=label, linestyle="--")
+        ax2.set_ylabel("share of epoch wall time")
+        ax2.set_ylim(bottom=0)
+        lines, labels = ax.get_legend_handles_labels()
+        lines2, labels2 = ax2.get_legend_handles_labels()
+        ax.legend(lines + lines2, labels + labels2, fontsize=8)
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_perf.png", dpi=120,
+                    bbox_inches="tight")
+        print(f"wrote {out_prefix}_perf.png")
+
+    # generation stats (mean +- std band)
+    pts = [(x, e["generation_mean"], e.get("generation_std", 0.0))
+           for x, e in zip(xs, epochs) if "generation_mean" in e]
+    if pts:
+        fig, ax = plt.subplots(figsize=(8, 5))
+        gx, gm, gs = zip(*pts)
+        ax.plot(gx, gm, label="generation outcome mean")
+        ax.fill_between(
+            gx,
+            [m - s for m, s in zip(gm, gs)],
+            [m + s for m, s in zip(gm, gs)],
+            alpha=0.2)
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("self-play outcome")
+        ax.legend()
+        ax.grid(alpha=0.3)
+        fig.savefig(out_prefix + "_stats.png", dpi=120, bbox_inches="tight")
+        print(f"wrote {out_prefix}_stats.png")
+
+
+def main():
+    if len(sys.argv) < 2:
+        print(__doc__)
+        sys.exit(1)
+    path = sys.argv[1]
+    out_prefix = sys.argv[2] if len(sys.argv) > 2 else (
+        os.path.splitext(path)[0])
+
+    if path.endswith(".jsonl"):
+        epochs = parse_jsonl(path)
+    else:
+        epochs = parse_stdout_log(path)
+    if not epochs:
+        print("no epochs found in log")
+        sys.exit(1)
+    print(f"parsed {len(epochs)} epochs")
+    plot(epochs, out_prefix)
+
+
+if __name__ == "__main__":
+    main()

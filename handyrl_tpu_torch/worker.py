@@ -28,8 +28,10 @@ Gathers send an explicit ``("beat", stats)`` after
 ``heartbeat_interval`` seconds without a learner round trip, so the
 learner's ``FleetRegistry`` tells idle from wedged.  The chaos section
 drives gather kills, surges (burst kills, a respawn hold, a hold of
-the gathers' uploads) and frame faults on the gather's learner
-connection.  Telemetry is the JAX package's: each worker records an
+the gathers' uploads and of the workers' shm episode shipping, whose
+backlog drains paced and spills its overflow, stamped) and frame
+faults on the gather's learner connection; the shm faults wrap each
+worker's ring endpoints (:class:`~.pipeline.client.PipelineClient`).  Telemetry is the JAX package's: each worker records an
 ``episode.rollout`` span per episode under a sampled trace context and
 stamps the context into the finished payload; workers wrap their
 gather pipe and gathers their learner connection in a
@@ -178,15 +180,26 @@ class Worker:
                     resolved[mid] = self.pipeline.wrap(model, mid)
         return {p: resolved[mid] for p, mid in id_by_player.items()}
 
+    def _next_job(self):
+        """One job from the learner; also the pipeline's surge trigger
+        (the shm brownout arms off the model ids in the job stream, as
+        the gather's control-plane hold does)."""
+        job = send_recv(self.conn, ("args", None))
+        if self.pipeline is not None:
+            self.pipeline.note_jobs([job])
+        return job
+
     def _ship(self, verb, payload):
         """Episodes ride the shm trajectory ring when the pipeline is
-        attached; results, and episodes the ring refuses, take the
-        control plane."""
+        attached (or wait in its surge backlog); results, and episodes
+        the ring refuses or the backlog overflows (stamped
+        ``shm_spilled``), take the control plane."""
         if (verb == "episode" and payload is not None
                 and self.pipeline is not None):
-            if self.pipeline.push_episode(payload):
-                return
-            payload["shm_spilled"] = True
+            for episode in self.pipeline.ship_episode(payload):
+                with payload_trace(episode):
+                    send_recv(self.conn, ("episode", episode))
+            return
         # the envelope carries the episode's own context upstream
         with payload_trace(payload):
             send_recv(self.conn, (verb, payload))
@@ -225,7 +238,7 @@ class Worker:
         pool = self.pool
         while True:
             while pool.has_free_slot():
-                job = send_recv(self.conn, ("args", None))
+                job = self._next_job()
                 if job is None:
                     # the learner is done assigning: finish what is in
                     # flight, then exit
@@ -251,13 +264,22 @@ class Worker:
                 self._run_lockstep()
                 return
             while True:
-                job = send_recv(self.conn, ("args", None))
+                job = self._next_job()
                 if job is None:
                     return
                 self._run_job(job)
         except _PEER_GONE:
             pass  # learner/gather went away: exit quietly
         finally:
+            if self.pipeline is not None:
+                # episodes a surge hold staged must not die with the
+                # worker: into the ring, the rest over the control
+                # plane (best effort: a gone peer accepts nothing)
+                try:
+                    for episode in self.pipeline.flush_backlog():
+                        send_recv(self.conn, ("episode", episode))
+                except _PEER_GONE:
+                    pass
             self._report()
             if self.pipeline is not None:
                 self.pipeline.close()  # unmap; the learner owns unlink
@@ -274,7 +296,12 @@ class Worker:
                      f"rows {client.served_rows}, local rows "
                      f"{client.local_rows}, episodes shipped "
                      f"{client.episodes_shipped}, spilled "
-                     f"{client.episodes_spilled}")
+                     f"{client.episodes_spilled}, held "
+                     f"{client.episodes_held}")
+            chaos = client.chaos_counts()
+            if chaos:
+                line += ", shm chaos " + " ".join(
+                    f"{k}={v}" for k, v in chaos.items())
         # one write per report: workers share the parent's stdout
         sys.stdout.write(line + "\n")
         sys.stdout.flush()

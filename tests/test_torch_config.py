@@ -4,11 +4,11 @@ package's.
   * the shipped ``config.yaml`` and a handful of variants parse to the
     same ``train_args`` dict in both packages (keys, defaults, derived
     values), and both refuse the same malformed values;
-  * keys of layers the port lacks are refused with "not ported yet"
-    (inside ``chaos``, the shm-plane and serving-replica keys), while
-    ``anakin`` and ``perf`` parse and refuse as in the JAX package; the
-    resilience keys (``chaos``, ``supervise_learner``, the WAL) parse
-    as in the JAX package, and ``generation_opponent`` (league-lite)
+  * keys of layers the port lacks (``mesh``, ``distributed``) are
+    refused with "not ported yet", while ``anakin`` and ``perf`` parse
+    and refuse as in the JAX package; the resilience keys (every
+    ``chaos`` key, ``supervise_learner``, the WAL) and the guard
+    switches parse as in the JAX package, and ``generation_opponent`` (league-lite)
     is accepted and refused as the JAX package does;
   * checkpoints the port writes and indexes resolve to the same resume
     point in both packages, auto and explicit, intact and corrupt;
@@ -92,13 +92,29 @@ def test_both_packages_refuse_the_same_values(bad):
 
 @pytest.mark.parametrize("key,value", [
     ("mesh", {"dp": 2}), ("distributed", {"num_processes": 2}),
-    ("chaos", {"shm_tear_prob": 0.1}),
+    ("mesh", {"dp": 1, "tp": 2}),
 ])
 def test_unported_layers_are_refused(key, value):
     raw = _shipped()
     raw["train_args"][key] = value
     with pytest.raises(ValueError, match="not ported yet"):
         tconfig.Config.from_dict(raw)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("chaos", {"shm_tear_prob": 0.1}), ("chaos", {"serve_kill_epoch": 2}),
+    ("max_update_compiles", 1), ("max_nonfinite_steps", 2),
+    ("max_fd_growth", 64), ("stall_watchdog", False),
+    ("sharding_contract_guard", False),
+])
+def test_ported_keys_parse_as_in_jax(key, value):
+    """The shm/serving chaos keys and the guard switches: accepted, and
+    the parsed train_args equal the JAX package's."""
+    raw = _shipped()
+    raw["train_args"][key] = value
+    port = tconfig.Config.from_dict(raw).train_args.to_dict()
+    jax = jconfig.Config.from_dict(raw).train_args.to_dict()
+    assert port[key] == jax[key] == value
 
 
 @pytest.mark.parametrize("value", [

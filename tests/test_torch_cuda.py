@@ -500,3 +500,38 @@ def test_rollout_runs_without_a_host_sync(cuda_device):
             torch.cuda.set_sync_debug_mode(0)
     assert 5 * 1024 <= int(frames) <= 9 * 1024
     assert batch["observation"].device.type == "cuda"
+
+
+def test_host_transfer_guard_counts_card_syncs(cuda_device):
+    """The default predicate on the card: every Python-visible sync of a
+    CUDA tensor counts, host tensors and device-to-device moves do not,
+    and the counts agree with ``set_sync_debug_mode("warn")`` on these
+    method calls."""
+    import warnings
+
+    from handyrl_tpu_torch.analysis import HostTransferGuard
+
+    x = torch.arange(4.0, device=cuda_device)
+    host = torch.arange(4.0)
+    with HostTransferGuard() as guard:
+        x.sum().item()
+        x.tolist()
+        x.cpu()
+        x.to("cpu")
+        float(x[0])
+        bool(x[1] > 0)
+        x.to(cuda_device)            # device to device: no transfer
+        x.to(torch.float16)          # a cast on the card: no transfer
+        host.tolist()                # a host tensor: free
+        float(host[0])
+    assert guard.transfers == 6
+    with warnings.catch_warnings(record=True) as caught, \
+            HostTransferGuard() as guard:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            x.sum().item()
+            x.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert guard.transfers == 2 and len(caught) >= 2

@@ -6,14 +6,17 @@ CLI, imports every module of the training slice and trains three
 steps from the replay ring, replays an episode WAL into the ring
 (the resilience slice), and exports the model to ONNX, runs the file
 and averages two checkpoints with the tools (the interop slice), and
-runs a Trainer's fused Anakin step (the Anakin slice), and serves a
-batch over TCP through the serving frontend (the serving slice);
+runs a Trainer's fused Anakin step (the Anakin slice), serves a
+batch over TCP through the serving frontend (the serving slice), and
+counts a sync under the host-transfer guard and injects an shm fault
+(the guards-and-chaos slice);
 afterwards no ``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*``
 module may be loaded.  An AST scan of the package, its ``interop/``,
-``scripts/``, ``anakin/``, ``telemetry/``, ``serving/`` and
-``utils/`` subpackages included, finds no such import anywhere, lazy
-ones included.  And the card is never replaced by the CPU behind
-the caller's back.
+``scripts/``, ``anakin/``, ``telemetry/``, ``serving/``,
+``analysis/`` and ``utils/`` subpackages included, finds no such
+import anywhere, lazy ones included; importing ``chip_smoke`` loads
+none either.  And the card is never replaced by the CPU behind the
+caller's back.
 """
 
 import ast
@@ -170,6 +173,26 @@ CHILD = textwrap.dedent("""
         svc.close()
     assert export_trace.main([]) == 1 and attribution_report
 
+    # the guards-and-chaos slice: the runtime guards, the shm chaos
+    # wrappers and the run tools
+    import torch
+    import handyrl_tpu_torch.scripts.perf_ledger
+    import handyrl_tpu_torch.scripts.plot_metrics
+    from handyrl_tpu_torch.analysis import HostTransferGuard, RetraceGuard
+    from handyrl_tpu_torch.pipeline import ShmRing
+    from handyrl_tpu_torch.resilience import ChaosConfig, ChaosRing
+
+    with HostTransferGuard(is_device=lambda t: True) as guard:
+        step = RetraceGuard(name="step").wrap(lambda x: x.sum().item())
+        step(torch.ones(3))
+    assert guard.transfers == 1
+    ring = ShmRing.create(slots=2, slot_bytes=64)
+    try:
+        assert not ChaosRing(ring, ChaosConfig.from_config(
+            {"shm_full_prob": 1.0})).push(b"x")
+    finally:
+        ring.close()
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -207,11 +230,24 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
     walked = {os.path.relpath(os.path.dirname(path), PACKAGE)
               for path in sources}
     assert {"interop", "scripts", "models", "pipeline", "anakin",
-            "telemetry", "serving", "utils"} <= walked
+            "telemetry", "serving", "utils", "analysis"} <= walked
     bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_importing_chip_smoke_loads_no_jax():
+    """The chip smoke test runs where no JAX is installed: importing it
+    loads nothing of JAX or of the JAX package."""
+    probe = ("import sys, chip_smoke; print('FORBIDDEN_MODULES', sorted("
+             "m for m in sys.modules if m.split('.')[0] in %r))"
+             % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                          env=dict(CHILD_ENV, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FORBIDDEN_MODULES []" in proc.stdout
 
 
 def test_asking_for_the_card_without_one_raises():

@@ -9,9 +9,8 @@ snapshots, chaos kills and surges, the learner kill switch and the
 relaunch guard.  The port's trace must EQUAL the JAX package's
 (exact: the state machines are deterministic under injection), and
 each scenario asserts the behaviour it is named for.  ``ChaosConfig``
-accepts and refuses the same sections in both packages, except the
-shm-plane and serving-replica keys, which the port refuses as not
-ported yet.
+accepts and refuses the same sections in both packages, the shm-plane
+and serving-replica keys included, with the same enabled flags.
 """
 
 import dataclasses
@@ -438,18 +437,17 @@ ACCEPTED = [
     {"surge_epoch": 2, "surge_kills": 1, "surge_respawn_hold": 5.0,
      "surge_hold_uploads": 3.0},
     {"learner_kill_epoch": 2, "learner_kill_after_episodes": 4},
+    # the shm and serving chaos hooks (refused until they were ported)
+    {"shm_tear_prob": 0.1}, {"shm_full_prob": 0.2},
+    {"shm_truncate_prob": 0.1}, {"shm_stall_prob": 0.5},
+    {"shm_beat_drop_prob": 0.1}, {"shm_beat_delay_prob": 0.1},
+    {"serve_kill_epoch": 2},
 ]
 REFUSED_BOTH = [
     {"bogus": 1}, {"kill_prob": 1.5}, {"frame_delay": -1.0},
     {"frame_drop_prob": 0.6, "frame_truncate_prob": 0.6},
     {"surge_epoch": -1}, {"learner_kill_epoch": -2},
     {"infer_kill_epoch": -1},
-]
-NOT_PORTED = [
-    {"shm_tear_prob": 0.1}, {"shm_full_prob": 0.2},
-    {"shm_truncate_prob": 0.1}, {"shm_stall_prob": 0.5},
-    {"shm_beat_drop_prob": 0.1}, {"shm_beat_delay_prob": 0.1},
-    {"serve_kill_epoch": 2},
 ]
 
 
@@ -459,8 +457,13 @@ def test_chaos_config_accepts_what_jax_accepts(raw):
     jax = jres.ChaosConfig.from_config(raw)
     assert dataclasses.asdict(port) == dataclasses.asdict(jax)
     for flag in ("kills_enabled", "frames_enabled", "surges_enabled",
-                 "learner_kill_enabled", "infer_kill_enabled"):
+                 "learner_kill_enabled", "infer_kill_enabled",
+                 "serve_kill_enabled", "shm_faults_enabled",
+                 "shm_beat_faults_enabled"):
         assert getattr(port, flag) == getattr(jax, flag), flag
+    from handyrl_tpu_torch.config import TrainConfig
+
+    TrainConfig(chaos=raw)  # the learner's config takes every key too
 
 
 @pytest.mark.parametrize("raw", REFUSED_BOTH, ids=str)
@@ -471,12 +474,3 @@ def test_chaos_config_refuses_what_jax_refuses(raw):
         tres.ChaosConfig.from_config(raw)
 
 
-@pytest.mark.parametrize("raw", NOT_PORTED, ids=str)
-def test_chaos_keys_of_unported_hooks_are_refused(raw):
-    jres.ChaosConfig.from_config(raw)  # the JAX package runs them
-    with pytest.raises(ValueError, match="not ported yet"):
-        tres.ChaosConfig.from_config(raw)
-    from handyrl_tpu_torch.config import TrainConfig
-
-    with pytest.raises(ValueError, match="not ported yet"):
-        TrainConfig(chaos=raw)

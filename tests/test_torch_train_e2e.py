@@ -3,7 +3,8 @@
 The port's ``Learner`` runs TicTacToe with two spawned CPU workers and
 tiny settings (as tests/test_train_e2e.py has them for the JAX
 package): jobs, model serving, the shm pipeline, episode intake, the
-replay ring, update steps, checkpoints and shutdown.  Then:
+replay ring, update steps, checkpoints and shutdown, with the runtime
+guards armed by default (every guard key in every record).  Then:
   * the port's checkpoint is read by the JAX package's ``load_model``
     and its forward agrees with the port's on the same file (1e-5);
   * a restart resumes at the checkpointed epoch with the optimizer
@@ -48,6 +49,13 @@ def _args(**train):
     return {"env_args": {"env": "TicTacToe"}, "train_args": train_args}
 
 
+GUARD_KEYS = ("retrace_count", "host_transfers", "numerics_contract_breaks",
+              "weak_upcasts", "nonfinite_steps", "stall_events",
+              "lock_contention_sec", "lock_order_inversions", "fd_count",
+              "thread_count", "shm_segments", "resource_growth",
+              "upload_backlog")
+
+
 def _records():
     with open("metrics.jsonl") as f:
         return [json.loads(line) for line in f]
@@ -69,6 +77,16 @@ def test_two_epochs_then_restart_and_jax_reads_the_checkpoint(workdir,
         assert r["replay"] == "device" and r["replay_device"] == "cpu"
         assert r["epoch_steps"] >= 1 and r["nonfinite_steps"] == 0
         assert all(np.isfinite(r[k]) for k in ("p", "v", "ent", "total"))
+        # the runtime guards are on by default: every key the JAX
+        # learner writes but the sharding guard's
+        for key in GUARD_KEYS:
+            assert key in r, key
+        assert "resharding_copies" not in r
+        assert r["stall_events"] == r["lock_order_inversions"] == 0
+        assert r["numerics_contract_breaks"] == r["weak_upcasts"] == 0
+        assert r["upload_backlog"] == 0
+    # one update-step signature, flat after epoch 1
+    assert [r["retrace_count"] for r in records] == [1, 1]
     assert os.path.exists("models/1.ckpt") and os.path.exists(
         "models/2.ckpt")
     out = capfd.readouterr().out
