@@ -56,7 +56,7 @@ from a seed:
                  step timed, profiled and split by layer;
  10. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml with ``env: 'Geister'`` and
-                 ``burn_in_steps: 4``, cut to 2 epochs of 200 and 100
+                 ``burn_in_steps: 4``, cut to 2 epochs of 100 and 50
                  episodes, then ``--eval`` of its checkpoint against
                  ``random`` (10 games);
  11. GRF       — GRFNet (32 filters, DRC 1 x 2) training steps on the
@@ -65,7 +65,7 @@ from a seed:
                  the same gates but burn-in, and the same readings;
  12. league    — (a) ``--train`` on the shipped config with
                  ``generation_opponent: {past_epochs: 3, prob: 0.5}``,
-                 4 epochs of 100 + 100 episodes: league episodes in
+                 4 epochs of 50 + 50 episodes: league episodes in
                  epochs 2-3, each
                  ``league_opponent_mean`` key a past epoch whose
                  checkpoint exists, no worker fallback, no worker on
@@ -87,7 +87,7 @@ from a seed:
                  pure self-play and 3 frozen snapshots, timed in
                  interleaved blocks and profiled, FLOPs from the cost
                  model; (c) ``--train`` on the shipped config.yaml with
-                 ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 40
+                 ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 20
                  fused steps, workers only evaluating; (d)
                  tests/test_learning.py's Anakin loop on the card (32
                  games x 60 steps), its 0.545 win-rate floor;
@@ -95,7 +95,7 @@ from a seed:
                  ``InferenceService`` on the card with two shm workers,
                  a ``ServingFrontend`` on port 0 and eight
                  ``ServeClient`` threads sending one game's four geese
-                 per request for 10 s, one client in four pinned to
+                 per request for 6 s, one client in four pinned to
                  epoch 1 (the second seeded snapshot, through
                  ``model_resolver``): every ok reply equals the card's
                  local forward of its rows and snapshot (strict
@@ -121,15 +121,15 @@ from a seed:
                  kernels; the attribution tree's heaviest rows; (d)
                  14a's load in interleaved blocks with telemetry on and
                  off (served rows/s and p99; not a gate);
- 15. chaos     — (a) ``--train`` on phase 7's config (4 epochs of 100 +
-                 100 episodes) with every shm fault armed (torn, full
+ 15. chaos     — (a) ``--train`` on phase 7's config (4 epochs of 50 +
+                 50 episodes) with every shm fault armed (torn, full
                  and truncated pushes, stalled pops, dropped and
                  delayed beats) and a surge at epoch 2 holding uploads
                  3 s: every epoch lands, the injected faults and the
                  ring headers' counts, shm + spilled episodes equal the
                  arrivals, a hold backlog after the surge, no worker on
-                 CUDA, the guard keys; (b) 14c's config (6 epochs of 100
-                 + 100 episodes) with the router beating every 0.5 s and
+                 CUDA, the guard keys; (b) 14c's config (6 epochs of 50
+                 + 50 episodes) with the router beating every 0.5 s and
                  ``chaos.serve_kill_epoch: 2`` under one client's load
                  through the router: kill,
                  eviction and readmission in the log and on the status
@@ -139,16 +139,39 @@ from a seed:
                  retrace, numerics and host-transfer guards armed
                  against the bare step: losses bit for bit, the median
                  step in interleaved blocks, the syncs the guard counts
-                 beside ``torch.cuda.set_sync_debug_mode("warn")``'s.
+                 beside ``torch.cuda.set_sync_debug_mode("warn")``'s;
+ 16. parallel  — (a) phase 6's GeeseNet 32x12 step on phase 4's
+                 episodes (128 windows x 16 steps, the shipped lr) over
+                 two gloo ranks sharing the card, each on half the rows
+                 (``mesh: {dp: 2}`` float32 and bf16, then ``{dp: 2,
+                 fsdp: true}``), two steps against one rank on all the
+                 rows (the pinned float32 set; params within rtol 2e-4 /
+                 atol 2e-5, ``total`` and ``grad_norm`` within 1e-4),
+                 bf16 finite and timed on two ranks and on one; fsdp
+                 with its parameters and Adam moments dp-sharded; (b) the
+                 same step through a one-rank NCCL group, bit for bit
+                 the unsharded step's parameters, the NCCL kernels a
+                 step launches (``torch.profiler``), and 20 control
+                 words with no host sync (the guard and
+                 ``set_sync_debug_mode("error")``); (c) phase 7's config
+                 as two ``--train`` ranks of a gloo group on the card
+                 (``mesh: {dp: 2}``, 2 epochs of 50 + 50 episodes, 2
+                 workers per rank): both exit 0, equal loss lines, rank
+                 0 alone writes ``models/`` and metrics, one step
+                 signature and no resharding copy in every record.
 
 Phase 7 also holds every epoch record to the runtime guards' keys (no
 stall, no lock-order inversion, no nonfinite step, one update-step
-signature).  Depth cut to make room for phase 15 (gates
-unchanged): phase 8's drills, phase 7's restart and phase 12's league
-run epochs of 100 + 100 episodes, phase 13c 3 epochs of 40 fused steps,
-14a's load 10 s and 14d's blocks 2 s.
+signature).  Depth cut to make room for phases 15 and 16 (gates
+unchanged): phase 7's restart, phase 8's drills, phase 10, phase 12's
+league and phase 15a-b run epochs of 50 + 50 episodes, phase 13c 3
+epochs of 20 fused steps, 14a's load 6 s and 14d's blocks 1 s; 8b's
+worker machine starts once the learner's entry port is up; phase 8's
+drills, its remote workers and phase 10's Geister run (three learners
+whose gates hold no time) run together, phase 10 before phase 9, and
+phase 7's ``--eval`` beside its restart.
 
-Every phase prints one ``phaseN {json}`` line (phases 12-15 one per
+Every phase prints one ``phaseN {json}`` line (phases 12-16 one per
 part) and raises on failure.
 The JAX package has no Pallas kernel, so the port owes none and the
 ``kernels`` line is empty.  The last line is the ``{"ok": true, ...}``
@@ -159,8 +182,8 @@ Run from the repository root:  python3 chip_smoke.py
 Full outputs land in chiprun_out/chip_smoke/.
 
 ``python3 chip_smoke.py --phases 1-5,13`` runs the listed phases and
-every phase they need (``NEEDS``: phases 6 and 15 train on phase 4's
-episodes with phase 2's weights, phase 14 serves phase 2's weights;
+every phase they need (``NEEDS``: phases 6, 15 and 16 train on phase
+4's episodes with phase 2's weights, phase 14 serves phase 2's weights;
 phase 1 always runs); a bad list exits 2.
 
 ``python3 chip_smoke.py --grad-error [draws]`` instead studies phase 6's
@@ -1179,27 +1202,34 @@ def _train_entry(cwd):
         raise AssertionError(f"the service did not load every epoch: "
                              f"{stats}")
 
-    # the port's --eval reads the checkpoint back
-    proc_eval = subprocess.run(
-        [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
-         "models/3.ckpt", "40", "2", *CLI_DEVICE], cwd=cwd,
-        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-        text=True, timeout=300)
-    _check_run(proc_eval, "train_eval")
-    out["eval_3"] = [line for line in proc_eval.stdout.splitlines()
+    # the port's --eval reads the checkpoint back while the run
+    # restarts from it (the --eval writes nothing)
+    def read_back():
+        proc_eval = subprocess.run(
+            [sys.executable, "-m", "handyrl_tpu_torch", "--eval",
+             "models/3.ckpt", "40", "2", *CLI_DEVICE], cwd=cwd,
+            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+            text=True, timeout=300)
+        _check_run(proc_eval, "train_eval")
+        return proc_eval
+
+    # restart from epoch 3: the optimizer state resumes, the WAL refills
+    # the ring on the card, one more epoch (of 50 + 50 fresh episodes,
+    # phase 8's cut: the restart's gates read the resume, not the epoch)
+    def restart():
+        return run_training(
+            train, cwd, train_config(dict(TRAIN_CUTS, epochs=4,
+                                          restart_epoch=3,
+                                          minimum_episodes=50,
+                                          update_episodes=50)))
+
+    done = together({"eval": read_back, "restart": restart})
+    out["eval_3"] = [line for line in done["eval"][0].stdout.splitlines()
                      if line.startswith("agent ")]
     if not any("win rate" in line for line in out["eval_3"]):
         raise AssertionError("--eval of models/3.ckpt printed no result")
-
-    # restart from epoch 3: the optimizer state resumes, the WAL refills
-    # the ring on the card, one more epoch (of 100 + 100 fresh episodes,
-    # phase 8's cut: the restart's gates read the resume, not the epoch)
     steps = records[-1]["steps"]
-    proc2, records2, wall2 = run_training(
-        train, cwd, train_config(dict(TRAIN_CUTS, epochs=4,
-                                      restart_epoch=3,
-                                      minimum_episodes=100,
-                                      update_episodes=100)))
+    proc2, records2, wall2 = done["restart"][0]
     _check_run(proc2, "train_restart")
     out["restart"] = {"wall_s": wall2, "epochs": epoch_rows(
         records2[len(records):], steps=steps),
@@ -1278,17 +1308,17 @@ def wal_replay(stdout):
 # outlast the wait for two epochs and a respawned service; a respawn
 # that lands after the second epoch's record pushes the signal one
 # epoch later, which a run of 3 epochs would already have finished
-# both configs cut the epoch to 100 + 100 episodes (phase 10's cut): a
-# relaunch's epoch then waits for ~200 fresh episodes, not 600
+# both configs cut the epoch to 50 + 50 episodes: a relaunch's epoch
+# then waits for ~100 fresh episodes, not 600
 DRILL_CUTS = {"epochs": 10, "metrics_path": "metrics.jsonl",
-              "minimum_episodes": 100, "update_episodes": 100,
+              "minimum_episodes": 50, "update_episodes": 50,
               "chaos": {"kill_prob": 0.2, "max_kills": 1,
                         "infer_kill_epoch": 1}}
 # 8b: max_respawns 1 makes the worker machine's gather breaker trip on
 # the first refused re-dial, so the machine re-enters its session
 # through the entry port instead of a lone gather re-dialling
 REMOTE_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
-               "minimum_episodes": 100, "update_episodes": 100,
+               "minimum_episodes": 50, "update_episodes": 50,
                "supervise_learner": True, "max_respawns": 1,
                "chaos": {"learner_kill_epoch": 2}}
 WORKER_LINE = re.compile(r"closed worker (\d+): cuda initialized (\w+)")
@@ -1303,6 +1333,13 @@ def _popen(cmd, cwd, tag):
                             env=dict(os.environ, PYTHONPATH=ROOT),
                             start_new_session=True)
     return proc, log
+
+
+def _peek(log):
+    """What a running child has written to its log so far."""
+    log.flush()
+    with open(log.name) as f:
+        return f.read()
 
 
 def _read(log):
@@ -1342,17 +1379,49 @@ def _workers(stdout):
     return [(int(w), c == "True") for w, c in WORKER_LINE.findall(stdout)]
 
 
-def resilience_entry():
+def together(jobs):
+    """Run the ``{tag: fn}`` jobs at once, one thread each, and return
+    ``{tag: (result, seconds)}``.  For runs of subprocesses whose gates
+    hold no time, so their start-ups overlap; the first failure is
+    raised once every job has ended."""
+    done, errors = {}, []
+
+    def run(tag, fn):
+        t0 = time.perf_counter()
+        try:
+            done[tag] = fn(), time.perf_counter() - t0
+        except BaseException as exc:  # re-raised below, in job order
+            errors.append((list(jobs).index(tag), exc))
+
+    threads = [threading.Thread(target=run, args=job, daemon=True)
+               for job in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise min(errors, key=lambda e: e[0])[1]
+    return done
+
+
+def in_tmp(prefix, fn):
+    """``fn`` as a job over a fresh temporary directory, removed after."""
     import shutil
 
-    out = {}
-    for tag, fn in (("drills", _drills), ("remote", _remote)):
-        cwd = tempfile.mkdtemp(prefix=f"resilience_{tag}_")
+    def job():
+        cwd = tempfile.mkdtemp(prefix=prefix)
         try:
-            out[tag] = fn(cwd)
+            return fn(cwd)
         finally:
             shutil.rmtree(cwd, ignore_errors=True)
-    return out
+    return job
+
+
+def resilience_jobs():
+    """Phase 8's two runs, the drills and the remote workers: each its
+    own learner, with no port of the other's, run together."""
+    return {tag: in_tmp(f"resilience_{tag}_", fn)
+            for tag, fn in (("drills", _drills), ("remote", _remote))}
 
 
 def _drills(cwd):
@@ -1465,21 +1534,29 @@ def _remote(cwd):
                              "num_parallel": 6}
     with open(os.path.join(cwd, "config.yaml"), "w") as f:
         yaml.safe_dump(config, f)
-    machine, mlog = _popen(
-        [sys.executable, "-m", "handyrl_tpu_torch", "--worker", "6"], cwd,
-        "remote_worker")
+    t0 = time.perf_counter()
+    server, slog = _popen(
+        [sys.executable, "-m", "handyrl_tpu_torch", "--train-server",
+         *CLI_DEVICE], cwd, "remote_server")
+    machine = None
     try:
-        t0 = time.perf_counter()
-        server, slog = _popen(
-            [sys.executable, "-m", "handyrl_tpu_torch", "--train-server",
-             *CLI_DEVICE], cwd, "remote_server")
-        try:
-            code = server.wait(timeout=480)
-        finally:
-            _stop(server)
+        # the worker machine starts once the learner's entry port is
+        # up: started together, its retry backoff (0.5 s doubling) could
+        # sleep through the learner's start-up for up to ~24 s more
+        deadline = time.monotonic() + 120
+        while "started entry server" not in _peek(slog):
+            if server.poll() is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        machine, mlog = _popen(
+            [sys.executable, "-m", "handyrl_tpu_torch", "--worker", "6"],
+            cwd, "remote_worker")
+        code = server.wait(timeout=480)
         wall = time.perf_counter() - t0
     finally:
-        _stop(machine)
+        _stop(server)
+        if machine is not None:
+            _stop(machine)
     stdout = _read(slog)
     if code != 0:
         raise RuntimeError(f"--train-server exited {code}:\n"
@@ -1903,18 +1980,13 @@ GEISTER_CONFIG = {"env": "Geister", "burn_in_steps": 4}
 # episodes instead of the shipped 600 and 800, and 10 games of --eval,
 # to keep the whole smoke near 700 s
 GEISTER_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
-                "minimum_episodes": 100, "update_episodes": 100}
+                "minimum_episodes": 50, "update_episodes": 50}
 GEISTER_EVAL_GAMES = 10
 
 
-def geister_train_entry(smi):
-    import shutil
-
-    cwd = tempfile.mkdtemp(prefix="geister_train_")
-    try:
-        return dict(_geister_train_entry(cwd), card=smi)
-    finally:
-        shutil.rmtree(cwd, ignore_errors=True)
+def geister_train_job(smi):
+    return in_tmp("geister_train_",
+                  lambda cwd: dict(_geister_train_entry(cwd), card=smi))
 
 
 def _geister_train_entry(cwd):
@@ -1977,7 +2049,7 @@ def _geister_train_entry(cwd):
 # the shipped config.yaml with league-lite on, and what a bounded run
 # forces
 LEAGUE_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
-               "minimum_episodes": 100, "update_episodes": 100,
+               "minimum_episodes": 50, "update_episodes": 50,
                "generation_opponent": {"past_epochs": 3, "prob": 0.5}}
 EVAL_GAMES_12 = 20
 BATTLE_GAMES = 10
@@ -2289,8 +2361,8 @@ ANAKIN_ATOL = 1e-5                  # selected_prob, value: card vs CPU
 ANAKIN_DISCRETE = ("observation", "action", "action_mask", "episode_mask",
                    "turn_mask", "observation_mask", "outcome", "progress",
                    "reward", "return")
-# the shipped config.yaml cut to 3 epochs of 40 fused steps
-ANAKIN_CUTS = {"epochs": 3, "updates_per_epoch": 40,
+# the shipped config.yaml cut to 3 epochs of 20 fused steps
+ANAKIN_CUTS = {"epochs": 3, "updates_per_epoch": 20,
                "metrics_path": "metrics.jsonl",
                "anakin": {"mode": "on", "num_envs": ANAKIN_ENVS}}
 # the shipped config's loss keys
@@ -2607,7 +2679,7 @@ def anakin_train_entry():
 
 def _anakin_train_entry(cwd):
     """13c: ``--train`` on the shipped config with ``anakin: {mode: on,
-    num_envs: 1024}``, 3 epochs of 40 fused steps; then the port's
+    num_envs: 1024}``, 3 epochs of 20 fused steps; then the port's
     ``--eval`` of the last checkpoint."""
     from handyrl_tpu_torch.durability import read_verified
     from handyrl_tpu_torch.models.convert import from_flax
@@ -2966,10 +3038,10 @@ def jax_curve():
 
 SERVE_CLIENTS = 8                  # ServeClient threads of 14a and 14d
 SERVE_ROWS = 4                     # one game's geese per request
-SERVE_SECONDS = 10.0               # 14a's load
+SERVE_SECONDS = 6.0                # 14a's load
 SERVE_PIN_EVERY = 4                # one client in four pins epoch 1
 TEL_BLOCKS = ("on", "off", "off", "on")   # 14d, interleaved
-TEL_SECONDS = 2.0
+TEL_SECONDS = 1.0
 DRILL_CLIENTS = 3                  # 14b's pinned load
 DRILL = {"mode": "on", "port": 0, "heartbeat_interval": 0.1,
          "heartbeat_timeout": 1.0, "reply_timeout": 5.0,
@@ -3826,10 +3898,10 @@ def served_phase(torch, model, model2, report, finish):
 # ---------------------------------------------------------------------
 
 # 15a: phase 7's config (TicTacToe 32x3, 6 workers, the pipeline, the
-# WAL), 4 epochs of 100 + 100 episodes (phase 8's cut), every shm fault
+# WAL), 4 epochs of 50 + 50 episodes (phase 8's cut), every shm fault
 # armed and a surge at epoch 2 whose upload hold browns out both planes
 CHAOS_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
-              "minimum_episodes": 100, "update_episodes": 100,
+              "minimum_episodes": 50, "update_episodes": 50,
               "chaos": {"seed": 7, "shm_tear_prob": 0.05,
                         "shm_full_prob": 0.05, "shm_truncate_prob": 0.05,
                         "shm_stall_prob": 0.1, "shm_beat_drop_prob": 0.1,
@@ -3844,13 +3916,13 @@ CHAOS_WORKER = re.compile(
 INJECTED = ("torn_injected", "full_injected", "truncated_injected",
             "stalls_injected")
 # 15b: 14c's config with the router's beats at 0.5 s (timeout 2 s) and
-# the replica killed at epoch 2; epochs of 100 + 100 episodes, and 6 of
+# the replica killed at epoch 2; epochs of 50 + 50 episodes, and 6 of
 # them: the 4 after the kill outlast the respawn backoff (0.5 s) and the
-# readmission even where 100 episodes arrive in a fraction of a second.
+# readmission even where 50 episodes arrive in a fraction of a second.
 # Latency shedding is off (slo_ms 0): the drill reads the kill, and a
 # breached window would shed the readmitted replica's first requests
 SERVE_KILL_CUTS = {"epochs": 6, "metrics_path": "metrics.jsonl",
-                   "minimum_episodes": 100, "update_episodes": 100,
+                   "minimum_episodes": 50, "update_episodes": 50,
                    "serving": {"mode": "on", "port": 0, "slo_ms": 0.0},
                    "router": {"mode": "on", "port": 0,
                               "heartbeat_interval": 0.5,
@@ -4278,10 +4350,474 @@ def guard_cost_gates(c):
         raise AssertionError("15c: a guarded step was not finite")
 
 
-ALL_PHASES = frozenset(range(1, 16))
+# ---------------------------------------------------------------------
+# 16. the parallel layer: the sharded step over two ranks on the card,
+#     a one-rank NCCL group, a two-rank --train
+# ---------------------------------------------------------------------
+
+PARALLEL_STEPS = 2                 # parity steps of 16a and 16b
+PARALLEL_TIMED = 5                 # timed bf16 steps after them (16a)
+# 16a's runs: (name, mesh, compute dtype); each rank takes half the rows
+PARALLEL_RUNS = (("dp", {"dp": 2}, "float32"),
+                 ("dp_bf16", {"dp": 2}, "bfloat16"),
+                 ("fsdp", {"dp": 2, "fsdp": True}, "float32"))
+# two ranks vs one rank on the same rows: tier-1's tolerance (JAX's own
+# in tests/test_parallel.py); the shipped lr keeps Adam's ~lr moves of
+# near-zero gradients inside it
+PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_TOTAL_REL = 2e-4, 2e-5, 1e-4
+CONTROL_WORDS = 20                 # 16b: control words under sync checks
+# 16c: phase 7's config over two ranks sharing the card (gloo), cut to 2
+# epochs of 50 + 50 episodes and 2 workers per rank
+PARALLEL_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
+                 "minimum_episodes": 50, "update_episodes": 50,
+                 "worker": {"num_parallel": 2}, "mesh": {"dp": 2}}
+RANK_TRAIN = """\
+import sys
+import yaml
+from handyrl_tpu_torch.learner import train_main
+
+if __name__ == "__main__":
+    with open("config.yaml") as f:
+        args = yaml.safe_load(f)
+    train_main(args, device="cuda", backend="gloo")
+"""
+RANK_STEPS = """\
+import faulthandler
+import sys
+import chip_smoke
+
+faulthandler.enable()
+
+chip_smoke.rank_steps(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+"""
+
+
+def _parallel_batch(episodes, seed=SEED):
+    """The shipped batch (128 windows x 16 steps, seat mode) from phase
+    4's episodes, drawn as the host batcher draws (host arrays)."""
+    from handyrl_tpu_torch.batch import make_batch
+
+    rng = random.Random(seed)
+    steps, cmp = TRAIN_ARGS["forward_steps"], 4
+    windows = []
+    for _ in range(TRAIN_ARGS["batch_size"]):
+        ep = episodes[rng.randrange(len(episodes))]
+        st = rng.randrange(1 + max(0, ep["steps"] - steps))
+        ed = min(st + steps, ep["steps"])
+        windows.append({"args": ep["args"], "outcome": ep["outcome"],
+                        "moment": ep["moment"][st // cmp:(ed - 1) // cmp + 1],
+                        "base": st // cmp * cmp, "start": st, "end": ed,
+                        "train_start": st, "total": ep["steps"]})
+    return make_batch(windows, dict(TRAIN_ARGS, compress_steps=cmp))
+
+
+def _device_batch(torch, batch, rows=None, dtype="float32"):
+    from handyrl_tpu_torch.learner import stage_batch
+
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+    return stage_batch(batch, DEV, dtype)
+
+
+def _geese_on_card(torch, params):
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+
+    net = GeeseNet(FILTERS, BLOCKS)
+    net.load_state_dict(from_flax(params, net))
+    return net.to(DEV)
+
+
+def _parallel_lr():
+    from handyrl_tpu_torch.ops.update import DEFAULT_LR
+
+    return DEFAULT_LR * TRAIN_ARGS["batch_size"] * TRAIN_ARGS["forward_steps"]
+
+
+def _pinned_if_f32(torch, dtype):
+    """float32 runs compare on the pinned set; bf16 runs keep cuDNN,
+    as training does."""
+    return pinned_f32(torch) if dtype == "float32" \
+        else contextlib.nullcontext()
+
+
+def _step_wall_ms(torch, step, batch, steps):
+    """Median wall ms of ``steps`` synchronized calls."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def rank_steps(rank, port, run):
+    """16a's rank: the sharded GeeseNet step on half the rows, over a
+    gloo group of two ranks sharing the card; rank 0 writes the full
+    parameters after the parity steps."""
+    import pickle
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.parallel import (
+        MeshSpec,
+        make_mesh,
+        make_sharded_update_step,
+    )
+    from handyrl_tpu_torch.parallel import multihost as mh
+    from handyrl_tpu_torch.parallel.update import full_state_dict
+
+    with open(os.path.join(run, "in.pkl"), "rb") as f:
+        job = pickle.load(f)
+    mh.init_distributed({"coordinator_address": f"127.0.0.1:{port}",
+                         "num_processes": 2, "process_id": rank},
+                        device=DEV, backend="gloo")
+    print(f"rank {rank}: gloo group of 2 on {DEV}", flush=True)
+    half = TRAIN_ARGS["batch_size"] // 2
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for name, mesh_cfg, dtype in PARALLEL_RUNS:
+            spec = MeshSpec.from_config(mesh_cfg)
+            net = _geese_on_card(torch, job["params"])
+            step = make_sharded_update_step(
+                net, LossConfig.from_config(TRAIN_ARGS),
+                make_mesh(spec, device_type=DEV.split(":")[0]), job["lr"],
+                dtype, fsdp=spec.fsdp)
+            batch = _device_batch(
+                torch, job["batch"],
+                slice(rank * half, (rank + 1) * half), dtype)
+            with _pinned_if_f32(torch, dtype):
+                metrics = [{k: float(v) for k, v in step(batch).items()}
+                           for _ in range(PARALLEL_STEPS)]
+            params = {k: v.detach().cpu().numpy() for k, v in
+                      full_state_dict(net).items()}
+            rec = {"metrics": metrics, "params": params,
+                   "sharded": sorted(
+                       n for n, p in net.named_parameters()
+                       if isinstance(p, DTensor)),
+                   "moments_sharded": sorted(
+                       n for n, p in net.named_parameters()
+                       if isinstance(step.optimizer.state[p].get(
+                           "exp_avg"), DTensor))}
+            if dtype == "bfloat16":
+                rec["step_ms"] = _step_wall_ms(torch, step, batch,
+                                               PARALLEL_TIMED)
+            out[name] = rec
+            print(f"rank {rank}: {name} done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        mh.shutdown()
+    if rank == 0:
+        with open(os.path.join(run, "out.pkl"), "wb") as f:
+            pickle.dump(out, f)
+
+
+def sharded_steps(torch, batch, params, cwd):
+    """16a: two gloo ranks on cuda:0, each on half the rows, against
+    one rank (the unsharded step) on all of them."""
+    import pickle
+
+    from handyrl_tpu_torch.connection import find_free_port
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+
+    lr = _parallel_lr()
+    with open(os.path.join(cwd, "in.pkl"), "wb") as f:
+        pickle.dump({"batch": batch, "params": params, "lr": lr}, f)
+    port = str(find_free_port())
+    t0 = time.perf_counter()
+    procs = [_popen([sys.executable, "-c", RANK_STEPS, str(rank), port, cwd],
+                    cwd, f"parallel_rank{rank}") for rank in range(2)]
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=300)
+    finally:
+        for proc, _ in procs:
+            _stop(proc)
+    for rank, (proc, log) in enumerate(procs):
+        out = _read(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"16a rank {rank} exited {proc.returncode}:\n"
+                               + out[-3000:])
+    ranks_wall = time.perf_counter() - t0
+    with open(os.path.join(cwd, "out.pkl"), "rb") as f:
+        ranks = pickle.load(f)
+
+    result = {"lr": lr, "runs": {}, "ranks_wall_s": ranks_wall}
+    refs = {}   # one rank on all rows, per dtype (dp and fsdp share it)
+    for name, mesh_cfg, dtype in PARALLEL_RUNS:
+        got = ranks[name]
+        if dtype not in refs:
+            net = _geese_on_card(torch, params)
+            step = UpdateStep(net, LossConfig.from_config(TRAIN_ARGS),
+                              make_optimizer(net.parameters(), lr), dtype)
+            full = _device_batch(torch, batch, None, dtype)
+            with _pinned_if_f32(torch, dtype):
+                metrics = [{k: float(v) for k, v in step(full).items()}
+                           for _ in range(PARALLEL_STEPS)]
+            refs[dtype] = net, step, full, metrics
+        net, step, full, ref = refs[dtype]
+        errs = {}
+        for n, p in net.state_dict().items():
+            want = p.detach().cpu().numpy()
+            diff = np.abs(got["params"][n] - want)
+            errs[n] = float((diff - PARALLEL_ATOL
+                             - PARALLEL_RTOL * np.abs(want)).max())
+        rec = {"mesh": mesh_cfg, "dtype": dtype,
+               "total": [m["total"] for m in got["metrics"]],
+               "total_one_rank": [m["total"] for m in ref],
+               "grad_norm": [m["grad_norm"] for m in got["metrics"]],
+               "grad_norm_one_rank": [m["grad_norm"] for m in ref],
+               "max_param_err_over_tol": max(errs.values()),
+               "sharded": got["sharded"],
+               "moments_sharded": got["moments_sharded"],
+               "finite": all(np.isfinite(m["total"]) for m in got["metrics"])}
+        if "step_ms" in got:
+            rec["step_ms_two_ranks"] = got["step_ms"]
+            rec["step_ms_one_rank"] = _step_wall_ms(torch, step, full,
+                                                    PARALLEL_TIMED)
+        result["runs"][name] = rec
+    return result
+
+
+def sharded_steps_gates(a):
+    runs = a["runs"]
+    if not {name for name, _, _ in PARALLEL_RUNS} <= set(runs):
+        raise AssertionError(f"16a: runs missing: {sorted(runs)}")
+    for name, rec in runs.items():
+        if not rec["finite"]:
+            raise AssertionError(f"16a {name}: nonfinite loss")
+        if rec["dtype"] != "float32":
+            continue
+        for k, (two, one) in enumerate(zip(rec["total"],
+                                           rec["total_one_rank"])):
+            if abs(two - one) > PARALLEL_TOTAL_REL * abs(one):
+                raise AssertionError(f"16a {name} step {k}: total {two} "
+                                     f"vs one rank {one}")
+        for k, (two, one) in enumerate(zip(rec["grad_norm"],
+                                           rec["grad_norm_one_rank"])):
+            # a mean over the ranks instead of a sum would halve it
+            if abs(two - one) > PARALLEL_TOTAL_REL * abs(one):
+                raise AssertionError(f"16a {name} step {k}: grad_norm "
+                                     f"{two} vs one rank {one}")
+        if rec["max_param_err_over_tol"] > 0:
+            raise AssertionError(
+                f"16a {name}: parameters past rtol {PARALLEL_RTOL} / atol "
+                f"{PARALLEL_ATOL} by {rec['max_param_err_over_tol']}")
+        if name == "fsdp" and not (rec["sharded"] and set(
+                rec["sharded"]) == set(rec["moments_sharded"])):
+            raise AssertionError(f"16a fsdp: sharded params "
+                                 f"{rec['sharded']}, moments "
+                                 f"{rec['moments_sharded']}")
+
+
+def nccl_one_rank(torch, batch, params):
+    """16b: the sharded step through a one-rank NCCL group, bitwise
+    against the unsharded step; the NCCL kernels one step launches; the
+    control word's host syncs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from handyrl_tpu_torch.analysis import HostTransferGuard
+    from handyrl_tpu_torch.connection import find_free_port
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+    from handyrl_tpu_torch.parallel import (
+        MeshSpec,
+        make_mesh,
+        make_sharded_update_step,
+    )
+    from handyrl_tpu_torch.parallel import multihost as mh
+
+    lr = _parallel_lr()
+    marks = [("start", time.perf_counter())]
+    full = _device_batch(torch, batch, None, "float32")
+    net = _geese_on_card(torch, params)
+    plain = UpdateStep(net, LossConfig.from_config(TRAIN_ARGS),
+                       make_optimizer(net.parameters(), lr), "float32")
+    # cuDNN's deterministic algorithms, not the pinned set: a pinned
+    # step launches an im2col per row, ~10^5 kernels, which the
+    # profiler takes a minute to reduce
+    with deterministic(torch):
+        for _ in range(PARALLEL_STEPS):
+            plain(full)
+        torch.cuda.synchronize()
+    marks.append(("unsharded_steps", time.perf_counter()))
+    mh.init_distributed({"coordinator_address":
+                         f"127.0.0.1:{find_free_port()}",
+                         "num_processes": 1, "process_id": 0}, device=DEV)
+    marks.append(("nccl_init", time.perf_counter()))
+    try:
+        backend = torch.distributed.get_backend()
+        net1 = _geese_on_card(torch, params)
+        step = make_sharded_update_step(
+            net1, LossConfig.from_config(TRAIN_ARGS),
+            make_mesh(MeshSpec(), device_type=DEV.split(":")[0]), lr, "float32")
+        with deterministic(torch):
+            step(full)
+            torch.cuda.synchronize()
+            marks.append(("sharded_step", time.perf_counter()))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(full)
+                torch.cuda.synchronize()
+        marks.append(("profiled_step", time.perf_counter()))
+        events = prof.key_averages()
+        marks.append(("key_averages", time.perf_counter()))
+        # the collectives ProcessGroupNCCL ran (its "nccl:<op>" ranges),
+        # and the NCCL kernels they launched on the card (a one-rank
+        # communicator may launch none)
+        calls = [e for e in events if e.key.startswith("nccl:")]
+        nccl = [e for e in events if "nccl" in e.key.lower()
+                and e.device_type.name == "CUDA"]
+        unequal = [n for n, p in net1.state_dict().items()
+                   if not torch.equal(p, net.state_dict()[n])]
+        # the control word: a CPU tensor over the gloo control group
+        with HostTransferGuard() as guard:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                words = [mh.sync_epoch_code(mh.STEP)
+                         for _ in range(CONTROL_WORDS)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        marks.append(("control_words", time.perf_counter()))
+    finally:
+        mh.shutdown()
+    marks.append(("shutdown", time.perf_counter()))
+    return {"backend": backend, "bitwise_equal": not unequal,
+            "part_marks_s": {name: round(t - prev, 3) for (name, t), (_, prev)
+                             in zip(marks[1:], marks[:-1])},
+            "unequal_params": unequal,
+            "nccl_calls_per_step": {e.key: e.count for e in calls},
+            "nccl_kernel_launches_per_step": sum(e.count for e in nccl),
+            "nccl_kernels": sorted({e.key[:80] for e in nccl}),
+            "nccl_device_us_per_step": sum(e.self_device_time_total
+                                           for e in nccl),
+            "control_words": len(words),
+            "control_word_host_transfers": guard.transfers}
+
+
+def nccl_one_rank_gates(b):
+    if b["backend"] != "nccl":
+        raise AssertionError(f"16b: backend {b['backend']}")
+    if not b["bitwise_equal"]:
+        raise AssertionError(f"16b: params differ from the unsharded "
+                             f"step: {b['unequal_params']}")
+    if sum(b["nccl_calls_per_step"].values()) < 2:
+        # the gradient and the metric all-reduce, at least
+        raise AssertionError(f"16b: NCCL calls per step "
+                             f"{b['nccl_calls_per_step']}")
+    if b["control_word_host_transfers"] != 0:
+        raise AssertionError(f"16b: the control word synced "
+                             f"{b['control_word_host_transfers']} times")
+
+
+def two_rank_train(cwd):
+    """16c: phase 7's config as two ranks of one gloo group on the card,
+    ``mesh: {dp: 2}``, each rank in its own directory."""
+    import yaml
+
+    from handyrl_tpu_torch.connection import find_free_port
+
+    port = find_free_port()
+    procs, dirs = [], []
+    for rank in range(2):
+        rdir = os.path.join(cwd, f"rank{rank}")
+        os.makedirs(rdir)
+        config = train_config(dict(PARALLEL_CUTS, distributed={
+            "coordinator_address": f"127.0.0.1:{port}",
+            "num_processes": 2, "process_id": rank}))
+        with open(os.path.join(rdir, "config.yaml"), "w") as f:
+            yaml.safe_dump(config, f)
+        dirs.append(rdir)
+        procs.append(_popen([sys.executable, "-c", RANK_TRAIN], rdir,
+                            f"parallel_train{rank}"))
+    t0 = time.perf_counter()
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=400)
+    finally:
+        for proc, _ in procs:
+            _stop(proc)
+    wall = time.perf_counter() - t0
+    outs = [_read(log) for _, log in procs]
+    for rank, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"16c rank {rank} exited {proc.returncode}:"
+                               f"\n{outs[rank][-3000:]}")
+    records = _records(dirs[0])
+    return {
+        "wall_s": wall,
+        # the intake counter's "100 200 ..." may precede a loss line
+        "loss_lines": [re.findall(r"loss = .*", out) for out in outs],
+        "bring_up": [[line for line in out.splitlines()
+                      if line.startswith("distributed: ")] for out in outs],
+        "models": [sorted(os.listdir(os.path.join(d, "models")))
+                   if os.path.isdir(os.path.join(d, "models")) else []
+                   for d in dirs],
+        "replica_metrics": os.path.exists(os.path.join(dirs[1],
+                                                       "metrics.jsonl")),
+        "epochs": epoch_rows(records),
+        "guards": [{k: r.get(k) for k in ("retrace_count",
+                                          "resharding_copies",
+                                          "host_transfers", "epoch_steps")}
+                   for r in records]}
+
+
+def two_rank_train_gates(c):
+    lines = c["loss_lines"]
+    if not lines[0] or lines[0] != lines[1]:
+        raise AssertionError(f"16c: loss lines differ: {lines}")
+    for rank, bring in enumerate(c["bring_up"]):
+        if not bring or f"process {rank} of 2, gloo on cuda" not in bring[0]:
+            raise AssertionError(f"16c rank {rank}: {bring}")
+    ckpts = [m for m in c["models"][0] if m.endswith(".ckpt")]
+    if not {"1.ckpt", "2.ckpt", "train_state.ckpt"} <= set(ckpts):
+        raise AssertionError(f"16c: rank 0 wrote {c['models'][0]}")
+    if c["models"][1] or c["replica_metrics"]:
+        raise AssertionError(f"16c: rank 1 wrote {c['models'][1]}")
+    if len(c["guards"]) != PARALLEL_CUTS["epochs"]:
+        raise AssertionError(f"16c: {len(c['guards'])} records")
+    for g in c["guards"]:
+        if g["retrace_count"] != 1 or g["resharding_copies"] != 0:
+            raise AssertionError(f"16c: guard keys {g}")
+
+
+def parallel_entry(torch, episodes, params, smi):
+    import shutil
+
+    batch = _parallel_batch(episodes)
+    cwd = tempfile.mkdtemp(prefix="parallel_")
+    try:
+        t0 = time.perf_counter()
+        a = sharded_steps(torch, batch, params, cwd)
+        t1 = time.perf_counter()
+        b = nccl_one_rank(torch, batch, params)
+        t2 = time.perf_counter()
+        c = two_rank_train(cwd)
+        a["part_s"], b["part_s"] = t1 - t0, t2 - t1
+        c["part_s"] = time.perf_counter() - t2
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+    out = {"a": a, "b": b, "c": c, "card": smi}
+    emit("phase16a", {k: v for k, v in a.items()})
+    emit("phase16b", b)
+    emit("phase16c", c)
+    sharded_steps_gates(a)
+    nccl_one_rank_gates(b)
+    two_rank_train_gates(c)
+    return out
+
+
+ALL_PHASES = frozenset(range(1, 17))
 # what a phase takes from another: phase 2's weights, phase 4's drained
 # episodes; every phase reads phase 1's card line
-NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}, 15: {2, 4}}
+NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}, 15: {2, 4},
+         16: {2, 4}}
 
 
 def parse_phases(spec):
@@ -4320,6 +4856,7 @@ def main(phases=ALL_PHASES):
     os.makedirs(OUT_DIR, exist_ok=True)
     report = {}
     clock = [time.perf_counter()]
+    start = clock[0]
 
     def lap():
         """Seconds since the previous phase ended."""
@@ -4373,10 +4910,21 @@ def main(phases=ALL_PHASES):
         report["phase7"]["phase_s"] = lap()
         emit("phase7", report["phase7"])
 
-    # 8. resilience: chaos drills and SIGTERM, then remote workers
+    # 8. resilience: chaos drills and SIGTERM, and remote workers; 10.
+    # --train on Geister, then --eval of its checkpoint.  Three learners
+    # whose gates hold no time, run together: phase 8's time covers
+    # both phases, phase 10's is its own run's
+    jobs = {}
     if 8 in phases:
-        report["phase8"] = p8 = resilience_entry()
+        jobs.update(resilience_jobs())
+    if 10 in phases:
+        jobs["geister"] = geister_train_job(smi)
+    done = together(jobs)
+    if 8 in phases:
+        report["phase8"] = p8 = {tag: done[tag][0]
+                                 for tag in ("drills", "remote")}
         p8["phase_s"] = lap()
+        p8["together_with"] = sorted(phases & {10})
         emit("phase8", p8)
         a, b = p8["drills"], p8["remote"]
         print(f"resilience: gather respawns {a['gather_respawns']}, "
@@ -4391,21 +4939,23 @@ def main(phases=ALL_PHASES):
               f"{len(b['workers'])} worker reports, none on CUDA",
               flush=True)
 
-    # 9. GeisterNet training steps on the card at full width
-    if 9 in phases:
-        report["phase9"] = p9 = geister_steps(torch, smi)
-        p9["phase_s"] = lap()
-        emit("phase9", p9)
-
-    # 10. --train on Geister, then --eval of its checkpoint
     if 10 in phases:
-        report["phase10"] = p10 = geister_train_entry(smi)
-        p10["phase_s"] = lap()
+        report["phase10"] = p10 = done["geister"][0]
+        p10["phase_s"] = done["geister"][1]
+        p10["together_with"] = sorted(phases & {8})
+        if 8 not in phases:
+            lap()
         emit("phase10", p10)
         print("Geister --train: " + ", ".join(
             f"epoch {r['epoch']} {r['steps']} steps "
             f"{r['epoch_wall_s']:.1f} s win rate {r['win_rate']}"
             for r in p10["epochs"]), flush=True)
+
+    # 9. GeisterNet training steps on the card at full width
+    if 9 in phases:
+        report["phase9"] = p9 = geister_steps(torch, smi)
+        p9["phase_s"] = lap()
+        emit("phase9", p9)
 
     # 11. GRFNet training steps on the GRF raster
     if 11 in phases:
@@ -4498,10 +5048,32 @@ def main(phases=ALL_PHASES):
             f"{c['syncs']['sync_debug_warnings']} sync warnings in "
             f"{c['syncs']['steps']} steps; phase 15 {p15['phase_s']:.1f} s "
             f"on {smi}", flush=True)
+    # 16. the parallel layer: the sharded step over two ranks, a
+    # one-rank NCCL group, a two-rank --train
+    if 16 in phases:
+        report["phase16"] = p16 = parallel_entry(torch, drained, params, smi)
+        p16["phase_s"] = lap()
+        a, b, c = p16["a"]["runs"], p16["b"], p16["c"]
+        print("parallel: " + ", ".join(
+            f"{name} max err over tol {r['max_param_err_over_tol']:.2e}"
+            for name, r in a.items())
+            + f"; bf16 step {a['dp_bf16']['step_ms_two_ranks']:.1f} ms on "
+            f"two gloo ranks vs {a['dp_bf16']['step_ms_one_rank']:.1f} ms "
+            f"on one"
+            + f"; NCCL one rank bitwise {b['bitwise_equal']}, "
+            f"{b['nccl_kernel_launches_per_step']} NCCL launches per step, "
+            f"control word syncs {b['control_word_host_transfers']}; "
+            f"two-rank --train " + ", ".join(
+                f"epoch {r['epoch']} {r['steps']} steps "
+                f"{r['epoch_wall_s']:.1f} s" for r in c["epochs"])
+            + f"; phase 16 {p16['phase_s']:.1f} s on {smi}", flush=True)
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "
           "pl.pallas_call (grep -rn pallas handyrl_tpu is empty)")
+    report["smoke_s"] = time.perf_counter() - start
+    print(f"smoke: {report['smoke_s']:.1f} s from the card's check to the "
+          f"report on {smi}", flush=True)
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
         json.dump(report, f, indent=1, sort_keys=True, default=str)
     print(json.dumps({"kernels": []}), flush=True)

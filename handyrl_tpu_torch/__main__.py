@@ -30,6 +30,10 @@ for the JAX package, with every mode of ``main.py``:
 
 ``train_args.supervise_learner: true`` runs either training mode's
 learner under a guard that relaunches it with ``restart_epoch: auto``.
+``train_args.distributed`` makes this process one rank of a
+multi-process learner (one process per card; start one per rank, each
+with its ``process_id``): the process group comes up before the card is
+touched and comes down on every exit path (:mod:`.parallel`).
 ``--device`` defaults to ``cuda``; a missing card is an error, not a
 silent CPU run.  The tools ``python -m handyrl_tpu_torch.scripts.<name>``
 (``aux_swa``, ``export_model``, ``make_onnx_model``) sit beside the

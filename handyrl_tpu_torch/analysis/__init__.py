@@ -1,9 +1,10 @@
 """Runtime guards of the port (``handyrl_tpu.analysis``'s runtime half).
 
 :mod:`.guards` holds ``RetraceGuard``, ``NumericsGuard``,
-``HostTransferGuard``, ``StallWatchdog``, ``LockOrderGuard`` and
-``ResourceLedger``; the learner arms them by default and writes their
-per-epoch counters into ``metrics.jsonl``.  The JAX package's static
+``HostTransferGuard``, ``StallWatchdog``, ``LockOrderGuard``,
+``ResourceLedger`` and ``ShardingContractGuard``; the learner arms
+them by default and writes their per-epoch counters into
+``metrics.jsonl``.  The JAX package's static
 linters (commlint, racelint, leaklint and the rest) are not copied
 here.
 """
@@ -18,6 +19,8 @@ from .guards import (
     ResourceLedger,
     RetraceError,
     RetraceGuard,
+    ShardingContractError,
+    ShardingContractGuard,
     StallWatchdog,
 )
 
@@ -31,5 +34,7 @@ __all__ = [
     "ResourceLedger",
     "RetraceError",
     "RetraceGuard",
+    "ShardingContractError",
+    "ShardingContractGuard",
     "StallWatchdog",
 ]

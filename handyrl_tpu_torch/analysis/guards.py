@@ -29,10 +29,11 @@ the port; the guards measure what only a running program knows:
     shared-memory populations once per epoch (``fd_count``,
     ``thread_count``, ``shm_segments``, ``resource_growth``).
 
-The JAX package's ``ShardingContractGuard`` has no counterpart yet: it
-means something only once there are shardings (the ``parallel`` layer),
-so ``sharding_contract_guard`` / ``max_resharding_copies`` stay inert
-and ``resharding_copies`` is absent from the port's records.
+  * :class:`ShardingContractGuard` latches each argument leaf's layout
+    at the first call — its device and, for a DTensor, its mesh and
+    placements — and counts later divergence (``resharding_copies``):
+    a tensor that changed layout mid-run costs a copy (a transfer or a
+    redistribution) on every step.
 
 All are near-zero cost (a dict lookup, an integer bump per event) and
 run armed by default: the learner writes their per-epoch deltas into
@@ -54,6 +55,10 @@ class RetraceError(RuntimeError):
 
 class HostTransferError(RuntimeError):
     """More device->host transfers than the armed budget allows."""
+
+
+class ShardingContractError(RuntimeError):
+    """More resharding copies than the armed budget allows."""
 
 
 class NumericsError(RuntimeError):
@@ -157,6 +162,137 @@ class RetraceGuard:
                 f"{self.name} saw {self.compiles} call signatures "
                 f"(budget {budget}) over {self.calls} calls — input "
                 f"shapes/dtypes are churning; pad batches to fixed shapes")
+
+
+class _ShardedCall:
+    """Callable proxy that checks one step's layout contract.
+
+    Each argument treedef carries a per-leaf contract that LATCHES on
+    the first layout seen at that leaf: its device and, for a DTensor,
+    its mesh and placements.  A later leaf laid out differently is a
+    resharding copy — the step moves it (a device transfer or a DTensor
+    redistribution) before it can run.  Leaves without a layout of
+    their own (Python numbers, numpy arrays) are skipped, as the JAX
+    guard skips uncommitted values; on a single device nothing can
+    change layout, so the guard is inert there.  A NEW treedef is a
+    different program with its own contract.  Layouts are read BEFORE
+    the call; sampled on the :class:`_GuardedCall` schedule.
+    Limitation, as in JAX: a leaf on the wrong layout from its very
+    first call latches that layout and stays quiet.
+
+    ``state``, when given, returns ``{name: tensor}`` of what the step
+    carries in place instead of taking as arguments (the parameters and
+    the optimizer's moments, which JAX passes to its jitted step): each
+    name latches its layout as an argument leaf does.
+    """
+
+    WARM_CALLS = _GuardedCall.WARM_CALLS
+    SAMPLE_EVERY = _GuardedCall.SAMPLE_EVERY
+
+    def __init__(self, guard, fn, state=None):
+        self._guard = guard
+        self._fn = fn
+        self._state = state
+        self._contracts = {}
+        self._state_contract = {}
+        self._calls = 0
+        self.copies = 0
+
+    @staticmethod
+    def _layout(leaf, tensor_type):
+        if not isinstance(leaf, tensor_type):
+            return None
+        return (str(leaf.device), getattr(leaf, "device_mesh", None),
+                tuple(getattr(leaf, "placements", ())))
+
+    def _check(self, args, kwargs):
+        import torch
+
+        leaves, treedef = tree_flatten((args, kwargs))
+        contract = self._contracts.get(treedef)
+        if contract is None or len(contract) != len(leaves):
+            contract = self._contracts[treedef] = [None] * len(leaves)
+        mismatched = 0
+        for i, leaf in enumerate(leaves):
+            layout = self._layout(leaf, torch.Tensor)
+            if layout is None:
+                continue
+            if contract[i] is None:
+                contract[i] = layout
+            elif contract[i] != layout:
+                mismatched += 1
+        for name, leaf in (self._state() if self._state else {}).items():
+            layout = self._layout(leaf, torch.Tensor)
+            if layout is None:
+                continue
+            if self._state_contract.setdefault(name, layout) != layout:
+                mismatched += 1
+        if mismatched:
+            self._guard._note(mismatched, self)
+
+    def __call__(self, *args, **kwargs):
+        self._calls += 1
+        if (self._calls <= self.WARM_CALLS
+                or self._calls % self.SAMPLE_EVERY == 0):
+            self._check(args, kwargs)
+        return self._fn(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+class ShardingContractGuard:
+    """Resharding-copy accounting over one or more step callables.
+
+    ::
+
+        guard = ShardingContractGuard(name="update_step")
+        step = guard.wrap(make_sharded_update_step(...))
+        ...
+        guard.copies          # resharding copies observed so far
+        guard.snapshot()      # copies since the previous snapshot
+
+    The learner arms one around the update step, with the step's
+    parameters and Adam moments as its ``state``, and reports the
+    per-epoch delta as ``resharding_copies``; steady state is 0 (the
+    parameters and the optimizer keep their layouts in place, the feed
+    stages rows on the rank's device).  ``max_copies > 0`` turns the
+    count into a hard assertion (:class:`ShardingContractError`) raised
+    at the offending call."""
+
+    def __init__(self, max_copies: int = 0, name: str = "step"):
+        self.max_copies = int(max_copies or 0)
+        self.name = name
+        self._last_snapshot = 0
+        self._wrapped = []
+
+    def wrap(self, fn, state=None):
+        """Wrap a step callable; returns the checking proxy.  ``state``
+        returns ``{name: tensor}`` of what the step keeps in place
+        (see :class:`_ShardedCall`)."""
+        proxy = _ShardedCall(self, fn, state)
+        self._wrapped.append(proxy)
+        return proxy
+
+    @property
+    def copies(self) -> int:
+        return sum(proxy.copies for proxy in self._wrapped)
+
+    def _note(self, mismatched: int, proxy: "_ShardedCall"):
+        proxy.copies += mismatched
+        if self.max_copies and self.copies > self.max_copies:
+            raise ShardingContractError(
+                f"{self.name}: {self.copies} resharding copies "
+                f"(budget {self.max_copies}) — an argument's layout "
+                f"changed mid-run, so the step copies it on every "
+                f"call; re-stage the input on the layout of the first "
+                f"call")
+
+    def snapshot(self) -> int:
+        """Copies since the previous snapshot (per-epoch delta)."""
+        delta = self.copies - self._last_snapshot
+        self._last_snapshot = self.copies
+        return delta
 
 
 class _DtypeCall:

@@ -6,9 +6,10 @@ validation, so one file drives either package, plus the derived
 quantities the learner reads (``effective_eval_rate``,
 ``num_gathers``, ``batch_steps``).
 
-Keys of layers the port does not have yet are parsed and refused with
-a "not ported yet" error when set, never silently ignored: ``mesh``
-and ``distributed`` (multihost).  ``serving`` and ``router`` (the
+``mesh`` (validated by ``parallel.MeshSpec``, with the JAX package's
+errors) and ``distributed`` (the JAX package's keys) take effect: a
+multi-process learner over ``torch.distributed``, one rank per card
+(:mod:`.parallel`).  ``serving`` and ``router`` (the
 network serving tier, validated by ``ServingConfig`` / ``RouterConfig``
 with the JAX package's cross-checks: serving needs the pipeline, the
 router needs serving) and ``status_port`` take effect as in the JAX
@@ -29,10 +30,8 @@ keys (``telemetry``, ``trace_sample_rate``, ``flightrec_spans``,
 package: ``max_update_compiles``, ``host_transfer_guard``,
 ``numerics_guard`` / ``max_nonfinite_steps``, ``stall_watchdog`` /
 ``max_stall_seconds``, ``lock_order_guard`` and ``resource_ledger`` /
-``max_fd_growth``.  One switch stays inert: ``sharding_contract_guard``
-with ``max_resharding_copies`` means something only once there are
-shardings (meshes and multihost), so it keeps its default, is
-validated, and writes no ``resharding_copies``.
+``max_fd_growth``, and ``sharding_contract_guard`` /
+``max_resharding_copies`` (``resharding_copies`` per epoch).
 """
 
 from __future__ import annotations
@@ -48,16 +47,6 @@ from .pipeline.config import PipelineConfig
 POLICY_TARGETS = ("MC", "TD", "VTRACE", "UPGO", "IMPACT")
 VALUE_TARGETS = ("MC", "TD", "VTRACE", "UPGO", "IMPACT")
 UPDATE_ALGORITHMS = ("standard", "impact")
-
-# train_args keys whose layer is not ported: refused when set
-NOT_PORTED = ("mesh", "distributed")
-
-
-def _is_set(value):
-    if isinstance(value, dict):
-        return bool(value) and str(value.get("mode", "on")) != "off"
-    return bool(value)
-
 
 @dataclass
 class WorkerConfig:
@@ -173,11 +162,13 @@ class TrainConfig:
     perf: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self):
-        unported = [k for k in NOT_PORTED if _is_set(getattr(self, k))]
-        if unported:
-            raise ValueError(
-                f"train_args {unported} set: not ported yet to "
-                f"handyrl_tpu_torch (use main.py for the JAX package)")
+        # the mesh axes and the distributed keys validate through the
+        # code that runs them
+        from .parallel.mesh import MeshSpec
+        from .parallel.multihost import check_config
+
+        MeshSpec.from_config(self.mesh)
+        check_config(self.distributed)
         if self.policy_target not in POLICY_TARGETS:
             raise ValueError(f"unknown policy_target {self.policy_target!r}")
         if self.value_target not in VALUE_TARGETS:

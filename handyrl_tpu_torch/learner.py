@@ -94,8 +94,21 @@ locks and a ``ResourceLedger`` samples fds, threads and shm segments
 ``host_transfers``, ``numerics_contract_breaks``, ``weak_upcasts``,
 ``nonfinite_steps``, ``stall_events``, ``lock_contention_sec``,
 ``lock_order_inversions``, ``fd_count``, ``thread_count``,
-``shm_segments`` and ``resource_growth``.  The sharding guard waits for
-meshes and multihost, which are not ported.
+``shm_segments`` and ``resource_growth``, and the
+``ShardingContractGuard`` (``max_resharding_copies``) adds
+``resharding_copies``.
+
+Multi-process training is the JAX package's multi-host learner, one
+process per card (:mod:`.parallel`): with ``distributed:`` every rank
+runs a full learner (its own workers, ring and rows of each global
+batch: ``batch_size / dp``), the update step sums gradients and
+metrics over the ``mesh:`` (dp/sp/tp, ``fsdp``), and rank 0 alone
+decides epochs (a control word per step), writes checkpoints, the
+manifest, the WAL and the metrics, and serves the network tier,
+router and status endpoint.  Replicas snapshot collectively at the
+same point (sharded state is gathered), keep the unsharded inference
+dispatch on their own card, and fall back from Anakin, as the JAX
+replicas do.
 
 Chaos reaches every layer the JAX package's does: besides the gather
 and service kills, ``chaos.serve_kill_epoch`` silences this replica's
@@ -130,6 +143,7 @@ from .analysis import (
     NumericsGuard,
     ResourceLedger,
     RetraceGuard,
+    ShardingContractGuard,
     StallWatchdog,
 )
 from .anakin import AnakinConfig, AnakinEngine
@@ -160,6 +174,9 @@ from .ops.update import (
     make_optimizer,
     set_learning_rate,
 )
+from .parallel import multihost as mh
+from .parallel.mesh import AXES, MeshSpec, axis_size, check_mesh_size, make_mesh
+from .parallel.update import full_state_dict, make_sharded_update_step
 from .resilience import ChaosConfig, FleetRegistry, LearnerKillSwitch
 from .resilience.supervisor import FailureWindow
 from .staging import DeviceReplay, make_replay_update_step
@@ -251,9 +268,10 @@ class Batcher:
     The parent samples episode windows (recency-biased) and ships them
     to children that assemble fixed-shape numpy batches."""
 
-    def __init__(self, args, episodes):
+    def __init__(self, args, episodes, batch_size=None):
         self.args = args
         self.episodes = episodes
+        self.batch_size = batch_size or args["batch_size"]
         # the batch-geometry keys, plus the telemetry keys so batch.make
         # spans land in the same run's span log
         cfg = {k: args[k] for k in (
@@ -271,8 +289,7 @@ class Batcher:
 
     def _selector(self):
         while True:
-            yield [self.select_episode()
-                   for _ in range(self.args["batch_size"])]
+            yield [self.select_episode() for _ in range(self.batch_size)]
 
     def run(self):
         self.executor.start()
@@ -414,22 +431,39 @@ class Trainer:
         self.transfer_guard = (HostTransferGuard()
                                if args.get("host_transfer_guard", True)
                                else None)
+        # the layout contract: every argument of the step, and every
+        # parameter and Adam moment it keeps, holds the layout of its
+        # first call (resharding_copies per epoch)
+        self.shard_guard = (
+            ShardingContractGuard(
+                max_copies=args.get("max_resharding_copies", 0),
+                name="update_step")
+            if args.get("sharding_contract_guard", True) else None)
+        # multi-process: this rank is one learner of a process group,
+        # rank 0 the primary; its feed builds batch_size / dp rows
+        self.multihost = mh.process_count() > 1
+        self.primary = mh.is_primary()
+        self.local_batch_size = args["batch_size"]
+        if self.multihost:
+            self.local_batch_size = mh.local_batch_size(args["batch_size"])
+        self.train_mesh = None
+        self.rows_mesh = None      # the ranks that share this rank's rows
 
         self.spec = model.spec
         self.module = build_module(self.spec, self.device).train()
         self.module.load_state_dict(model.module.state_dict())
-        self.optimizer = make_optimizer(
-            self.module.parameters(), self.default_lr * self.data_cnt_ema)
         self.impact = self.loss_cfg.update_algorithm == "impact"
         self.target_module = None
         if self.impact:
             # the IMPACT target network starts as a copy of the params
             self.target_module = build_module(self.spec, self.device)
             self.target_module.load_state_dict(self.module.state_dict())
-        self._maybe_restore_train_state()
-        self.update_step = UpdateStep(
-            self.module, self.loss_cfg, self.optimizer, self.compute_dtype,
-            target_module=self.target_module)
+        state = self._read_train_state()
+        if self.multihost:
+            state = self._sync_initial_state(state)
+        self.update_step = self._build_update_step()
+        self.optimizer = self.update_step.optimizer
+        self._restore_train_state(state)
         self.update_step.count = self.steps
         print(f"compute dtype: {self.compute_dtype}; training on "
               f"{self.device}")
@@ -452,26 +486,138 @@ class Trainer:
         self._replay_step = None
         self._host_step = None
         self.batcher = None
+        self._replay_state = None
         if self.device_replay is not None:
-            # seeded from the config seed and the resumed step count, so
-            # a restart draws a fresh, reproducible stream
+            # seeded from the config seed, the resumed step count and
+            # the rank, so a restart draws a fresh, reproducible stream
+            # and no two ranks draw alike
             self._replay_step = self._guarded(make_replay_update_step(
                 self.device_replay, self.update_step,
-                batch_size=args["batch_size"],
-                seed=int(args.get("seed", 0)) * 1_000_003 + self.steps))
+                batch_size=self.local_batch_size,
+                seed=int(args.get("seed", 0)) * 1_000_003 + self.steps
+                + 7919 * mh.process_index(),
+                share=self._share_rows))
             self._step_label = "replay_step"
         elif self.anakin is None:
             print("WARNING: device_replay is off — training from the "
                   "host batcher path (batches assembled on the CPU and "
                   "copied to the device every step)")
-            self.batcher = Batcher(self.args, self.episodes)
+            self.batcher = Batcher(self.args, self.episodes,
+                                   batch_size=self.local_batch_size)
             self._host_step = self._guarded(self.update_step)
 
+    def _share_rows(self, batch):
+        """The rows of this rank's dp group: under sp or tp the group's
+        first rank's rows on every rank of it (None: this rank's own)."""
+        return mh.share_rows(batch, self.rows_mesh)
+
+    def _default_mesh_cfg(self):
+        """With no mesh axes configured and several ranks, default to
+        pure data parallelism over as many ranks as divide the batch
+        (the JAX package's rule over devices).  One process drives one
+        card: a single-process learner on a host with several cards
+        uses one and says how to use the rest."""
+        n = mh.process_count()
+        if n <= 1:
+            cards = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
+            if cards > 1:
+                print(f"{cards} cards visible, training on {self.device}: "
+                      f"set distributed.num_processes (one process per "
+                      f"card) and mesh to train on all of them")
+            return {}
+        batch = self.args["batch_size"]
+        dp = max(d for d in range(1, n + 1) if batch % d == 0)
+        if dp <= 1:
+            print(f"1 of {n} devices used: batch_size "
+                  f"{batch} has no divisor <= {n}")
+            return {}
+        if dp < n:
+            print(f"WARNING: dp={dp} leaves {n - dp} of {n} "
+                  f"devices idle; make batch_size divisible by {n} "
+                  f"or set an explicit mesh")
+        print(f"defaulting to dp={dp} over {n} devices")
+        return {"dp": dp}
+
+    def _build_update_step(self):
+        """The update step and its Adam: the unsharded step, or with an
+        engaged mesh the sharded step over the ranks (which lays the
+        net out first and builds Adam on the laid-out parameters)."""
+        lr = self.default_lr * self.data_cnt_ema
+        mesh_cfg = dict(self.args.get("mesh") or {})
+        if not {k: v for k, v in mesh_cfg.items() if k != "fsdp"}:
+            # auto-shard only when the mesh AXES are unset (a bare
+            # {fsdp: true} still engages auto-dp); an explicit all-ones
+            # mesh forces the unsharded step
+            default = self._default_mesh_cfg()
+            if default:
+                mesh_cfg = {**default, "fsdp": mesh_cfg.get("fsdp", False)}
+            elif mesh_cfg.get("fsdp"):
+                print("WARNING: mesh {fsdp: true} ignored — no "
+                      "multi-device dp axis available")
+        engaged = any(int(v) > 1 for k, v in mesh_cfg.items()
+                      if k != "fsdp")
+        if self.multihost and not engaged:
+            raise ValueError(
+                "multi-host training requires a multi-device mesh: set "
+                "`mesh:` explicitly or make batch_size divisible by the "
+                "global device count")
+        if not engaged:
+            return UpdateStep(
+                self.module, self.loss_cfg,
+                make_optimizer(self.module.parameters(), lr),
+                self.compute_dtype, target_module=self.target_module)
+        spec = MeshSpec.from_config(mesh_cfg)
+        n = mh.process_count()
+        check_mesh_size(spec, n)
+        if spec.size != n:
+            raise ValueError(
+                f"mesh {spec.shape()} must cover all {n} processes: "
+                f"every process runs a learner, and one outside the mesh "
+                f"would train alone")
+        self.train_mesh = make_mesh(spec, device_type=self.device.type)
+        self.rows_mesh = mh.local_replay_mesh(self.train_mesh)
+        dp = axis_size(self.train_mesh, "dp")
+        if self.args["batch_size"] % dp:
+            raise ValueError(f"batch_size {self.args['batch_size']} must "
+                             f"be divisible by the mesh dp axis ({dp})")
+        # each dp group feeds its share of the global batch (its sp/tp
+        # ranks take the group's first rank's rows)
+        self.local_batch_size = self.args["batch_size"] // dp
+        print("mesh " + " ".join(f"{a}={k}" for a, k in
+                                 zip(AXES, spec.shape()))
+              + (" fsdp" if spec.fsdp else "")
+              + f" over {n} processes; rank {mh.process_index()} on "
+              f"{self.device}, {self.local_batch_size} rows per step")
+        return make_sharded_update_step(
+            self.module, self.loss_cfg, self.train_mesh, lr,
+            self.compute_dtype, target_module=self.target_module,
+            shard_time=spec.sp > 1, fsdp=spec.fsdp)
+
     def _guarded(self, step):
-        """``step`` behind the numerics guard, then the retrace guard."""
+        """``step`` behind the numerics guard, the sharding guard, then
+        the retrace guard."""
         if self.num_guard is not None:
             step = self.num_guard.wrap(step)
+        if self.shard_guard is not None:
+            step = self.shard_guard.wrap(step, state=self._step_state)
         return self.retrace_guard.wrap(step)
+
+    def _step_state(self):
+        """The update step's parameters and Adam moments by name (the
+        target net's too): what it keeps in place across calls, whose
+        layouts the sharding guard latches beside its arguments'."""
+        step = self.update_step
+        out = {}
+        for prefix, module in (("", step.module),
+                               ("target.", step.target_module)):
+            for name, p in (module.named_parameters()
+                            if module is not None else ()):
+                out[prefix + name] = p
+                for key, value in step.optimizer.state.get(p, {}).items():
+                    if torch.is_tensor(value):
+                        out[f"{prefix}{name}.{key}"] = value
+        return out
 
     def _maybe_build_anakin(self):
         """Arm the fused on-device rollout + update when ``anakin`` is
@@ -484,13 +630,26 @@ class Trainer:
         if not acfg.enabled:
             return
         env_args = self.args.get("env") or {}
-        if not device_env_available(env_args):
+        if self.multihost:
+            msg = ("anakin mode is single-process (multi-host learners "
+                   "keep the IMPALA path)")
+        elif not device_env_available(env_args):
             msg = (f"env {env_args.get('env')!r} has no device twin in "
                    "DEVICE_ENV_REGISTRY")
+        else:
+            msg = None
+        if msg:
             if acfg.mode == "on":
                 raise ValueError("anakin.mode: on — " + msg)
             print(f"WARNING: {msg}; falling back to the worker path")
             return
+        if self.train_mesh is not None:
+            dp = axis_size(self.train_mesh, "dp")
+            if acfg.num_envs % dp != 0:
+                raise ValueError(
+                    f"anakin.num_envs {acfg.num_envs} must be "
+                    f"divisible by the mesh dp axis ({dp}): the env "
+                    "axis is the fused step's batch dimension")
         try:
             self.anakin = AnakinEngine(
                 make_device_env(env_args), self.update_step, acfg,
@@ -534,46 +693,65 @@ class Trainer:
 
     # -- train state ----------------------------------------------------
 
-    def _maybe_restore_train_state(self):
-        """Resume the optimizer on restart: Adam moments, step count
-        and the lr EMA, from ``train_state.ckpt`` when it verifies
-        against the manifest digest and belongs to the restart epoch;
-        otherwise the optimizer cold-starts, loudly."""
+    def _read_train_state(self):
+        """The train state to resume from (Adam moments, step count, the
+        lr EMA and the IMPACT target), from ``train_state.ckpt`` when it
+        verifies against the manifest digest and belongs to the restart
+        epoch; otherwise None and the optimizer cold-starts, loudly.
+        The target's weights load here, before any layout."""
         restart_epoch = self.args.get("restart_epoch", 0)
         if not isinstance(restart_epoch, int) or restart_epoch <= 0:
-            return
+            return None
         try:
             state = read_verified(
                 train_state_path(),
                 expect_digest=self.args.get("_resume_state_digest") or None)
         except OSError:
-            return  # missing: cold-start the optimizer
+            return None  # missing: cold-start the optimizer
         except CorruptCheckpointError as exc:
             print(f"WARNING: train state failed verification ({exc}); "
                   "cold-starting the optimizer")
-            return
+            return None
         if state.get("epoch") != restart_epoch:
             print("train state is for epoch %s, not %d: cold-starting"
                   % (state.get("epoch"), restart_epoch))
-            return
+            return None
         try:
-            opt_state = state["opt_state"]
-            # the saved hyper-parameters, with this run's choice of
-            # implementation (fused on the card, foreach on the CPU)
-            impl = ("fused", "foreach", "capturable", "differentiable")
-            groups = [dict(saved, **{k: now[k] for k in impl if k in now})
-                      for saved, now in zip(opt_state["param_groups"],
-                                            self.optimizer.param_groups)]
-            self.optimizer.load_state_dict({
-                "state": {int(i): {k: torch.from_numpy(np.asarray(v))
-                                   for k, v in s.items()}
-                          for i, s in opt_state["state"].items()},
-                "param_groups": groups})
             if self.target_module is not None \
                     and state.get("target_params") is not None:
                 self.target_module.load_state_dict(
                     {k: torch.from_numpy(v)
                      for k, v in state["target_params"].items()})
+        except (ValueError, TypeError, KeyError, RuntimeError):
+            print("train state does not match the current model: "
+                  "cold-starting the optimizer")
+            return None
+        return state
+
+    def _sync_initial_state(self, state):
+        """Rank 0's weights (and target) into every rank's modules, and
+        its train state (or its cold start) to every rank: replicas
+        provably start identical even when only rank 0 could read a
+        restart checkpoint.  One-time, off the hot path."""
+        tensors = dict(self.module.state_dict())
+        if self.target_module is not None:
+            tensors.update({"target/" + k: v for k, v in
+                            self.target_module.state_dict().items()})
+        _, opt_state, steps, ema = mh.broadcast_train_state(
+            tensors, None if state is None else state["opt_state"],
+            0 if state is None else state["steps"],
+            self.data_cnt_ema if state is None else state["data_cnt_ema"])
+        if opt_state is None:
+            return None
+        return {"opt_state": opt_state, "steps": steps,
+                "data_cnt_ema": ema}
+
+    def _restore_train_state(self, state):
+        """Load a read (and synced) train state into the built step."""
+        if state is None:
+            return
+        try:
+            self.update_step.load_optimizer_state(state["opt_state"])
         except (ValueError, TypeError, KeyError, RuntimeError):
             print("train state does not match the current model: "
                   "cold-starting the optimizer")
@@ -584,8 +762,14 @@ class Trainer:
 
     def save_train_state(self, epoch):
         """``train_state.ckpt``: the port's own format (the torch
-        optimizer ``state_dict`` with numpy leaves), not optax's."""
-        sd = self.optimizer.state_dict()
+        optimizer ``state_dict`` with numpy leaves, the unsharded
+        step's layout), not optax's.  Sharded state is gathered first,
+        a collective every rank runs; rank 0 alone writes."""
+        sd = self.update_step.optimizer_state()
+        target = (None if self.target_module is None
+                  else full_state_dict(self.target_module))
+        if not self.primary:
+            return
         state = {
             "opt_state": {
                 "state": {i: host_copy(s) for i, s in sd["state"].items()},
@@ -594,9 +778,9 @@ class Trainer:
             "data_cnt_ema": self.data_cnt_ema,
             "epoch": epoch,
         }
-        if self.target_module is not None:
-            state["target_params"] = host_copy(
-                self.target_module.state_dict())
+        if target is not None:
+            state["target_params"] = host_copy(target)
+        os.makedirs(_models_dir(), exist_ok=True)
         self.last_state_digest = write_checksummed(
             train_state_path(), state, checksum=self.checkpoint_checksum)
 
@@ -614,7 +798,9 @@ class Trainer:
         if event is None or event.is_set():
             return
         try:
-            if self.epoch < 1 or self.steps <= 0:
+            # multi-process: a gather inside a grace window is unsafe;
+            # the boundary checkpoint is the resume point
+            if self.multihost or self.epoch < 1 or self.steps <= 0:
                 return
             state = {"params": to_flax(self.module), "steps": self.steps,
                      "epoch": self.epoch}
@@ -633,9 +819,10 @@ class Trainer:
             event.set()
 
     def snapshot(self):
-        """A CPU model holding a host copy of the live parameters."""
+        """A CPU model holding a host copy of the live parameters (a
+        collective when they are sharded: every rank takes it)."""
         model = TorchModel(build_module(self.spec, "cpu"), device="cpu")
-        model.load_params(host_copy(self.module.state_dict()))
+        model.load_params(host_copy(full_state_dict(self.module)))
         return model
 
     # -- epochs ---------------------------------------------------------
@@ -671,47 +858,108 @@ class Trainer:
                     batch = self.batcher.batch(timeout=0.3)
             except queue.Empty:
                 continue
-            with self.timers.section("update"):
-                batch = stage_batch(batch, self.device, self.compute_dtype)
-                metric_acc.append(self.costmodel.call(
-                    self._step_label, self._host_step, batch))
-            self.trace.tick()
-            if self.first_step_at is None:
-                self.first_step_at = time.monotonic()
-            self.steps += 1
+            metric_acc.append(self._host_batch_step(batch))
             batch_cnt += 1
         return batch_cnt, metric_acc
+
+    def _host_batch_step(self, batch):
+        """One step on a host batch: staged on the device, the rows of
+        this rank's dp group, the guarded update."""
+        with self.timers.section("update"):
+            batch = self._share_rows(
+                stage_batch(batch, self.device, self.compute_dtype))
+            metrics = self.costmodel.call(self._step_label,
+                                          self._host_step, batch)
+        self._count_step()
+        return metrics
+
+    def _count_step(self):
+        self.trace.tick()
+        if self.first_step_at is None:
+            self.first_step_at = time.monotonic()
+        self.steps += 1
+
+    def _replay_ingest(self):
+        """Drain arrivals into the ring (even while idling at the step
+        budget, so the pending queue cannot overflow and shed); a ring
+        growth re-lays the buffers: designed, so it widens the retrace
+        budget instead of tripping it."""
+        with self.timers.section("ingest"):
+            self.device_replay.ingest(max_episodes=8)
+        self.retrace_guard.allowance = self.device_replay.growths
+
+    def _ring_step(self):
+        """One draw + gather + update from the ring."""
+        replay = self.device_replay
+        if self._replay_state is None or replay.state_dirty:
+            self._replay_state = replay.device_state()
+        with self.timers.section("update"):
+            metrics = self.costmodel.call(
+                self._step_label, self._replay_step, self._replay_state)
+        self._count_step()
+        return metrics
 
     def _epoch_loop_device(self):
         """Device-ring path: draw + gather + update on the device, the
         host only draining newly arrived episodes into the ring."""
-        replay = self.device_replay
         cap = self.updates_cap
         batch_cnt, metric_acc = 0, []
-        state = None
         while batch_cnt == 0 or not self.update_flag:
             if self.shutdown_flag:
                 return None
             self._maybe_emergency_save()
-            with self.timers.section("ingest"):
-                replay.ingest(max_episodes=8)
-            # a ring growth re-lays the buffers: designed, so it widens
-            # the retrace budget instead of tripping it
-            self.retrace_guard.allowance = replay.growths
+            self._replay_ingest()
             if cap and batch_cnt >= cap:
                 time.sleep(0.01)
                 continue
-            if state is None or replay.state_dirty:
-                state = replay.device_state()
-            with self.timers.section("update"):
-                metric_acc.append(self.costmodel.call(
-                    self._step_label, self._replay_step, state))
-            self.trace.tick()
-            if self.first_step_at is None:
-                self.first_step_at = time.monotonic()
-            self.steps += 1
+            metric_acc.append(self._ring_step())
             batch_cnt += 1
         return batch_cnt, metric_acc
+
+    def _epoch_loop_multihost(self):
+        """Multi-process epoch: rank 0 decides, every rank runs the same
+        step count.  Each iteration syncs one control word (STEP /
+        EPOCH_END / STOP) on the CPU control group; the same collective
+        is the step barrier, so every rank's sequence of collectives is
+        identical by construction."""
+        cap = self.updates_cap
+        batch_cnt, metric_acc = 0, []
+        while True:
+            if self.primary and cap and batch_cnt >= cap:
+                # the epoch budget is spent: hold the next control word
+                # until the learner asks for the snapshot (the replicas
+                # wait in the collective)
+                while not (self.update_flag or self.shutdown_flag
+                           or self.failure is not None):
+                    if self.device_replay is not None:
+                        self._replay_ingest()
+                    time.sleep(0.01)
+            code = mh.STEP
+            if self.primary:
+                if self.shutdown_flag or self.failure is not None:
+                    code = mh.STOP
+                elif batch_cnt > 0 and self.update_flag:
+                    code = mh.EPOCH_END
+            code = mh.sync_epoch_code(code)
+            if code == mh.STOP:
+                self.shutdown_flag = True
+                return None
+            if code == mh.EPOCH_END:
+                return batch_cnt, metric_acc
+            # committed to one more global step: this rank's rows now
+            if self.device_replay is not None:
+                self._replay_ingest()
+                metric_acc.append(self._ring_step())
+            else:
+                while True:
+                    try:
+                        with self.timers.section("batch_wait"):
+                            batch = self.batcher.batch(timeout=1)
+                        break
+                    except queue.Empty:
+                        continue
+                metric_acc.append(self._host_batch_step(batch))
+            batch_cnt += 1
 
     def _epoch_loop_anakin(self):
         """Anakin epoch: each step is one on-device self-play segment
@@ -738,11 +986,8 @@ class Trainer:
             telemetry.span_end("anakin.rollout", t0,
                                games=self.anakin.num_envs,
                                unroll=self.anakin.unroll)
-            self.trace.tick()
             metric_acc.append(metrics)
-            if self.first_step_at is None:
-                self.first_step_at = time.monotonic()
-            self.steps += 1
+            self._count_step()
             batch_cnt += 1
         return batch_cnt, metric_acc
 
@@ -757,7 +1002,9 @@ class Trainer:
         return 0
 
     def train(self):
-        if self.anakin is not None:
+        if self.multihost:
+            result = self._epoch_loop_multihost()
+        elif self.anakin is not None:
             result = self._epoch_loop_anakin()
         elif self.device_replay is not None:
             result = self._epoch_loop_device()
@@ -803,6 +1050,10 @@ class Trainer:
         record["retrace_count"] = self.retrace_guard.compiles
         if self.transfer_guard is not None:
             record["host_transfers"] = self.transfer_guard.snapshot()
+        if self.shard_guard is not None:
+            # steady state 0: the step's arguments, parameters and
+            # moments keep their layouts
+            record["resharding_copies"] = self.shard_guard.snapshot()
         if self.num_guard is not None:
             # the steps' flags rode the epoch's one host copy; note_step
             # raises NumericsError past an armed max_nonfinite_steps
@@ -846,7 +1097,6 @@ class Trainer:
         self.last_metrics = record
         self.epoch += 1
         try:
-            os.makedirs(_models_dir(), exist_ok=True)
             self.save_train_state(self.epoch)
         except OSError as exc:
             print(f"WARNING: train state not saved ({exc!r})")
@@ -1005,7 +1255,7 @@ class Learner:
         # telemetry first: spans recorded by anything constructed below
         # (trainer set-up, worker bring-up) land in this run's log
         telemetry.configure_from_args(self.args, role="learner",
-                                      primary=True)
+                                      primary=mh.is_primary())
         # per-epoch self-time attribution over the span ring; the last
         # snapshot rides every flight-recorder dump
         self.attributor = telemetry.Attributor()
@@ -1024,6 +1274,11 @@ class Learner:
         self.env = make_env(env_args)
         self.eval_rate = cfg.train_args.effective_eval_rate
         self.shutdown_flag = False
+        # multi-process: every rank runs a full learner (own workers,
+        # own ring, own rows of each global batch); rank 0 also owns
+        # the checkpoints, the metrics and the epoch decisions
+        self.multihost = mh.process_count() > 1
+        self.primary = mh.is_primary()
 
         self.manifest = CheckpointManifest(_models_dir())
         self.checkpoint_checksum = bool(
@@ -1070,7 +1325,7 @@ class Learner:
                 torch.cuda.synchronize(self.device)
         with self._startup.section("trainer"):
             self.trainer = Trainer(self.args, self.model, device=self.device)
-        self.trainer.manifest = self.manifest
+        self.trainer.manifest = self.manifest if self.primary else None
         # Anakin's epoch clock: nothing ticks episode intake, so epochs
         # ride the trainer's step count (updates_per_epoch > 0, checked
         # by the config whenever anakin is configured)
@@ -1084,7 +1339,8 @@ class Learner:
         # this thread, before the trainer thread starts
         self.wal = None
         self.episodes_replayed = 0
-        if self.args.get("wal_enabled", True):
+        # primary only: the WAL lives in the checkpoint dir rank 0 owns
+        if self.args.get("wal_enabled", True) and self.primary:
             self.wal = EpisodeWAL(
                 os.path.join(_models_dir(), "wal"),
                 segment_bytes=int(
@@ -1119,6 +1375,14 @@ class Learner:
         pipeline_cfg = PipelineConfig.from_config(
             self.args.get("pipeline") or {})
         if pipeline_cfg.enabled and not remote:
+            if self.multihost and pipeline_cfg.infer_mesh == "auto":
+                # the JAX rule for multi-host replicas: each rank's
+                # service answers its own workers, unsharded, on its
+                # card (a dispatch over the mesh would need every rank
+                # in each forward)
+                print("inference dispatch: unsharded on this rank's "
+                      "card (multi-process learners keep per-rank "
+                      "services)")
             with self._startup.section("service"):
                 self.infer_service = InferenceService(
                     self.model, pipeline_cfg, epoch=self.model_epoch,
@@ -1149,11 +1413,11 @@ class Learner:
         self._serving_cfg = ServingConfig.from_config(
             self.args.get("serving") or {})
         if self._serving_cfg.enabled:
-            if self.infer_service is None:
+            if self.infer_service is None or not self.primary:
                 print("WARNING: serving.mode is on but the batched "
                       "inference service is not running here (pipeline "
-                      "off or remote learner); network serving disabled "
-                      "for this process")
+                      "off, remote learner, or non-primary replica); "
+                      "network serving disabled for this process")
             else:
                 from .serving import ServingFrontend
 
@@ -1172,7 +1436,8 @@ class Learner:
                 self.serve_frontend.start()
         self._router_cfg = RouterConfig.from_config(
             self.args.get("router") or {})
-        if self._router_cfg.enabled and self.serve_frontend is not None:
+        if (self._router_cfg.enabled and self.primary
+                and self.serve_frontend is not None):
             from .serving import RouterFrontend
 
             self._router_window = FailureWindow(
@@ -1200,7 +1465,7 @@ class Learner:
         # read-only live status endpoint; 0 = off.  A router-hosting
         # learner answers /healthz from the registry snapshot
         status_port = int(self.args.get("status_port", 0) or 0)
-        if status_port:
+        if status_port and self.primary:
             from .telemetry.status import StatusServer
 
             healthz_fn = None
@@ -1487,6 +1752,10 @@ class Learner:
             if self.serve_announcer is not None:
                 self.serve_announcer.kill()
             self.serve_frontend.inject_kill()
+        if not self.primary:
+            # replicas serve the in-memory snapshot to their own
+            # workers; only rank 0 writes the checkpoint dir
+            return
         os.makedirs(_models_dir(), exist_ok=True)
         # the JAX package's checkpoint format: both packages read it
         state = {"params": to_flax(model.module), "steps": steps,
@@ -1759,7 +2028,7 @@ class Learner:
         # fold this epoch's span ring into the self-time tree (status
         # perf section + flight-recorder dumps); no-op telemetry-off
         self.attributor.note_epoch(record)
-        if self.metrics_path:
+        if self.metrics_path and self.primary:
             with open(self.metrics_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
         self._last_record = record     # the status endpoint reads this
@@ -1959,7 +2228,18 @@ class Learner:
                 with telemetry.trace_span("rpc." + str(verb)):
                     replies = handler(payload if batched else [payload])
                 self.worker.send(conn, replies if batched else replies[0])
-            if self.trainer.anakin is not None:
+            if self.multihost and not self.primary:
+                # replicas do not decide epochs: they follow the trainer,
+                # which follows rank 0 through the control word
+                if (self.trainer.epoch > self.model_epoch
+                        and not self.shutdown_flag):
+                    self.update()
+                if (self.trainer.shutdown_flag
+                        or self.trainer.failure is not None) \
+                        and not self.shutdown_flag:
+                    self.shutdown_flag = True
+                    self.worker.begin_drain()
+            elif self.trainer.anakin is not None:
                 self._anakin_tick()
             # episodes drained after shutdown still land in the buffer
             # but start no extra epoch
@@ -2180,17 +2460,41 @@ class Learner:
                     pass
 
 
-def _train_local(args, device=DEFAULT_DEVICE):
+def _maybe_init_distributed(args, device, backend=None):
+    """Multi-process bring-up (``train_args.distributed``) before any
+    use of the device; returns this rank's device."""
+    dist_cfg = (args.get("train_args") or {}).get("distributed")
+    if not dist_cfg:
+        return device
+    mh.init_distributed(dist_cfg, device=device, backend=backend)
+    device = mh.rank_device(dist_cfg, device)
+    print(f"distributed: process {mh.process_index()} of "
+          f"{mh.process_count()}, {torch.distributed.get_backend()} on "
+          f"{device}", flush=True)
+    return device
+
+
+def _train_local(args, device=DEFAULT_DEVICE, backend=None):
     """One learner incarnation with its local fleet (module-level: the
-    supervised child's entry point, pickled by the spawn context)."""
-    prepare_env(args["env_args"])
-    Learner(args=args, device=device).run()
+    supervised child's entry point, pickled by the spawn context).
+    The process group, when there is one, comes down on every exit
+    path, so no peer is left waiting in a collective on this rank."""
+    try:
+        device = _maybe_init_distributed(args, device, backend)
+        prepare_env(args["env_args"])
+        Learner(args=args, device=device).run()
+    finally:
+        mh.shutdown()
 
 
-def _train_remote(args, device=DEFAULT_DEVICE):
+def _train_remote(args, device=DEFAULT_DEVICE, backend=None):
     """One learner incarnation serving remote worker machines."""
-    prepare_env(args["env_args"])
-    Learner(args=args, device=device, remote=True).run()
+    try:
+        device = _maybe_init_distributed(args, device, backend)
+        prepare_env(args["env_args"])
+        Learner(args=args, device=device, remote=True).run()
+    finally:
+        mh.shutdown()
 
 
 def _maybe_supervised(args, target):
@@ -2211,18 +2515,22 @@ def _maybe_supervised(args, target):
     return True
 
 
-def train_main(args, device=DEFAULT_DEVICE):
-    """``--train``: one local learner with its worker fleet."""
+def train_main(args, device=DEFAULT_DEVICE, backend=None):
+    """``--train``: one local learner with its worker fleet; with
+    ``distributed:`` this process is one rank of a multi-process
+    learner (``backend`` overrides NCCL/gloo, e.g. gloo for two ranks
+    sharing one card)."""
     resolve_device(device)  # fail before any work when the card is absent
-    target = functools.partial(_train_local, device=device)
+    target = functools.partial(_train_local, device=device, backend=backend)
     if not _maybe_supervised(args, target):
         target(args)
 
 
-def train_server_main(args, device=DEFAULT_DEVICE):
+def train_server_main(args, device=DEFAULT_DEVICE, backend=None):
     """``--train-server``: a learner serving remote worker machines on
     the entry and worker ports; the ring and the step on ``device``."""
     resolve_device(device)
-    target = functools.partial(_train_remote, device=device)
+    target = functools.partial(_train_remote, device=device,
+                               backend=backend)
     if not _maybe_supervised(args, target):
         target(args)

@@ -127,6 +127,17 @@ def _to_flax_shape(shape, kind):
     return tuple(shape)
 
 
+def torch_axis(kind, flax_axis):
+    """The axis of the port's tensor that holds axis ``flax_axis`` of
+    the Flax leaf: HWIO -> OIHW for a conv kernel, ``(in, out)`` ->
+    ``(out, in)`` for a Dense kernel, the same axis for a vector."""
+    if kind == CONV:
+        return (2, 3, 1, 0)[flax_axis]
+    if kind == DENSE:
+        return (1, 0)[flax_axis]
+    return flax_axis
+
+
 def from_flax(params, module):
     """A ``state_dict`` for ``module`` from a Flax param tree (nested
     dict of arrays, as ``module.init(...)["params"]`` of the JAX twin

@@ -21,8 +21,15 @@ host-device synchronisation.
 
 The learning rate is ``3e-8 * data_count_ema / (1 + steps * 1e-5)``,
 set on the optimizer's ``param_groups`` between epochs.
+
+Over a rank mesh, :mod:`..parallel.update` subclasses the step: its
+``loss_and_grads`` sums the gradients and metrics over the ranks
+between backward and clip, its ``grad_norm`` is the global norm of
+sharded gradients, and the clip and the target refresh act on each
+DTensor's local part (``local_tensor``).
 """
 
+import numpy as np
 import torch
 
 from ..utils.tree import tree_leaves, tree_map_leaves
@@ -33,11 +40,23 @@ GRAD_CLIP_NORM = 4.0
 WEIGHT_DECAY = 1e-5
 
 
+def local_tensor(t):
+    """This rank's part of a DTensor (sharded parameters and their
+    gradients, :mod:`..parallel.update`); any other tensor as is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def make_optimizer(params, learning_rate):
     """Adam with the optax chain's L2 term and epsilon.  On the card
-    the fused implementation updates every tensor in one launch."""
+    the fused implementation updates every tensor in one launch.
+    Sharded (DTensor) parameters get a param group of their own: a
+    multi-tensor kernel takes DTensors or plain tensors, not both."""
     params = list(params)
-    fused = bool(params) and params[0].device.type == "cuda"
+    fused = bool(params) and local_tensor(params[0]).device.type == "cuda"
+    sharded = [p for p in params if hasattr(p, "to_local")]
+    if sharded:
+        plain = [p for p in params if not hasattr(p, "to_local")]
+        params = [{"params": g} for g in (plain, sharded) if g]
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=WEIGHT_DECAY,
                             fused=fused or None)
@@ -90,8 +109,8 @@ def refresh_target(module, target_module, count, cfg: LossConfig):
     ``count`` (1-based): Polyak averaging when ``target_update_tau > 0``,
     else a hard copy every ``target_update_interval`` steps; with
     neither the target stays frozen."""
-    params = list(module.parameters())
-    target = list(target_module.parameters())
+    params = [local_tensor(p) for p in module.parameters()]
+    target = [local_tensor(p) for p in target_module.parameters()]
     if cfg.target_update_tau > 0.0:
         torch._foreach_add_(target, torch._foreach_sub(params, target),
                             alpha=cfg.target_update_tau)
@@ -142,21 +161,44 @@ class UpdateStep:
         losses["total"].backward()
         return losses, dcnt
 
+    def grad_norm(self, grads):
+        """The global norm of ``grads``, computed on the device."""
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+
     def apply_grads(self):
         """Clip the gradients in ``param.grad``, step Adam, refresh the
         target network; returns the gradient norm before the clip."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        gnorm = self.grad_norm(grads)
         scale = torch.where(gnorm < GRAD_CLIP_NORM,
                             torch.ones_like(gnorm), GRAD_CLIP_NORM / gnorm)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_([local_tensor(g) for g in grads], scale)
         self.optimizer.step()
         self.count += 1
         if self.target_module is not None:
             refresh_target(self.module, self.target_module, self.count,
                            self.cfg)
         return gnorm
+
+    def optimizer_state(self):
+        """The Adam state as ``optimizer.state_dict()`` (the format of
+        ``train_state.ckpt``)."""
+        return self.optimizer.state_dict()
+
+    def load_optimizer_state(self, opt_state):
+        """Restore :meth:`optimizer_state`'s format (host arrays): the
+        saved hyper-parameters with this run's choice of implementation
+        (fused on the card, foreach on the CPU)."""
+        impl = ("fused", "foreach", "capturable", "differentiable")
+        groups = [dict(saved, **{k: now[k] for k in impl if k in now})
+                  for saved, now in zip(opt_state["param_groups"],
+                                        self.optimizer.param_groups)]
+        self.optimizer.load_state_dict({
+            "state": {int(i): {k: torch.from_numpy(np.asarray(v))
+                               for k, v in s.items()}
+                      for i, s in opt_state["state"].items()},
+            "param_groups": groups})
 
     def __call__(self, batch):
         losses, dcnt = self.loss_and_grads(batch)

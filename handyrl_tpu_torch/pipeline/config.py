@@ -69,8 +69,10 @@ class PipelineConfig:
     # free, so raw pickle blocks skip the bz2 CPU cost on both ends
     compress: bool = False
     # "auto" shards the inference dispatch over the learner's training
-    # mesh in the JAX package; the port's dispatch runs on one device
-    # either way and validates the key so one config.yaml serves both
+    # mesh in the JAX package when that mesh is one process's; the
+    # port's meshes always span ranks, so (the JAX rule for multi-host
+    # replicas) each rank dispatches unsharded on its own card either
+    # way, and the key is validated so one config.yaml serves both
     infer_mesh: str = "auto"
 
     @classmethod

@@ -51,8 +51,13 @@ so reply pushes can tear, truncate or be refused, request and
 trajectory pops can stall, and heartbeats can be withheld or
 backdated; ``stats()`` then carries the injected counts (``chaos``).
 
-Not ported yet: the GSPMD/mesh dispatch, the service's own retrace
-guard (``infer_compiles``) and the sharding guard.
+Meshes: one process drives one card in the port, so a training mesh
+always spans ranks (:mod:`..parallel`), and the JAX package's rule for
+multi-host replicas applies to every mesh: each rank's service answers
+its own workers with an unsharded dispatch on that rank's card (a
+dispatch over the mesh would need every rank in each forward).  Not
+ported yet: a sharded dispatch across ranks, the service's own retrace
+guard (``infer_compiles``) and its sharding guard.
 """
 
 import random

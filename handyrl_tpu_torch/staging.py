@@ -526,19 +526,25 @@ class DeviceReplay:
         }
 
 
-def make_replay_update_step(replay, update_step, batch_size, seed=0):
+def make_replay_update_step(replay, update_step, batch_size, seed=0,
+                            share=None):
     """One training step from the ring: on-device draw -> gather ->
-    ``update_step`` (an :class:`..ops.update.UpdateStep`).  The draw's
-    generator lives on the ring's device, seeded from the config seed,
-    so a steady-state step uploads nothing and reads nothing back:
-    ``step(state) -> metrics`` with ``state`` the ring's
-    :meth:`DeviceReplay.device_state`."""
+    ``update_step`` (an :class:`..ops.update.UpdateStep`, or the
+    sharded step of :mod:`..parallel.update`, whose collectives then
+    run inside).  The draw's generator lives on the ring's device,
+    seeded from the config seed, so a steady-state step uploads nothing
+    and reads nothing back: ``step(state) -> metrics`` with ``state``
+    the ring's :meth:`DeviceReplay.device_state`.  Under a rank mesh
+    ``batch_size`` is this rank's rows, and ``share`` (if given) maps
+    the gathered rows to the ones the step takes (the dp group's, under
+    sp or tp)."""
     generator = torch.Generator(device=replay.device)
     generator.manual_seed(int(seed))
 
     def step(state):
         slots, tstarts, seats = replay.draw(state, generator, batch_size)
-        return update_step(replay.gather(slots, tstarts, seats))
+        batch = replay.gather(slots, tstarts, seats)
+        return update_step(batch if share is None else share(batch))
 
     step.generator = generator
     return step

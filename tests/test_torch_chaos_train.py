@@ -83,7 +83,7 @@ SURGE_CHILD = textwrap.dedent("""
 """)
 
 
-def test_chaos_surge_lag_spike_absorbed(tmp_path):
+def test_chaos_surge_lag_spike_absorbed(tmp_path, monkeypatch):
     args = _train_args(extra_train={
         "epochs": 16, "update_episodes": 4, "minimum_episodes": 8,
         "updates_per_epoch": 1, "update_algorithm": "impact",
@@ -121,7 +121,7 @@ def test_chaos_surge_lag_spike_absorbed(tmp_path):
     # both planes browned out
     assert "surge — holding uploads" in out
     assert "surge — holding shm episode shipping" in out
-    os.chdir(tmp_path)
+    monkeypatch.chdir(tmp_path)
     records = _records()
     assert len(records) == 16
     assert max(r["policy_lag_p95"] for r in records) >= 3, (

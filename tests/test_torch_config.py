@@ -4,8 +4,9 @@ package's.
   * the shipped ``config.yaml`` and a handful of variants parse to the
     same ``train_args`` dict in both packages (keys, defaults, derived
     values), and both refuse the same malformed values;
-  * keys of layers the port lacks (``mesh``, ``distributed``) are
-    refused with "not ported yet", while ``anakin`` and ``perf`` parse
+  * ``mesh`` and ``distributed`` parse as in the JAX package, and an
+    unknown mesh axis or distributed key is refused with the JAX
+    package's message; ``anakin`` and ``perf`` parse
     and refuse as in the JAX package; the resilience keys (every
     ``chaos`` key, ``supervise_learner``, the WAL) and the guard
     switches parse as in the JAX package, and ``generation_opponent`` (league-lite)
@@ -95,10 +96,30 @@ def test_both_packages_refuse_the_same_values(bad):
     ("mesh", {"dp": 1, "tp": 2}),
 ])
 def test_unported_layers_are_refused(key, value):
+    """The parallel layer is ported, so nothing of it is refused any
+    more (the name is the refusal test's, kept): its keys parse as in
+    JAX."""
     raw = _shipped()
     raw["train_args"][key] = value
-    with pytest.raises(ValueError, match="not ported yet"):
+    port = tconfig.Config.from_dict(raw).train_args.to_dict()
+    jax = jconfig.Config.from_dict(raw).train_args.to_dict()
+    assert port[key] == jax[key] == value
+
+
+@pytest.mark.parametrize("key,value", [
+    ("mesh", {"dp": 2, "pp": 2}), ("distributed", {"hosts": 2}),
+])
+def test_bad_parallel_keys_are_refused_as_in_jax(key, value):
+    from handyrl_tpu.parallel.mesh import MeshSpec
+    from handyrl_tpu.parallel.multihost import init_distributed
+
+    raw = _shipped()
+    raw["train_args"][key] = value
+    with pytest.raises(ValueError) as port:
         tconfig.Config.from_dict(raw)
+    with pytest.raises(ValueError) as ref:
+        (MeshSpec.from_config if key == "mesh" else init_distributed)(value)
+    assert str(port.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("key,value", [

@@ -655,3 +655,167 @@ def test_resource_ledger_delta_line_reports_movement():
     finally:
         sock.close()
     assert line.startswith("resources: fd ") and "(+1)" in line
+
+
+# -- ShardingContractGuard -------------------------------------------------
+
+def _placers():
+    """Per package, ``place(array, k)``: the array committed to layout
+    ``k`` — JAX's virtual CPU devices 0 and 1, the port's CPU and meta
+    devices (the meta tensor never runs: the step is an identity)."""
+    import jax
+
+    return {
+        jguards: lambda a, k: jax.device_put(a, jax.devices()[k]),
+        tguards: lambda a, k: torch.as_tensor(a).to(("cpu", "meta")[k]),
+    }
+
+
+def both_placed(scenario):
+    """One sharding scenario through both packages' guards, each with
+    its own placement: equal results."""
+    placers = _placers()
+    jax_result = scenario(jguards, placers[jguards])
+    port_result = scenario(tguards, placers[tguards])
+    assert port_result == jax_result
+    return port_result
+
+
+def test_sharding_guard_counts_changed_layouts_not_host_values():
+    def run(g, place):
+        guard = g.ShardingContractGuard(name="step")
+        step = guard.wrap(_identity)
+        a, b = np.ones((4, 3), np.float32), np.zeros((4,), np.float32)
+        step(place(a, 0), place(b, 0))      # latches both
+        step(place(a, 0), place(b, 0))
+        step(place(a, 1), place(b, 0))      # a moved: one copy
+        step(place(a, 0), place(b, 1))      # b moved: one more
+        step(a, 1.5)                        # host values: no layout
+        step({"x": place(a, 1)})            # new treedef: own contract
+        step({"x": place(a, 1)})
+        first = guard.snapshot()
+        return guard.copies, first, guard.snapshot()
+
+    assert both_placed(run) == (2, 2, 0)
+
+
+def test_sharding_guard_is_inert_on_one_device():
+    def run(g, place):
+        guard = g.ShardingContractGuard(name="step")
+        step = guard.wrap(_identity)
+        for i in range(100):
+            step(place(_batch(i)["obs"], 0), float(i))
+        return guard.copies
+
+    assert both_placed(run) == 0
+
+
+def test_sharding_guard_budget_raises_at_the_offending_call():
+    def run(g, place):
+        guard = g.ShardingContractGuard(max_copies=1, name="step")
+        step = guard.wrap(_identity)
+        a = np.ones((2, 2), np.float32)
+        step(place(a, 0))
+        step(place(a, 1))                   # 1 copy: within budget
+        with pytest.raises(g.ShardingContractError):
+            step(place(a, 1))               # 2 > 1
+        return guard.copies
+
+    assert both_placed(run) == 2
+
+
+def test_sharding_guard_samples_after_warmup_and_sums_wrapped():
+    def run(g, place):
+        guard = g.ShardingContractGuard(name="step")
+        one, two = guard.wrap(_identity), guard.wrap(_identity)
+        a = np.ones((2,), np.float32)
+        for _ in range(64):                 # the warm calls
+            one(place(a, 0))
+        for i in range(16):                 # sampled: every 8th call
+            one(place(a, 1))
+        two(place(a, 1))
+        two(place(a, 0))
+        return guard.copies
+
+    assert both_placed(run) == 3
+
+
+def test_sharding_guard_counts_a_changed_dtensor_placement():
+    """A DTensor leaf whose placement changes mid-run is a resharding
+    copy (one rank: the layouts differ in placements only), and an
+    armed budget raises at it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from handyrl_tpu_torch.connection import find_free_port
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{find_free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("dp",))
+        local = torch.ones(4, 3)
+        rows = DTensor.from_local(local, mesh, [Shard(0)])
+        copy = DTensor.from_local(local, mesh, [Replicate()])
+        guard = tguards.ShardingContractGuard(max_copies=1, name="step")
+        step = guard.wrap(_identity)
+        step(rows)
+        step(rows)
+        step(copy)                          # placement changed: 1 copy
+        assert guard.copies == 1
+        with pytest.raises(tguards.ShardingContractError):
+            step(copy)                      # 2 > 1
+    finally:
+        dist.destroy_process_group()
+
+
+def test_trainer_guard_counts_a_moved_parameter_and_moment(
+        tmp_path, monkeypatch):
+    """The trainer's sharding guard latches the layouts of the
+    parameters and Adam moments the step keeps in place, not only of
+    its arguments: a parameter and a moment moved between steps are
+    two copies, raised past a budget of 1 at the offending step and
+    carried by the next epoch's record once moved back."""
+    from handyrl_tpu_torch import learner as tlearner
+    from handyrl_tpu_torch.config import Config
+    from handyrl_tpu_torch.environment import make_env
+    from handyrl_tpu_torch.models import TorchModel
+
+    monkeypatch.chdir(tmp_path)
+    raw = {"env_args": {"env": "TicTacToe"}, "train_args": {
+        "batch_size": 4, "forward_steps": 4, "updates_per_epoch": 2,
+        "anakin": {"mode": "on", "num_envs": 8},
+        "max_resharding_copies": 1}}
+    args = Config.from_dict(raw).train_args.to_dict()
+    args["env"] = {"env": "TicTacToe"}
+    model = TorchModel(make_env(args["env"]).net(), device="cpu")
+    model.init_params(seed=0)
+    trainer = tlearner.Trainer(args, model, device="cpu")
+    for _ in range(2):
+        trainer.update_flag = True      # raised already: one epoch
+        trainer.train()
+        assert trainer.last_metrics["resharding_copies"] == 0
+
+    module = trainer.update_step.module
+    (name, param), (other, held) = list(module.named_parameters())[:2]
+    owner, _, attr = name.rpartition(".")
+    owner = module.get_submodule(owner)
+    state = trainer.optimizer.state[held]
+    moment = state["exp_avg"]
+    assert f"{other}.exp_avg" in trainer._step_state()
+    # one parameter and another's moment moved to another device (the
+    # step never runs on them: the guard raises before the call)
+    setattr(owner, attr, torch.nn.Parameter(param.detach().to("meta")))
+    state["exp_avg"] = moment.to("meta")
+    trainer.update_flag = True
+    with pytest.raises(tguards.ShardingContractError):
+        trainer.train()
+    assert trainer.shard_guard.copies == 2
+
+    setattr(owner, attr, param)         # back on the latched layouts
+    state["exp_avg"] = moment
+    trainer.update_flag = True
+    trainer.train()
+    assert trainer.last_metrics["resharding_copies"] == 2
+    assert trainer.shard_guard.copies == 2

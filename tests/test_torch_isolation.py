@@ -9,11 +9,12 @@ and averages two checkpoints with the tools (the interop slice), and
 runs a Trainer's fused Anakin step (the Anakin slice), serves a
 batch over TCP through the serving frontend (the serving slice), and
 counts a sync under the host-transfer guard and injects an shm fault
-(the guards-and-chaos slice);
+(the guards-and-chaos slice), and builds a sharded step over a
+one-rank gloo group (the parallel slice);
 afterwards no ``jax*``/``flax*``/``optax*`` or ``handyrl_tpu.*``
 module may be loaded.  An AST scan of the package, its ``interop/``,
 ``scripts/``, ``anakin/``, ``telemetry/``, ``serving/``,
-``analysis/`` and ``utils/`` subpackages included, finds no such
+``analysis/``, ``parallel/`` and ``utils/`` subpackages included, finds no such
 import anywhere, lazy ones included; importing ``chip_smoke`` loads
 none either.  And the card is never replaced by the CPU behind the
 caller's back.
@@ -193,6 +194,25 @@ CHILD = textwrap.dedent("""
     finally:
         ring.close()
 
+    # the parallel slice: a one-rank gloo group, its mesh and one
+    # sharded step (every collective over one rank)
+    from handyrl_tpu_torch.connection import find_free_port
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.parallel import (
+        MeshSpec, make_mesh, make_sharded_update_step, multihost)
+
+    assert multihost.init_distributed(
+        {"coordinator_address": "127.0.0.1:%d" % find_free_port(),
+         "num_processes": 1, "process_id": 0}, device="cpu")
+    try:
+        net = make_env(args["env"]).net()
+        step = make_sharded_update_step(
+            net, LossConfig.from_config(args), make_mesh(
+                MeshSpec(dp=1, fsdp=True), device_type="cpu"), 1e-3)
+        assert multihost.sync_epoch_code(multihost.EPOCH_END) == 1
+    finally:
+        multihost.shutdown()
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                         "handyrl_tpu"))
@@ -230,7 +250,8 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
     walked = {os.path.relpath(os.path.dirname(path), PACKAGE)
               for path in sources}
     assert {"interop", "scripts", "models", "pipeline", "anakin",
-            "telemetry", "serving", "utils", "analysis"} <= walked
+            "telemetry", "serving", "utils", "analysis",
+            "parallel"} <= walked
     bad = [f"{os.path.relpath(path, REPO)}:{line}: {name}"
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]

@@ -123,7 +123,8 @@ def _metrics_fixture(root, guard_keys=False):
                        lock_order_inversions=0, fd_count=40,
                        thread_count=12, shm_segments=20,
                        resource_growth=0, episodes_shm=10 + epoch,
-                       episodes_spilled=epoch, upload_backlog=2 * epoch)
+                       episodes_spilled=epoch, upload_backlog=2 * epoch,
+                       resharding_copies=0)
         records.append(rec)
     (root / "metrics.jsonl").write_text(
         "".join(json.dumps(r) + "\n" for r in records))
@@ -209,9 +210,11 @@ def test_plot_metrics_parses_and_extracts_series_alike(tmp_path, source):
     for key in keys:
         assert tplot.series(xs, tparsed, key) == \
             jplot.series(xs, jparsed, key), key
-    # a port run writes no resharding_copies: the series is empty, and
-    # every guard key of the record is a plotted point
-    assert tplot.series(xs, tparsed, "resharding_copies") == []
+    # a port run writes resharding_copies as the JAX learner does (the
+    # stdout log carries none), and every guard key of the record is a
+    # plotted point
+    want = [(e, 0) for e in range(4)] if source == "jsonl" else []
+    assert tplot.series(xs, tparsed, "resharding_copies") == want
     if source == "jsonl":
         assert tplot.series(xs, tparsed, "host_transfers") == \
             [(0, 3), (1, 4), (2, 5), (3, 6)]

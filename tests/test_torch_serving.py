@@ -563,7 +563,10 @@ def test_learner_serves_pinned_epochs_through_router_and_status(
         "entropy_regularization": 0.1,
         "entropy_regularization_decay": 0.1, "update_episodes": 20,
         "batch_size": 4, "minimum_episodes": 10, "maximum_episodes": 200,
-        "epochs": 3, "num_batchers": 1, "eval_rate": 0.1,
+        # the client's requests start once epoch 2 is live: a fourth
+        # epoch keeps them inside a recorded epoch under load (with 3,
+        # a fast last epoch could close before they were served)
+        "epochs": 4, "num_batchers": 1, "eval_rate": 0.1,
         "worker": {"num_parallel": 2}, "lambda": 0.7,
         "policy_target": "TD", "value_target": "TD", "seed": 1,
         "metrics_path": "metrics.jsonl", "status_port": status_port,
@@ -614,7 +617,7 @@ def test_learner_serves_pinned_epochs_through_router_and_status(
     assert not runner.is_alive() and learner.trainer.failure is None
     with open("metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
-    assert len(records) == 3
+    assert len(records) == 4
     for r in records:
         for key in ("serve_requests", "serve_ok", "serve_shed",
                     "serve_qps", "serve_respawns", "router_requests",

@@ -45,6 +45,8 @@ from handyrl_tpu_torch.telemetry.histogram import LatencyHistogram
 from handyrl_tpu_torch.telemetry.status import StatusServer
 from torchfix import CHILD_ENV, one_torch_thread  # noqa: F401  (autouse)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 class _Clock:
     def __init__(self):
@@ -328,7 +330,8 @@ SIGTERM_CHILD = textwrap.dedent("""
 def test_signal_dump_chains_the_pre_dump_save(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", SIGTERM_CHILD, str(tmp_path)],
-        env=CHILD_ENV, capture_output=True, text=True, timeout=60)
+        cwd=tmp_path, env=dict(CHILD_ENV, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=60)
     assert proc.returncode == 1, proc.stderr
     with open(tmp_path / "saved") as f:
         assert f.read() == "0"              # the save ran FIRST
