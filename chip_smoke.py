@@ -159,6 +159,16 @@ from a seed:
                  workers per rank): both exit 0, equal loss lines, rank
                  0 alone writes ``models/`` and metrics, one step
                  signature and no resharding copy in every record.
+ 17. torchlint — the port's static linter with all six families
+                 (``--shard --comm --race --num --leak``) over
+                 ``handyrl_tpu_torch/`` in a child interpreter on the
+                 card's host: exit 0, no finding, and torch never
+                 loaded by the scan; printed beside it (no gate): the
+                 rules per family, the suppressions, the seconds, and
+                 the device->host sync sites the lattice sees on the
+                 learner's epoch path (suppressed ``host-sync`` ones
+                 counted apart) beside phase 7's ``host_transfers``
+                 per epoch.  ``--phases 17`` runs it alone.
 
 Phase 7 also holds every epoch record to the runtime guards' keys (no
 stall, no lock-order inversion, no nonfinite step, one update-step
@@ -4813,7 +4823,103 @@ def parallel_entry(torch, episodes, params, smi):
     return out
 
 
-ALL_PHASES = frozenset(range(1, 17))
+# the learner's epoch path: where a device->host sync costs a step
+EPOCH_PATH = ("handyrl_tpu_torch.learner", "handyrl_tpu_torch.staging",
+              "handyrl_tpu_torch.batch", "handyrl_tpu_torch.ops.",
+              "handyrl_tpu_torch.parallel.update",
+              "handyrl_tpu_torch.anakin.")
+# the CLI as a user runs it (``python -m``), then what it loaded
+LINT_CLI = r"""
+import contextlib, io, json, runpy, sys, time
+t0 = time.perf_counter()
+sys.argv = ["torchlint", "--shard", "--comm", "--race", "--num", "--leak",
+            "--json", "handyrl_tpu_torch"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("handyrl_tpu_torch.analysis.torchlint",
+                         run_name="__main__")
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code
+report = json.loads(out.getvalue())
+print(json.dumps({
+    "rc": rc, "findings": report["total"], "counts": report["counts"],
+    "scan_s": time.perf_counter() - t0,
+    "torch_loaded": sorted(m for m in sys.modules
+                           if m.split(".")[0] == "torch")}))
+"""
+# the package's suppressions and the epoch path's device->host syncs
+LINT_SITES = r"""
+import json, sys
+from handyrl_tpu_torch.analysis import rules, torchlint
+package, supps, _ = torchlint.load_package(["handyrl_tpu_torch"])
+torchlint.compute_tracer_taint(package)
+torchlint.compute_device_summaries(package)
+epoch = [m for m in package.modules.values()
+         if m.name.startswith(tuple(sys.argv[1:]))]
+epoch_paths = {m.path for m in epoch}
+print(json.dumps({
+    "rules_per_family": {f: len(torchlint.family_registry(f))
+                         for f in torchlint.FAMILIES},
+    "suppressions": sum(len(s.by_line) for s in supps.values()),
+    "epoch_path_host_sync_suppressed": [
+        f"{path}:{line}" for path, s in supps.items()
+        if path in epoch_paths for line, (ids, _c, _l) in s.by_line.items()
+        if "host-sync" in ids or "all" in ids],
+    "epoch_path_sync_sites": [
+        f"{m.path}:{line} {fn} {call} depth {depth}" for m in epoch
+        for line, depth, fn, call in rules.host_sync_sites(package, m)]}))
+"""
+
+
+def lint_entry(report, smi):
+    """Phase 17: torchlint over the port in a fresh interpreter, and
+    beside it (another child, at the same time) the suppressions and
+    the epoch path's sync sites."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, *args],
+                              cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE)
+             for code, args in ((LINT_CLI, ()), (LINT_SITES, EPOCH_PATH))]
+    out = {}
+    try:
+        for tag, proc in zip(("cli", "sites"), procs):
+            stdout, stderr = proc.communicate(timeout=600)
+            with open(os.path.join(OUT_DIR, f"torchlint_{tag}.txt"),
+                      "w") as f:
+                f.write(stdout + stderr)
+            if proc.returncode != 0:
+                raise AssertionError(f"17: the {tag} child exited "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            out.update(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["child_s"] = time.perf_counter() - t0
+    out["card"] = smi
+    guards = report.get("phase7", {}).get("guards")
+    out["phase7_host_transfers_per_epoch"] = (
+        [g["host_transfers"] for g in guards] if guards else None)
+    return out
+
+
+def lint_gates(out):
+    if out["rc"] != 0 or out["findings"] != 0:
+        raise AssertionError(f"17: torchlint exit {out['rc']} with "
+                             f"{out['findings']} findings {out['counts']}")
+    if out["torch_loaded"]:
+        raise AssertionError(f"17: the scan loaded {out['torch_loaded']}")
+    if sorted(out["rules_per_family"]) != sorted(
+            ("base", "shard", "comm", "race", "num", "leak")):
+        raise AssertionError(f"17: families {out['rules_per_family']}")
+
+
+ALL_PHASES = frozenset(range(1, 18))
 # what a phase takes from another: phase 2's weights, phase 4's drained
 # episodes; every phase reads phase 1's card line
 NEEDS = {3: {2}, 4: {2}, 5: {2}, 6: {2, 4}, 14: {2}, 15: {2, 4},
@@ -5067,6 +5173,23 @@ def main(phases=ALL_PHASES):
                 f"epoch {r['epoch']} {r['steps']} steps "
                 f"{r['epoch_wall_s']:.1f} s" for r in c["epochs"])
             + f"; phase 16 {p16['phase_s']:.1f} s on {smi}", flush=True)
+    # 17. the static linter over the port, all six families
+    if 17 in phases:
+        report["phase17"] = p17 = lint_entry(report, smi)
+        p17["phase_s"] = lap()
+        emit("phase17", p17)
+        lint_gates(p17)
+        print(f"torchlint: exit {p17['rc']}, {p17['findings']} findings, "
+              f"rules per family {p17['rules_per_family']}, "
+              f"{p17['suppressions']} suppressions, scan "
+              f"{p17['scan_s']:.1f} s, torch loaded "
+              f"{p17['torch_loaded'] or 'never'}; epoch path: "
+              f"{len(p17['epoch_path_host_sync_suppressed'])} suppressed "
+              f"host-sync, {len(p17['epoch_path_sync_sites'])} static "
+              f"sync sites {p17['epoch_path_sync_sites']} beside phase 7's "
+              f"host_transfers per epoch "
+              f"{p17['phase7_host_transfers_per_epoch']}; phase 17 "
+              f"{p17['phase_s']:.1f} s on {smi}", flush=True)
     # kernels: the JAX package reaches pl.pallas_call nowhere, so the
     # port owes no hand-written kernel
     print("kernels: none — no function of handyrl_tpu reaches "

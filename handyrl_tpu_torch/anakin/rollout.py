@@ -166,6 +166,7 @@ class AnakinEngine:
             masked = torch.where(legal, policy, -float(ILLEGAL))
             if actions is None:
                 u = torch.rand((N, A), generator=generator, device=dev)
+                # torchlint: disable=nonfinite-risk -- u is drawn from [0, 1) and floored at _TINY, so -log(u) is positive and finite
                 gumbel = -torch.log(-torch.log(u.clamp_min(_TINY)))
                 action = (masked + gumbel).argmax(dim=-1)
             else:

@@ -84,6 +84,7 @@ class FramedConnection:
             sock = self.sock
             if sock is None:
                 raise ConnectionResetError("connection closed")
+            # torchlint: disable=unbounded-recv -- the framing layer's raw socket read: a dead peer raises, and a WEDGED peer is severed by the learner's heartbeat sweep (report_stale disconnects the socket, failing this recv)
             data = sock.recv(remaining)
             if not data:
                 got = n - remaining
@@ -136,6 +137,7 @@ class TracedConnection:
         self.conn.send(wrap_trace(data))
 
     def recv(self) -> Any:
+        # torchlint: disable=unbounded-recv -- transparent codec: blocking semantics (timeouts, supervision, heartbeat sweep) are the wrapped connection's property at each call site
         return unwrap_trace(self.conn.recv())
 
     def __getattr__(self, name):
@@ -188,6 +190,7 @@ _mp = mp.get_context("spawn")
 def send_recv(conn, sdata):
     """One request/reply round trip."""
     conn.send(sdata)
+    # torchlint: disable=unbounded-recv -- wedge bounded by peer supervision / heartbeat sweep
     return conn.recv()
 
 
@@ -257,6 +260,7 @@ class MultiProcessJobExecutor:
             ready = mp.connection.wait(self.conns, timeout=0.3)
             for conn in ready:
                 try:
+                    # torchlint: disable=unbounded-recv -- wait() selected this conn: a message is pending
                     data = conn.recv()
                 except EOFError:
                     continue
@@ -405,6 +409,7 @@ class QueueCommunicator:
                 ready = []
             for conn in ready:
                 try:
+                    # torchlint: disable=unbounded-recv -- wait() selected this conn: a frame is pending (a peer dying mid-frame raises, it does not block)
                     data = conn.recv()
                 except (ConnectionResetError, BrokenPipeError, EOFError,
                         OSError):

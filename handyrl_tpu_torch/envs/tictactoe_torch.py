@@ -134,6 +134,7 @@ def from_board(cells, device="cuda"):
     position (play stops the moment a line completes)."""
     cells = np.asarray(cells, np.int8).reshape(-1, NUM_ACTIONS)
     marks = cells[:, WIN_LINES].sum(axis=-1)
+    # torchlint: disable=unguarded-cast -- the winner is -1, 0 or +1, exact in int8
     winner = np.where((marks == 3 * FIRST).any(axis=-1), FIRST,
                       np.where((marks == -3 * FIRST).any(axis=-1),
                                -FIRST, 0)).astype(np.int8)

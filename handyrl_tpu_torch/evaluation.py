@@ -73,8 +73,7 @@ class NetworkAgentClient:
     def run(self):
         while True:
             try:
-                # server-driven session: the server sends "quit" at
-                # series end, and a dead server raises here
+                # torchlint: disable=unbounded-recv -- server-driven session: the server sends "quit" at series end, and a dead server raises here
                 verb, payload = self.conn.recv()
             except (ConnectionResetError, EOFError):
                 break
@@ -102,8 +101,7 @@ class NetworkAgent:
 
     def _call(self, verb, *payload):
         self.conn.send((verb, list(payload)))
-        # request/reply over a live match connection; a dead client
-        # raises ConnectionError instead of blocking
+        # torchlint: disable=unbounded-recv -- request/reply over a live match connection; a dead client raises ConnectionError instead of blocking
         return self.conn.recv()
 
     def update(self, data, reset):
@@ -316,6 +314,7 @@ def _match_series_child(agents, critic, env_args, index, in_queue,
     random.seed(seed + index)
     env = make_env({**env_args, "id": index})
     while True:
+        # torchlint: disable=unbounded-recv -- the parent enqueues one None sentinel per child after the jobs, so this drain always terminates
         job = in_queue.get()
         if job is None:
             break
@@ -389,6 +388,7 @@ def evaluate_mp(env, agents, critic, env_args, args_patterns, num_process,
     table = ResultTable(len(agents))
     live_children = num_process
     while live_children > 0:
+        # torchlint: disable=unbounded-recv -- every child posts a None sentinel on exit (even after env failures), so this loop always drains
         item = out_queue.get()
         if item is None:
             live_children -= 1
@@ -530,8 +530,7 @@ def eval_client_main(args, argv, device=DEFAULT_DEVICE):
         try:
             host = argv[1] if len(argv) >= 2 else "localhost"
             conn = open_socket_connection(host, NETWORK_PORT)
-            # one-shot handshake: the server sends env_args on accept,
-            # and a server that stopped accepting resets the socket
+            # torchlint: disable=unbounded-recv -- one-shot startup handshake: the server sends env_args immediately on accept, and a dead server raises out of the session loop
             env_args = conn.recv()
         except (EOFError, ConnectionError, OSError):
             break

@@ -254,6 +254,7 @@ def _batch_worker(conn, bid, cfg):
     print(f"started batcher {bid}")
     try:
         while True:
+            # torchlint: disable=unbounded-recv -- batcher child on a parent pipe: learner death breaks the pipe and the except below exits the process
             episodes = conn.recv()
             with telemetry.trace_span("batch.make",
                                       episodes=len(episodes)):

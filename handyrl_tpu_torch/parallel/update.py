@@ -254,6 +254,7 @@ class ShardedUpdateStep(UpdateStep):
             if hidden is not None or self._window is None:
                 return apply_fn(obs, hidden)
             B, T, P = self._window
+            # torchlint: disable=unsynced-divisibility -- loss_and_grads sets self._window only when T % sp == 0, so the split is even
             span = T // sp
 
             def cut(a):

@@ -690,6 +690,7 @@ class WorkerServer(QueueCommunicator):
 
     def _admit(self, conn):
         """Entry handshake: reserve an id block, reply merged config."""
+        # torchlint: disable=unbounded-recv -- bounded: _safe_admit arms a socket deadline before calling, so a silent peer raises timeout instead of wedging the entry loop
         remote_cfg = conn.recv()
         print(f"accepted connection from {remote_cfg['address']}")
         count = int(remote_cfg["num_parallel"])
@@ -770,6 +771,7 @@ def entry(worker_args):
                                   ENTRY_PORT)
     try:
         conn.send(worker_args)
+        # torchlint: disable=unbounded-recv -- one-shot startup handshake, operator-visible: the learner replies immediately on accept, and a dead learner raises into _join's retry loop
         merged = conn.recv()
     finally:
         conn.close()  # a retry must not leak one fd per attempt

@@ -16,8 +16,10 @@ module may be loaded.  An AST scan of the package, its ``interop/``,
 ``scripts/``, ``anakin/``, ``telemetry/``, ``serving/``,
 ``analysis/``, ``parallel/`` and ``utils/`` subpackages included, finds no such
 import anywhere, lazy ones included; importing ``chip_smoke`` loads
-none either.  And the card is never replaced by the CPU behind the
-caller's back.
+none either.  The static linter's thirteen modules import the stdlib
+alone, and a fresh ``python -m handyrl_tpu_torch.analysis.torchlint
+--list-rules`` loads neither torch nor JAX.  And the card is never
+replaced by the CPU behind the caller's back.
 """
 
 import ast
@@ -256,6 +258,44 @@ def test_no_module_of_the_package_imports_jax_or_handyrl_tpu():
            for path in sources for line, name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+LINT_MODULES = ("astutil", "rules", "torchlint", "commlint", "commrules",
+                "racelint", "racerules", "leaklint", "leakrules",
+                "numlint", "numrules", "shardlint", "shardrules")
+
+
+def test_the_linter_modules_import_the_stdlib_alone():
+    analysis = os.path.join(PACKAGE, "analysis")
+    for name in LINT_MODULES:
+        path = os.path.join(analysis, name + ".py")
+        bad = [mod for _line, mod in _imports(path)
+               if mod.split(".")[0] not in sys.stdlib_module_names]
+        tree = ast.parse(open(path).read(), filename=path)
+        bad += [f".{node.module}" for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level
+                and (node.level != 1 or node.module not in LINT_MODULES)]
+        assert bad == [], (name, bad)
+
+
+def test_listing_the_lint_rules_loads_neither_torch_nor_jax():
+    probe = (
+        "import runpy, sys\n"
+        "sys.argv = ['torchlint', '--list-rules']\n"
+        "try:\n"
+        "    runpy.run_module('handyrl_tpu_torch.analysis.torchlint',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
+        "print('LOADED', sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('torch', 'jax', 'jaxlib',\n"
+        "                             'handyrl_tpu')))\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=CHILD_ENV)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "[leak] 6 rules" in proc.stdout
+    assert "LOADED []" in proc.stdout
 
 
 def test_importing_chip_smoke_loads_no_jax():
