@@ -90,7 +90,13 @@ from a seed:
                  ``anakin: {mode: on, num_envs: 1024}``, 3 epochs of 20
                  fused steps, workers only evaluating; (d)
                  tests/test_learning.py's Anakin loop on the card (32
-                 games x 60 steps), its 0.545 win-rate floor;
+                 games x 60 steps), its 0.545 win-rate floor; (e) the
+                 env axis over two gloo ranks sharing the card (512
+                 games each, ``{dp: 2}``, float32 on the pinned set)
+                 against one rank at 1,024 games: every rollout row
+                 (discrete keys exact, prob and value within 1e-5), the
+                 frames, and after two fused steps the loss and the
+                 parameters within 16a's tolerance;
  14. serving   — (a) phase 2's GeeseNet 32x12 live as epoch 2 in an
                  ``InferenceService`` on the card with two shm workers,
                  a ``ServingFrontend`` on port 0 and eight
@@ -101,7 +107,10 @@ from a seed:
                  local forward of its rows and snapshot (strict
                  float32), pinned replies carry epoch 1, some dispatches
                  carry network and shm rows together, ``submitted ==
-                 ok + shed + errors``, ``param_loads`` == 2; (b) two
+                 ok + shed + errors``, ``param_loads`` == 2, the
+                 service's ``infer_compiles`` at most the pow2 bucket
+                 geometries, ``infer_resharding_copies`` 0 and
+                 ``mesh_devices`` 1 (so in every 14c record); (b) two
                  such replicas behind a ``RouterFrontend`` (beats 0.1 s,
                  timeout 1 s) under pinned load, one killed silently:
                  no request lost, the corpse evicted within the timeout
@@ -120,7 +129,15 @@ from a seed:
                  linked by trace id; the profiler window holds CUDA
                  kernels; the attribution tree's heaviest rows; (d)
                  14a's load in interleaved blocks with telemetry on and
-                 off (served rows/s and p99; not a gate);
+                 off (served rows/s and p99; not a gate); (e) the
+                 service's dispatch with its two guards armed against
+                 the bare dispatch of the same module at 8, 64 and 256
+                 rows, and against the service's path with the guards
+                 taken out: outputs bit for bit, one signature per
+                 geometry, 0 copies; each guard's check and both
+                 proxies timed alone, the three paths' walls in rounds
+                 past the guards' 64 warm calls (the cost is not a
+                 gate);
  15. chaos     — (a) ``--train`` on phase 7's config (4 epochs of 50 +
                  50 episodes) with every shm fault armed (torn, full
                  and truncated pushes, stalled pops, dropped and
@@ -145,8 +162,11 @@ from a seed:
                  two gloo ranks sharing the card, each on half the rows
                  (``mesh: {dp: 2}`` float32 and bf16, then ``{dp: 2,
                  fsdp: true}``), two steps against one rank on all the
-                 rows (the pinned float32 set; params within rtol 2e-4 /
-                 atol 2e-5, ``total`` and ``grad_norm`` within 1e-4),
+                 rows (the pinned float32 set; ``total`` and
+                 ``grad_norm`` within 1e-4; one rank following the
+                 ranks, each step its gradient at their parameters,
+                 then Adam on theirs: every leaf's gradient within 1e-4
+                 x its largest, the params within rtol 2e-4 / atol 2e-5),
                  bf16 finite and timed on two ranks and on one; fsdp
                  with its parameters and Adam moments dp-sharded; (b) the
                  same step through a one-rank NCCL group, bit for bit
@@ -158,7 +178,18 @@ from a seed:
                  (``mesh: {dp: 2}``, 2 epochs of 50 + 50 episodes, 2
                  workers per rank): both exit 0, equal loss lines, rank
                  0 alone writes ``models/`` and metrics, one step
-                 signature and no resharding copy in every record.
+                 signature and no resharding copy in every record; (d)
+                 GeeseNet 128 x 2 (tp engages) over four gloo ranks at
+                 dp2 x tp2 with ``fsdp``, two float32 steps against one
+                 rank on all the rows (16a's checks), the block
+                 kernels sharded on both axes and every leaf and moment
+                 on ``param_sharding``'s layout; (e) the sharded
+                 inference dry run
+                 (``handyrl_tpu_torch.scripts.multichip_infer_dryrun
+                 --ranks 4 --device cuda``): dp2 x tp2 with fsdp, dp4,
+                 dp4 with fsdp and a one-rank mesh through the service's
+                 ``_forward``, hot swap and routing at one signature
+                 and no copy, one window dispatch.
  17. torchlint — the port's static linter with all six families
                  (``--shard --comm --race --num --leak``) over
                  ``handyrl_tpu_torch/`` in a child interpreter on the
@@ -172,14 +203,17 @@ from a seed:
 
 Phase 7 also holds every epoch record to the runtime guards' keys (no
 stall, no lock-order inversion, no nonfinite step, one update-step
-signature).  Depth cut to make room for phases 15 and 16 (gates
+signature), and its ``--train`` to the launcher's one-card reduction
+(``launch: 1 card(s) visible, no spawn``).  Depth cut to make room for phases 15 and 16 (gates
 unchanged): phase 7's restart, phase 8's drills, phase 10, phase 12's
 league and phase 15a-b run epochs of 50 + 50 episodes, phase 13c 3
 epochs of 20 fused steps, 14a's load 6 s and 14d's blocks 1 s; 8b's
 worker machine starts once the learner's entry port is up; phase 8's
 drills, its remote workers and phase 10's Geister run (three learners
-whose gates hold no time) run together, phase 10 before phase 9, and
-phase 7's ``--eval`` beside its restart.
+whose gates hold no time) run together, with phase 17's linter children
+beside them, phase 10 before phase 9, and phase 7's ``--eval`` beside
+its restart; likewise 12b-12d (after 12a), 13c with 13e, and 16c-16e
+(``together``: none of them gates a time).
 
 Every phase prints one ``phaseN {json}`` line (phases 12-16 one per
 part) and raises on failure.
@@ -202,15 +236,16 @@ tensor's error against float64 with cuDNN's default algorithms, with
 ``cudnn.deterministic``, with the gates' pinned set (``pinned_f32``) and
 on the CPU, and the kernels each card run launches.
 
-``python3 chip_smoke.py --jax-curve`` instead runs the JAX package's
-``main.py --train`` on phase 7's config, on the CPU, in a subprocess
-(this script never imports JAX), and prints its per-epoch curve: the
-reference the port's curve is read against.  It needs JAX and no card.
-``python3 chip_smoke.py --jax-curve anakin`` prints the JAX engine's
-win rates for phase 13d's loop, on the CPU, the same way.
+``python3 chip_smoke.py --step-parity [batches]`` instead runs 16a's
+float32 runs and 16d on that many batches and counts, per check, the
+batches that fail the gates and the batches whose ranks' parameters
+fall past the tolerance of one rank's own steps (not a gate: see
+``PARALLEL_RTOL``).
 """
 
 import contextlib
+import functools
+import itertools
 import json
 import os
 import queue
@@ -1177,6 +1212,12 @@ def _train_entry(cwd):
     proc, records, wall = run_training(train, cwd, config)
     _check_run(proc, "train")
     out = {"cuts": TRAIN_CUTS, "wall_s": wall, "epochs": epoch_rows(records)}
+    # one card: the launcher reduces --train to this one process
+    out["launch"] = [line for line in proc.stdout.splitlines()
+                     if line.startswith("launch: ")]
+    if not any("no spawn" in line for line in out["launch"]):
+        raise AssertionError(f"the launcher did not say it made no spawn: "
+                             f"{out['launch']}")
     if [r["epoch"] for r in records] != [0, 1, 2] or not os.path.exists(
             os.path.join(cwd, "models", "3.ckpt")):
         raise AssertionError(f"3 epochs did not land: {records}")
@@ -2106,12 +2147,17 @@ def league_entry(torch, smi):
 
 
 def _league_entry(torch, cwd):
-    out = {}
-    for part, fn in (("a", _league_train), ("b", _onnx_entry),
-                     ("c", _swa_entry), ("d", _battle_entry)):
-        t0 = time.perf_counter()
-        out[part] = fn(torch, cwd)
-        out[part]["part_s"] = time.perf_counter() - t0
+    """12a, then 12b-12d together: each reads 12a's checkpoints and none
+    gates a time."""
+    t0 = time.perf_counter()
+    out = {"a": _league_train(torch, cwd)}
+    out["a"]["part_s"] = time.perf_counter() - t0
+    emit("phase12", dict(out["a"], part="12a"))
+    done = together({part: functools.partial(fn, torch, cwd)
+                     for part, fn in (("b", _onnx_entry), ("c", _swa_entry),
+                                      ("d", _battle_entry))})
+    for part in "bcd":
+        out[part], out[part]["part_s"] = done[part]
         emit("phase12", dict(out[part], part=f"12{part}"))
     return out
 
@@ -2814,76 +2860,29 @@ def anakin_learning(torch):
 
 
 def anakin_entry(torch, smi):
-    """Phase 13, one ``phase13 {json}`` line per part (13a-13d)."""
+    """Phase 13, one ``phase13 {json}`` line per part (13a-13e)."""
     out = {"card": smi}
-    for part, fn in (("a", lambda: dict(walk=anakin_env_walk(torch),
-                                         **anakin_gates(torch))),
-                     ("b", lambda: anakin_timing(torch)),
-                     ("c", anakin_train_entry),
-                     ("d", lambda: anakin_learning(torch))):
-        t0 = time.perf_counter()
-        out[part] = fn()
-        out[part]["part_s"] = time.perf_counter() - t0
-        emit("phase13", dict(out[part], part=f"13{part}"))
+    # 13c and 13e gate no time: they run together, after the timed 13b
+    for parts in ({"a": lambda: dict(walk=anakin_env_walk(torch),
+                                     **anakin_gates(torch))},
+                  {"b": lambda: anakin_timing(torch)},
+                  {"c": anakin_train_entry,
+                   "e": lambda: anakin_ranks(torch)},
+                  {"d": lambda: anakin_learning(torch)}):
+        if len(parts) == 1:
+            # alone on the main thread (the profiler's CUPTI callbacks
+            # must run on the thread that registered them)
+            (part, fn), = parts.items()
+            t0 = time.perf_counter()
+            done = {part: (fn(), time.perf_counter() - t0)}
+        else:
+            done = together(parts)
+        for part, (rec, seconds) in done.items():
+            out[part] = rec
+            out[part]["part_s"] = seconds
+            emit("phase13", dict(rec, part=f"13{part}"))
+    anakin_ranks_gates(out["e"])
     return out
-
-
-JAX_ANAKIN_LOOP = """
-import json, random, sys
-import jax, jax.numpy as jnp, numpy as np
-from handyrl_tpu.agent import Agent, RandomAgent
-from handyrl_tpu.anakin import AnakinConfig, AnakinEngine
-from handyrl_tpu.environment import make_env, make_jax_env
-from handyrl_tpu.evaluation import exec_match
-from handyrl_tpu.models import TPUModel
-from handyrl_tpu.ops.losses import LossConfig
-from handyrl_tpu.ops.update import make_optimizer
-
-learn, loss_args = json.loads(sys.argv[1]), json.loads(sys.argv[2])
-env = make_env({"env": "TicTacToe"})
-env.reset()
-model = TPUModel(env.net())
-model.init_params(env.observation(env.players()[0]), seed=learn["seed"])
-optimizer = make_optimizer(learn["lr"])
-engine = AnakinEngine(
-    make_jax_env({"env": "TicTacToe"}), model,
-    LossConfig.from_config(loss_args), optimizer,
-    AnakinConfig.from_config({"mode": "on",
-                              "num_envs": learn["num_envs"]}),
-    seed=learn["seed"])
-step = engine.make_fused_step()
-params = jax.tree.map(jnp.array, model.params)
-opt_state = optimizer.init(params)
-carry = engine.init_carry(0)
-rates = []
-for i in range(learn["steps"]):
-    params, opt_state, metrics, carry = step(params, opt_state, carry, ())
-    if i + 1 in learn["eval_at"]:
-        snap = TPUModel(model.module, jax.tree.map(np.asarray, params))
-        random.seed(77 + len(rates))
-        score = 0.0
-        for g in range(learn["games"]):
-            ours, theirs = env.players()[g % 2], env.players()[1 - g % 2]
-            outcome = exec_match(env, {ours: Agent(snap),
-                                       theirs: RandomAgent()})
-            score += (outcome[ours] + 1) / 2
-        rates.append(score / learn["games"])
-print(json.dumps({"jax_cpu_anakin_rates": rates,
-                  "mean": sum(rates) / len(rates)}))
-"""
-
-
-def jax_anakin_curve():
-    """The JAX engine's rates for 13d's loop on the CPU, in a subprocess
-    (this script imports no JAX): tests/test_learning.py's Anakin test
-    without its assertion."""
-    proc = subprocess.run(
-        [sys.executable, "-c", JAX_ANAKIN_LOOP, json.dumps(LEARN),
-         json.dumps(LEARN_ARGS)], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu"),
-        capture_output=True, text=True, timeout=1800)
-    print(proc.stdout.strip() or proc.stderr[-3000:], flush=True)
-    return proc.returncode
 
 
 # ---------------------------------------------------------------------
@@ -3018,24 +3017,6 @@ def grad_error_study(draws=8):
     return 0
 
 
-def jax_curve():
-    """The JAX package's curve on the phase-7 config, on the CPU:
-    ``main.py --train`` in a subprocess (this script imports no JAX)."""
-    import shutil
-
-    cwd = tempfile.mkdtemp(prefix="jax_curve_")
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    try:
-        proc, records, wall = run_training(
-            [sys.executable, os.path.join(ROOT, "main.py"), "--train"],
-            cwd, train_config(TRAIN_CUTS), timeout=1800)
-    finally:
-        shutil.rmtree(cwd, ignore_errors=True)
-    print(json.dumps({"jax_cpu_curve": epoch_rows(records), "wall_s": wall,
-                      "exit": proc.returncode}), flush=True)
-    return proc.returncode
-
-
 # ---------------------------------------------------------------------
 
 # ---------------------------------------------------------------------
@@ -3053,6 +3034,10 @@ SERVE_PIN_EVERY = 4                # one client in four pins epoch 1
 TEL_BLOCKS = ("on", "off", "off", "on")   # 14d, interleaved
 TEL_SECONDS = 1.0
 DRILL_CLIENTS = 3                  # 14b's pinned load
+SERVE_GUARD_ROWS = (8, 64, 256)    # 14e: bucket geometries timed
+SERVE_GUARD_ROUNDS = 300           # 14e: rounds of the three paths
+SERVE_GUARD_CHECKS = 200           # 14e: each guard's check timed alone
+SERVE_GUARD_PROXY_CALLS = 8000     # 14e: the two proxies around a no-op
 DRILL = {"mode": "on", "port": 0, "heartbeat_interval": 0.1,
          "heartbeat_timeout": 1.0, "reply_timeout": 5.0,
          "replica_failures": 0, "failure_window": 5.0}
@@ -3330,6 +3315,9 @@ def serving_load_phase(torch, model, model2, tmp):
                 proc.terminate()
                 proc.join(timeout=10)
     a.update(param_loads=stats["param_loads"],
+             infer_compiles=stats["infer_compiles"],
+             infer_resharding_copies=stats["infer_resharding_copies"],
+             mesh_devices=stats["mesh_devices"],
              device_modules=stats["device_modules"],
              net_requests=stats["net_requests"], frontend=fstats,
              workers=workers)
@@ -3343,6 +3331,12 @@ def serving_load_phase(torch, model, model2, tmp):
     d["rows_cost_share"] = 1.0 - (d["net_rows_per_s_on"]
                                   / d["net_rows_per_s_off"])
     return a, d
+
+
+def bucket_geometries(max_batch=PIPELINE["max_batch"], floor=8):
+    """The service's pow2 batch buckets from its floor to max_batch."""
+    return len([b for b in (floor << i for i in range(32))
+                if b <= max_batch])
 
 
 def serving_gates(a):
@@ -3364,6 +3358,15 @@ def serving_gates(a):
     if a["param_loads"] != 2:
         raise AssertionError(f"param_loads {a['param_loads']} != the 2 "
                              "snapshots served")
+    # the service's guards: one signature per bucket geometry (the live
+    # and the pinned snapshot share the forward), no layout move
+    if not 0 < a["infer_compiles"] <= bucket_geometries() or \
+            a["infer_resharding_copies"] or a["mesh_devices"] != 1:
+        raise AssertionError(f"14a guard counts: compiles "
+                             f"{a['infer_compiles']} (at most "
+                             f"{bucket_geometries()}), copies "
+                             f"{a['infer_resharding_copies']}, mesh "
+                             f"{a['mesh_devices']}")
     for w in a["workers"].values():
         if w["fallbacks"] or w["local_rows"] or w["torch_cuda_initialized"]:
             raise AssertionError(f"a shm worker answered locally: {w}")
@@ -3672,7 +3675,8 @@ def _serving_train(torch, cwd):
             "untracked_residual_sec", "epoch_wall_sec",
             "arithmetic_intensity", "roofline_verdict", "mfu",
             "profile_update_sec", "profile_ingest_sec",
-            "infer_dispatch_ms_p50", "infer_dispatch_ms_p99")}
+            "infer_dispatch_ms_p50", "infer_dispatch_ms_p99",
+            "infer_compiles", "infer_resharding_copies", "mesh_devices")}
             for r in records],
         "status_reads": statuses, "router_port": port,
         "pinned_ok": len(pinned), "live_ok": live,
@@ -3739,6 +3743,10 @@ def serving_train_gates(c):
                 raise AssertionError(f"14c: {key} missing in {r}")
         if r.get("arithmetic_intensity") is None:
             raise AssertionError(f"14c: no arithmetic_intensity in {r}")
+        if r.get("infer_resharding_copies") != 0 or r.get(
+                "mesh_devices") != 1 or not 0 <= r.get(
+                "infer_compiles", -1) <= bucket_geometries():
+            raise AssertionError(f"14c: the service's guard keys in {r}")
     if not c["status_reads"]:
         raise AssertionError("14c: the status endpoint never answered")
     if not c["pinned_ok"] or c["pinned_wrong_epoch"]:
@@ -3764,8 +3772,144 @@ def serving_train_gates(c):
                              "kernel events")
 
 
+def serve_guard_cost(torch, model):
+    """14e: the inference service's dispatch (``_forward``, behind its
+    RetraceGuard and ShardingContractGuard) against the bare dispatch of
+    the same service-owned module on the same inputs (the dispatch
+    before the guards: ``forward_numpy`` of the module) and against
+    ``_forward``'s own steps with the guards taken out.  Outputs bit
+    for bit; each guard's check timed alone on the dispatch's real
+    arguments, and both proxies around a no-op (all they add to a
+    dispatch); the dispatch's host wall (upload, forward, download) of
+    the three paths in rounds (each round another of their six orders)
+    once the guards sample every 8th call."""
+    from handyrl_tpu_torch.analysis.guards import (
+        RetraceGuard,
+        ShardingContractGuard,
+    )
+    from handyrl_tpu_torch.models.wrapper import forward_numpy
+    from handyrl_tpu_torch.pipeline import InferenceService, PipelineConfig
+
+    svc = InferenceService(model, PipelineConfig.from_config(PIPELINE),
+                           device=DEV)
+    try:
+        sig = svc._ensure_forward(model)      # the retrace proxy
+        shard = sig._fn                       # the sharding proxy
+        module, params = svc._placed(model)
+        obs = {rows: real_observations(rows, seed=SEED + rows)
+               for rows in SERVE_GUARD_ROWS}
+        raw = shard._fn                       # the forward they guard
+
+        def unguarded(x):
+            # _forward's own steps with the guards taken out
+            svc._ensure_forward(model)
+            mod, par = svc._placed(model)
+            return forward_numpy(lambda a, _h: raw(mod, par, a),
+                                 svc.device, x)
+
+        paths = {"armed": lambda x: svc._forward(model, x),
+                 "service": unguarded,
+                 "bare": lambda x: forward_numpy(module, svc.device, x)}
+        orders = list(itertools.permutations(paths))
+        out = {"rows": list(SERVE_GUARD_ROWS), "rounds": SERVE_GUARD_ROUNDS,
+               "params": len(params), "parity": {}, "timing": {}}
+        # parity, then past the guards' warm calls (every call checked)
+        for rows, x in obs.items():
+            a, b = paths["armed"](x), paths["bare"](x)
+            c = paths["service"](x)
+            out["parity"][rows] = all(np.array_equal(a[k], b[k])
+                                      and np.array_equal(c[k], b[k])
+                                      for k in b)
+        while sig._calls <= sig.WARM_CALLS:
+            for x in obs.values():
+                paths["armed"](x)
+                paths["bare"](x)
+        # each check alone, on the dispatch's arguments at 64 rows
+        with torch.inference_mode():
+            x = torch.from_numpy(obs[64]).to(DEV)
+            args = (module, params, x)
+            checks = {}
+            for name, check in (("retrace_check_us", sig._signature),
+                                ("sharding_check_us", shard._check)):
+                t0 = time.perf_counter()
+                for _ in range(SERVE_GUARD_CHECKS):
+                    check(args, {})
+                checks[name] = ((time.perf_counter() - t0)
+                                / SERVE_GUARD_CHECKS * 1e6)
+            # both proxies around a no-op on the same arguments, past
+            # their warm calls: all that the guards add to a dispatch,
+            # the sampled checks included
+            def noop(module, params, obs):
+                return obs
+
+            proxied = RetraceGuard(name="inference_batch").wrap(
+                ShardingContractGuard(name="inference_batch").wrap(noop))
+            for _ in range(sig.WARM_CALLS + 1):
+                proxied(*args)
+            per_call = {}
+            for name, fn in (("proxied", proxied), ("noop", noop)):
+                t0 = time.perf_counter()
+                for _ in range(SERVE_GUARD_PROXY_CALLS):
+                    fn(*args)
+                per_call[name] = ((time.perf_counter() - t0)
+                                  / SERVE_GUARD_PROXY_CALLS * 1e6)
+        out["checks"] = dict(
+            checks, warm_calls=sig.WARM_CALLS,
+            sample_every=sig.SAMPLE_EVERY,
+            steady_us_per_dispatch=(checks["retrace_check_us"]
+                                    + checks["sharding_check_us"])
+            / sig.SAMPLE_EVERY,
+            proxies_us_per_dispatch=per_call["proxied"] - per_call["noop"])
+        for rows, x in obs.items():
+            ms = {tag: [] for tag in paths}
+            for rnd in range(SERVE_GUARD_ROUNDS):
+                for tag in orders[rnd % len(orders)]:
+                    t0 = time.perf_counter()
+                    paths[tag](x)
+                    ms[tag].append((time.perf_counter() - t0) * 1e3)
+            med = {tag: statistics.median(v) for tag, v in ms.items()}
+
+            def diff(a, b):
+                return [p - q for p, q in zip(ms[a], ms[b])]
+
+            diffs = diff("armed", "bare")
+            out["timing"][rows] = {
+                "pair_diff_ms_p25": _percentile(diffs, 0.25),
+                "pair_diff_ms_median": statistics.median(diffs),
+                "pair_diff_ms_p75": _percentile(diffs, 0.75),
+                # armed minus the service path without its guards, and
+                # that path minus the bare forward, round by round
+                "guard_diff_ms_median": statistics.median(
+                    diff("armed", "service")),
+                "service_diff_ms_median": statistics.median(
+                    diff("service", "bare")),
+                "ms_median_armed": med["armed"],
+                "ms_median_service": med["service"],
+                "ms_median_bare": med["bare"],
+                "ms_p90_armed": _percentile(ms["armed"], 0.9),
+                "ms_p90_bare": _percentile(ms["bare"], 0.9),
+                "cost_share": med["armed"] / med["bare"] - 1.0}
+        out["infer_compiles"] = svc.retrace_guard.compiles
+        out["infer_resharding_copies"] = svc.shard_guard.copies
+    finally:
+        svc.close()
+    return out
+
+
+def serve_guard_gates(e):
+    if not all(e["parity"].values()):
+        raise AssertionError(f"14e: the guarded dispatch differs from the "
+                             f"bare one: {e['parity']}")
+    if e["infer_compiles"] != len(SERVE_GUARD_ROWS) or \
+            e["infer_resharding_copies"]:
+        raise AssertionError(f"14e guard counts: compiles "
+                             f"{e['infer_compiles']} (want "
+                             f"{len(SERVE_GUARD_ROWS)}), copies "
+                             f"{e['infer_resharding_copies']}")
+
+
 def serving_entry(torch, model, model2, smi):
-    """Phase 14, one ``phase14 {json}`` line per part (14a-14d)."""
+    """Phase 14, one ``phase14 {json}`` line per part (14a-14e)."""
     import shutil
 
     out = {"card": smi}
@@ -3782,6 +3926,9 @@ def serving_entry(torch, model, model2, smi):
         out["b"] = replica_drill(torch, model, model2)
         emit("phase14", {"b": out["b"]})
         drill_gates(out["b"])
+        out["e"] = serve_guard_cost(torch, model)
+        emit("phase14", {"e": out["e"]})
+        serve_guard_gates(out["e"])
     finally:
         torch.backends.cudnn.allow_tf32 = prev
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4371,10 +4518,19 @@ PARALLEL_TIMED = 5                 # timed bf16 steps after them (16a)
 PARALLEL_RUNS = (("dp", {"dp": 2}, "float32"),
                  ("dp_bf16", {"dp": 2}, "bfloat16"),
                  ("fsdp", {"dp": 2, "fsdp": True}, "float32"))
-# two ranks vs one rank on the same rows: tier-1's tolerance (JAX's own
-# in tests/test_parallel.py); the shipped lr keeps Adam's ~lr moves of
-# near-zero gradients inside it
+# ranks vs one rank on the same rows: tier-1's tolerance (JAX's own in
+# tests/test_parallel.py).  One rank follows the ranks' run: at each
+# step its gradient at the ranks' parameters holds theirs (each leaf
+# within GRAD_TOL x its largest, as phase 6 holds the card's), then
+# Adam steps on their gradient, and the parameters this gives hold
+# theirs (rtol/atol).  Not one rank's own steps: where Adam's
+# input (the clipped gradient plus the L2 term) nears zero, its first
+# update lr * g / (|g| + 1e-8) turns a rounding difference of the
+# gradient's sum into a move of up to lr (6.1e-5 > the 2e-5 atol), so
+# that comparison passes or fails with the batch's data (phase 6's
+# MOVED_REL mask meets the same).  Its excess is reported, not gated.
 PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_TOTAL_REL = 2e-4, 2e-5, 1e-4
+
 CONTROL_WORDS = 20                 # 16b: control words under sync checks
 # 16c: phase 7's config over two ranks sharing the card (gloo), cut to 2
 # epochs of 50 + 50 episodes and 2 workers per rank
@@ -4390,15 +4546,6 @@ if __name__ == "__main__":
     with open("config.yaml") as f:
         args = yaml.safe_load(f)
     train_main(args, device="cuda", backend="gloo")
-"""
-RANK_STEPS = """\
-import faulthandler
-import sys
-import chip_smoke
-
-faulthandler.enable()
-
-chip_smoke.rank_steps(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
 """
 
 
@@ -4451,6 +4598,81 @@ def _pinned_if_f32(torch, dtype):
         else contextlib.nullcontext()
 
 
+def _keep_grads(step, net, gather):
+    """Make ``step`` keep, at each call, the gradient it is about to
+    clip and apply, whole (``gather`` a leaf's gradient; a collective
+    for a sharded one): a list of ``{name: host array}``, one per step."""
+    kept, apply = [], step.apply_grads
+
+    def apply_grads():
+        kept.append({n: gather(p.grad).detach().cpu().numpy().copy()
+                     for n, p in net.named_parameters()})
+        return apply()
+
+    step.apply_grads = apply_grads
+    return kept
+
+
+def _over_tol(got, want):
+    """The largest ``|got - want| - (atol + rtol |want|)`` over every
+    leaf and element (> 0: past the tolerance), and the elements past."""
+    worst, past = -np.inf, 0
+    for n, w in want.items():
+        over = (np.abs(got[n] - w) - PARALLEL_ATOL
+                - PARALLEL_RTOL * np.abs(w))
+        worst = max(worst, float(over.max()))
+        past += int((over > 0).sum())
+    return worst, past
+
+
+def _step_parity(torch, got, net, full, lr, ref_params):
+    """The ranks' run (``got``: their parameters and, per step, their
+    gradients) against one rank on ``full`` that follows it: at each
+    step one rank's gradient at the ranks' parameters, then the
+    unsharded clip, L2 and Adam stepped on the ranks' gradient.  The
+    gradients (``max |got - want| / max |want|`` per leaf, phase 6's
+    measure) and the parameters this gives are gated; the ranks'
+    parameters against one rank's own steps (``ref_params``) are
+    reported."""
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+
+    step = UpdateStep(net, LossConfig.from_config(TRAIN_ARGS),
+                      make_optimizer(net.parameters(), lr), "float32")
+    named = dict(net.named_parameters())
+    errs = []
+    for k, grads in enumerate(got["grads"]):
+        step.loss_and_grads(full)
+        for n, p in named.items():
+            want = p.grad.detach().cpu().numpy()
+            errs.append((float(np.abs(grads[n] - want).max()
+                               / max(np.abs(want).max(), 1e-30)),
+                         f"step {k}: {n}"))
+            p.grad = torch.tensor(grads[n], device=p.device)
+        step.apply_grads()
+    followed = {k: v.detach().cpu().numpy()
+                for k, v in net.state_dict().items()}
+    grad_err, at = max(errs)
+    over, _ = _over_tol(got["params"], followed)
+    direct, past = _over_tol(got["params"], ref_params)
+    return {"max_grad_rel_err": grad_err, "max_grad_rel_err_at": at,
+            "max_param_err_over_tol": over,
+            "one_rank_steps_param_err_over_tol": direct,
+            "one_rank_steps_elements_past_tol": past}
+
+
+def _step_parity_gates(tag, rec):
+    if rec["max_grad_rel_err"] > GRAD_TOL:
+        raise AssertionError(f"{tag}: gradients {rec['max_grad_rel_err']} "
+                             f"x the leaf's largest off one rank's "
+                             f"({rec['max_grad_rel_err_at']})")
+    if rec["max_param_err_over_tol"] > 0:
+        raise AssertionError(
+            f"{tag}: parameters past rtol {PARALLEL_RTOL} / atol "
+            f"{PARALLEL_ATOL} of one rank's Adam on the same gradients by "
+            f"{rec['max_param_err_over_tol']}")
+
+
 def _step_wall_ms(torch, step, batch, steps):
     """Median wall ms of ``steps`` synchronized calls."""
     times = []
@@ -4479,7 +4701,7 @@ def rank_steps(rank, port, run):
         make_sharded_update_step,
     )
     from handyrl_tpu_torch.parallel import multihost as mh
-    from handyrl_tpu_torch.parallel.update import full_state_dict
+    from handyrl_tpu_torch.parallel.update import full_state_dict, full_tensor
 
     with open(os.path.join(run, "in.pkl"), "rb") as f:
         job = pickle.load(f)
@@ -4501,12 +4723,14 @@ def rank_steps(rank, port, run):
             batch = _device_batch(
                 torch, job["batch"],
                 slice(rank * half, (rank + 1) * half), dtype)
+            grads = (_keep_grads(step, net, full_tensor)
+                     if dtype == "float32" else [])
             with _pinned_if_f32(torch, dtype):
                 metrics = [{k: float(v) for k, v in step(batch).items()}
                            for _ in range(PARALLEL_STEPS)]
             params = {k: v.detach().cpu().numpy() for k, v in
                       full_state_dict(net).items()}
-            rec = {"metrics": metrics, "params": params,
+            rec = {"metrics": metrics, "params": params, "grads": grads,
                    "sharded": sorted(
                        n for n, p in net.named_parameters()
                        if isinstance(p, DTensor)),
@@ -4529,32 +4753,17 @@ def rank_steps(rank, port, run):
 
 def sharded_steps(torch, batch, params, cwd):
     """16a: two gloo ranks on cuda:0, each on half the rows, against
-    one rank (the unsharded step) on all of them."""
+    one rank (the unsharded step) on all of them: the float32 runs'
+    gradients and parameters by :func:`_step_parity`."""
     import pickle
 
-    from handyrl_tpu_torch.connection import find_free_port
     from handyrl_tpu_torch.ops.losses import LossConfig
     from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
 
     lr = _parallel_lr()
     with open(os.path.join(cwd, "in.pkl"), "wb") as f:
         pickle.dump({"batch": batch, "params": params, "lr": lr}, f)
-    port = str(find_free_port())
-    t0 = time.perf_counter()
-    procs = [_popen([sys.executable, "-c", RANK_STEPS, str(rank), port, cwd],
-                    cwd, f"parallel_rank{rank}") for rank in range(2)]
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=300)
-    finally:
-        for proc, _ in procs:
-            _stop(proc)
-    for rank, (proc, log) in enumerate(procs):
-        out = _read(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"16a rank {rank} exited {proc.returncode}:\n"
-                               + out[-3000:])
-    ranks_wall = time.perf_counter() - t0
+    ranks_wall = _run_ranks("rank_steps", 2, cwd, "parallel")
     with open(os.path.join(cwd, "out.pkl"), "rb") as f:
         ranks = pickle.load(f)
 
@@ -4570,23 +4779,27 @@ def sharded_steps(torch, batch, params, cwd):
             with _pinned_if_f32(torch, dtype):
                 metrics = [{k: float(v) for k, v in step(full).items()}
                            for _ in range(PARALLEL_STEPS)]
-            refs[dtype] = net, step, full, metrics
-        net, step, full, ref = refs[dtype]
-        errs = {}
-        for n, p in net.state_dict().items():
-            want = p.detach().cpu().numpy()
-            diff = np.abs(got["params"][n] - want)
-            errs[n] = float((diff - PARALLEL_ATOL
-                             - PARALLEL_RTOL * np.abs(want)).max())
+            ref_params = {k: v.detach().cpu().numpy()
+                          for k, v in net.state_dict().items()}
+            refs[dtype] = step, full, metrics, ref_params
+        step, full, ref, ref_params = refs[dtype]
         rec = {"mesh": mesh_cfg, "dtype": dtype,
                "total": [m["total"] for m in got["metrics"]],
                "total_one_rank": [m["total"] for m in ref],
                "grad_norm": [m["grad_norm"] for m in got["metrics"]],
                "grad_norm_one_rank": [m["grad_norm"] for m in ref],
-               "max_param_err_over_tol": max(errs.values()),
                "sharded": got["sharded"],
                "moments_sharded": got["moments_sharded"],
                "finite": all(np.isfinite(m["total"]) for m in got["metrics"])}
+        if dtype == "float32":
+            with pinned_f32(torch):
+                rec.update(_step_parity(torch, got,
+                                        _geese_on_card(torch, params),
+                                        full, lr, ref_params))
+        else:
+            (rec["one_rank_steps_param_err_over_tol"],
+             rec["one_rank_steps_elements_past_tol"]) = _over_tol(
+                got["params"], ref_params)
         if "step_ms" in got:
             rec["step_ms_two_ranks"] = got["step_ms"]
             rec["step_ms_one_rank"] = _step_wall_ms(torch, step, full,
@@ -4615,10 +4828,7 @@ def sharded_steps_gates(a):
             if abs(two - one) > PARALLEL_TOTAL_REL * abs(one):
                 raise AssertionError(f"16a {name} step {k}: grad_norm "
                                      f"{two} vs one rank {one}")
-        if rec["max_param_err_over_tol"] > 0:
-            raise AssertionError(
-                f"16a {name}: parameters past rtol {PARALLEL_RTOL} / atol "
-                f"{PARALLEL_ATOL} by {rec['max_param_err_over_tol']}")
+        _step_parity_gates(f"16a {name}", rec)
         if name == "fsdp" and not (rec["sharded"] and set(
                 rec["sharded"]) == set(rec["moments_sharded"])):
             raise AssertionError(f"16a fsdp: sharded params "
@@ -4808,19 +5018,411 @@ def parallel_entry(torch, episodes, params, smi):
         t1 = time.perf_counter()
         b = nccl_one_rank(torch, batch, params)
         t2 = time.perf_counter()
-        c = two_rank_train(cwd)
+        # 16c-16e gate no time: they run together
+        done = together({"c": lambda: two_rank_train(cwd),
+                         "d": lambda: wide_steps(torch, batch, cwd),
+                         "e": infer_dry_run})
+        (c, c_s), (d, d_s), (e, e_s) = done["c"], done["d"], done["e"]
         a["part_s"], b["part_s"] = t1 - t0, t2 - t1
-        c["part_s"] = time.perf_counter() - t2
+        c["part_s"], d["part_s"], e["part_s"] = c_s, d_s, e_s
     finally:
         shutil.rmtree(cwd, ignore_errors=True)
-    out = {"a": a, "b": b, "c": c, "card": smi}
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "card": smi}
     emit("phase16a", {k: v for k, v in a.items()})
     emit("phase16b", b)
     emit("phase16c", c)
+    emit("phase16d", d)
+    emit("phase16e", e)
     sharded_steps_gates(a)
     nccl_one_rank_gates(b)
     two_rank_train_gates(c)
+    wide_steps_gates(d)
+    infer_dry_run_gates(e)
     return out
+
+
+# ---------------------------------------------------------------------
+# the one-host rank mesh (gloo ranks sharing the card): 13e Anakin's env
+# axis over two ranks, 16d dp2 x tp2 with fsdp over four ranks, 16e the
+# sharded inference dry run
+# ---------------------------------------------------------------------
+
+MESH_ENVS = 512                    # 13e: games per rank, 1,024 in all
+MESH_STEPS = 2                     # 13e fused steps, 16d update steps
+WIDE = (128, 2)                    # 16d: GeeseNet filters x blocks (tp
+#                                    engages from 128 output features)
+MESH_2D = {"dp": 2, "tp": 2, "fsdp": True}
+RANK_CHILD = """\
+import faulthandler
+import sys
+import chip_smoke
+
+faulthandler.enable()
+
+getattr(chip_smoke, sys.argv[1])(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4])
+"""
+
+
+def _rank_group(rank, world, port):
+    from handyrl_tpu_torch.parallel import multihost as mh
+
+    mh.init_distributed({"coordinator_address": f"127.0.0.1:{port}",
+                         "num_processes": world, "process_id": rank},
+                        device=DEV, backend="gloo")
+    return mh
+
+
+def _run_ranks(fn, world, cwd, tag, timeout=300):
+    """``chip_smoke.<fn>(rank, port, cwd)`` in ``world`` processes of one
+    gloo group sharing the card; their wall seconds."""
+    from handyrl_tpu_torch.connection import find_free_port
+
+    port = str(find_free_port())
+    t0 = time.perf_counter()
+    procs = [_popen([sys.executable, "-c", RANK_CHILD, fn, str(rank), port,
+                     cwd], cwd, f"{tag}_rank{rank}") for rank in range(world)]
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc, _ in procs:
+            _stop(proc)
+    for rank, (proc, log) in enumerate(procs):
+        out = _read(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag} rank {rank} exited "
+                               f"{proc.returncode}:\n" + out[-3000:])
+    return time.perf_counter() - t0
+
+
+def _ttt_lr():
+    from handyrl_tpu_torch.ops.update import DEFAULT_LR
+
+    return DEFAULT_LR * 128 * 16   # ttt_engine's: the trainer's first lr
+
+
+def anakin_rank(rank, port, run):
+    """13e's rank: its 512 of 1,024 games, rolled out and trained twice
+    through the sharded step over a dp-2 gloo group on the card."""
+    import pickle
+
+    import torch
+
+    from handyrl_tpu_torch.anakin import AnakinConfig, AnakinEngine
+    from handyrl_tpu_torch.envs import tictactoe_torch
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.tictactoe_net import TicTacToeNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.parallel import (
+        MeshSpec,
+        make_mesh,
+        make_sharded_update_step,
+    )
+    from handyrl_tpu_torch.parallel.update import full_state_dict
+
+    mh = _rank_group(rank, 2, port)
+    try:
+        with pinned_f32(torch):
+            model = TorchModel(TicTacToeNet(), device="cpu")
+            model.init_params(seed=SEED)
+            net = model.module.to(DEV)
+            step = make_sharded_update_step(
+                net, LossConfig.from_config(TTT_ARGS),
+                make_mesh(MeshSpec(dp=2), device_type=DEV.split(":")[0]),
+                _ttt_lr(), "float32")
+            engine = AnakinEngine(
+                tictactoe_torch, step, AnakinConfig.from_config(
+                    {"mode": "on", "num_envs": 2 * MESH_ENVS}),
+                compute_dtype="float32", seed=SEED,
+                rows=(rank * MESH_ENVS, (rank + 1) * MESH_ENVS))
+            with torch.no_grad():
+                batch, _, frames = engine.rollout(net, [],
+                                                  engine.init_carry(0))
+            fused, carry = engine.make_fused_step(), engine.init_carry(0)
+            totals = []
+            for _ in range(MESH_STEPS):
+                metrics, carry = fused(carry)
+                totals.append(float(metrics["total"]))
+            params = {k: v.detach().cpu().numpy()
+                      for k, v in full_state_dict(net).items()}
+    finally:
+        mh.shutdown()
+    with open(os.path.join(run, f"anakin{rank}.pkl"), "wb") as f:
+        pickle.dump({"rollout": {k: v.cpu().numpy()
+                                 for k, v in batch.items()},
+                     "frames": int(frames), "totals": totals,
+                     "params": params}, f)
+
+
+def anakin_ranks(torch):
+    """13e: two gloo ranks at 512 games each against one rank at 1,024
+    games, float32 on the pinned set: every rollout row (discrete keys
+    exact, prob and value within ANAKIN_ATOL), the frames, and after two
+    fused steps the loss and the parameters (16a's tolerance)."""
+    import pickle
+    import shutil
+
+    cwd = tempfile.mkdtemp(prefix="anakin_ranks_")
+    try:
+        wall = _run_ranks("anakin_rank", 2, cwd, "anakin_ranks")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(cwd, f"anakin{rank}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(cwd, ignore_errors=True)
+    with pinned_f32(torch):
+        engine = ttt_engine(DEV, 2 * MESH_ENVS, dtype="float32",
+                            lr=_ttt_lr())
+        net = engine.update_step.module
+        with torch.no_grad():
+            batch, _, frames = engine.rollout(net, [], engine.init_carry(0))
+        fused, carry = engine.make_fused_step(), engine.init_carry(0)
+        totals = []
+        for _ in range(MESH_STEPS):
+            metrics, carry = fused(carry)
+            totals.append(float(metrics["total"]))
+    ref = {k: v.cpu().numpy() for k, v in batch.items()}
+    out = {"games_per_rank": MESH_ENVS, "ranks_wall_s": wall,
+           "discrete_mismatched": [], "prob_value_max_abs_diff": {},
+           "frames": [r["frames"] for r in ranks], "frames_one_rank":
+           int(frames), "totals": [r["totals"] for r in ranks],
+           "totals_one_rank": totals}
+    for key, want in ref.items():
+        got = np.concatenate([r["rollout"][key] for r in ranks])
+        if key in ("selected_prob", "value"):
+            out["prob_value_max_abs_diff"][key] = float(
+                np.abs(got - want).max())
+        elif not np.array_equal(got, want):
+            out["discrete_mismatched"].append(key)
+    out["max_param_err_over_tol"] = max(
+        float((np.abs(r["params"][n] - p.detach().cpu().numpy())
+               - PARALLEL_ATOL - PARALLEL_RTOL
+               * np.abs(p.detach().cpu().numpy())).max())
+        for r in ranks for n, p in net.state_dict().items())
+    return out
+
+
+def anakin_ranks_gates(e):
+    if e["discrete_mismatched"] or max(
+            e["prob_value_max_abs_diff"].values()) > ANAKIN_ATOL:
+        raise AssertionError(f"13e: two ranks' rows differ from one "
+                             f"rank's: {e}")
+    if sum(e["frames"]) != e["frames_one_rank"]:
+        raise AssertionError(f"13e: frames {e['frames']} vs "
+                             f"{e['frames_one_rank']}")
+    for totals in e["totals"]:
+        for two, one in zip(totals, e["totals_one_rank"]):
+            if abs(two - one) > PARALLEL_TOTAL_REL * abs(one):
+                raise AssertionError(f"13e: total {two} vs one rank {one}")
+    if e["max_param_err_over_tol"] > 0:
+        raise AssertionError(f"13e: parameters past the tolerance by "
+                             f"{e['max_param_err_over_tol']}")
+
+
+def _wide_geese(torch, params):
+    from handyrl_tpu_torch.models.convert import from_flax
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+
+    net = GeeseNet(*WIDE)
+    net.load_state_dict(from_flax(params, net))
+    return net.to(DEV)
+
+
+def wide_rank(rank, port, run):
+    """16d's rank: GeeseNet 128 x 2 laid out over dp2 x tp2 with fsdp,
+    two float32 steps on its dp coordinate's half of the rows."""
+    import pickle
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.parallel import (
+        MeshSpec,
+        make_mesh,
+        make_sharded_update_step,
+    )
+    from handyrl_tpu_torch.parallel.mesh import AXES
+    from handyrl_tpu_torch.parallel.update import full_state_dict, full_tensor
+
+    with open(os.path.join(run, "wide.pkl"), "rb") as f:
+        job = pickle.load(f)
+    mh = _rank_group(rank, 4, port)
+
+    def spec(t):
+        out = [None] * t.dim()
+        for name, p in zip(AXES, getattr(t, "placements", ())):
+            if p.is_shard():
+                out[p.dim] = name
+        return out
+
+    try:
+        mesh_spec = MeshSpec.from_config(MESH_2D)
+        mesh = make_mesh(mesh_spec, device_type=DEV.split(":")[0])
+        net = _wide_geese(torch, job["params"])
+        step = make_sharded_update_step(
+            net, LossConfig.from_config(TRAIN_ARGS), mesh, job["lr"],
+            "float32", fsdp=True)
+        half = TRAIN_ARGS["batch_size"] // 2
+        coord = mesh.get_local_rank(AXES.index("dp"))
+        batch = _device_batch(torch, job["batch"],
+                              slice(coord * half, (coord + 1) * half))
+        grads = _keep_grads(step, net, full_tensor)
+        with pinned_f32(torch):
+            metrics = [{k: float(v) for k, v in step(batch).items()}
+                       for _ in range(MESH_STEPS)]
+        rec = {"metrics": metrics, "grads": grads,
+               "layout": {n: spec(p) for n, p in net.named_parameters()},
+               "moments": {n: spec(step.optimizer.state[p]["exp_avg"])
+                           for n, p in net.named_parameters()},
+               "sharded": sorted(n for n, p in net.named_parameters()
+                                 if isinstance(p, DTensor)),
+               "params": {k: v.detach().cpu().numpy() for k, v in
+                          full_state_dict(net).items()}}
+    finally:
+        mh.shutdown()
+    if rank == 0:
+        with open(os.path.join(run, "wide_out.pkl"), "wb") as f:
+            pickle.dump(rec, f)
+
+
+def wide_steps(torch, batch, cwd):
+    """16d: four gloo ranks at dp2 x tp2 with fsdp against one rank on
+    all 128 rows, float32 on the pinned set: ``total`` and ``grad_norm``
+    (summed, not averaged), the gradients and parameters (16a's checks),
+    and every leaf's placements against ``param_sharding``'s for the
+    2-D mesh."""
+    import pickle
+
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+    from handyrl_tpu_torch.ops.losses import LossConfig
+    from handyrl_tpu_torch.ops.update import UpdateStep, make_optimizer
+    from handyrl_tpu_torch.parallel import MeshSpec, param_sharding
+
+    lr = _parallel_lr()
+    params = random_flax_params(GeeseNet(*WIDE), seed=SEED + 1)
+    with open(os.path.join(cwd, "wide.pkl"), "wb") as f:
+        pickle.dump({"batch": batch, "params": params, "lr": lr}, f)
+    wall = _run_ranks("wide_rank", 4, cwd, "parallel_wide")
+    with open(os.path.join(cwd, "wide_out.pkl"), "rb") as f:
+        got = pickle.load(f)
+    net = _wide_geese(torch, params)
+    step = UpdateStep(net, LossConfig.from_config(TRAIN_ARGS),
+                      make_optimizer(net.parameters(), lr), "float32")
+    full = _device_batch(torch, batch)
+    with pinned_f32(torch):
+        ref = [{k: float(v) for k, v in step(full).items()}
+               for _ in range(MESH_STEPS)]
+        parity = _step_parity(
+            torch, got, _wide_geese(torch, params), full, lr,
+            {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()})
+    want = {n: list(lay.spec(len(net.state_dict()[n].shape)))
+            for n, lay in param_sharding(
+                MeshSpec.from_config(MESH_2D), GeeseNet(*WIDE),
+                fsdp=True).items()}
+    return {"mesh": MESH_2D, "net": WIDE, "ranks_wall_s": wall,
+            "total": [m["total"] for m in got["metrics"]],
+            "total_one_rank": [m["total"] for m in ref],
+            "grad_norm": [m["grad_norm"] for m in got["metrics"]],
+            "grad_norm_one_rank": [m["grad_norm"] for m in ref],
+            **parity,
+            "both_axes": sorted(n for n, s in got["layout"].items()
+                                if "dp" in s and "tp" in s),
+            "layout_mismatched": sorted(
+                n for n, s in got["layout"].items()
+                if s != want[n] or got["moments"][n] != want[n]),
+            "sharded": got["sharded"]}
+
+
+def wide_steps_gates(d):
+    for key in ("total", "grad_norm"):
+        for two, one in zip(d[key], d[f"{key}_one_rank"]):
+            if abs(two - one) > PARALLEL_TOTAL_REL * abs(one):
+                raise AssertionError(f"16d: {key} {two} vs one rank {one}")
+    _step_parity_gates("16d", d)
+    if not d["both_axes"] or d["layout_mismatched"]:
+        raise AssertionError(f"16d: leaves on both axes {d['both_axes']}, "
+                             f"off the rule {d['layout_mismatched']}")
+
+
+def step_parity_study(batches=6):
+    """16a's float32 runs and 16d on ``batches`` batches of one set of
+    episodes: per batch, the gated comparisons (:func:`_step_parity`)
+    and the one that is reported, not gated (the ranks' parameters
+    against one rank's own steps), and how many batches fail each."""
+    import shutil
+
+    import torch
+
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.convert import random_flax_params
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    card = card_line()
+    params = random_flax_params(GeeseNet(FILTERS, BLOCKS), seed=SEED)
+    model = TorchModel.from_flax(GeeseNet(FILTERS, BLOCKS), params,
+                                 device=DEV)
+    episodes = pool_episodes(model, {"env": "HungryGeese"}, 128, SEED)
+    keys = ("max_grad_rel_err", "max_grad_rel_err_at",
+            "max_param_err_over_tol",
+            "one_rank_steps_param_err_over_tol",
+            "one_rank_steps_elements_past_tol")
+    rows = []
+    for k in range(batches):
+        batch = _parallel_batch(episodes, seed=SEED + k)
+        cwd = tempfile.mkdtemp(prefix="parity_")
+        try:
+            a = sharded_steps(torch, batch, params, cwd)
+            d = wide_steps(torch, batch, cwd)
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+        row = {f"16a_{name}": {key: r[key] for key in keys}
+               for name, r in a["runs"].items() if r["dtype"] == "float32"}
+        row.update({"batch": k, "16d": {key: d[key] for key in keys}})
+        rows.append(row)
+        emit("step_parity_batch", row)
+    checks = [c for c in rows[0] if c != "batch"]
+    emit("step_parity_summary", {
+        "batches": batches, "card": card,
+        "gated_fails": {c: sum(
+            r[c]["max_grad_rel_err"] > GRAD_TOL
+            or r[c]["max_param_err_over_tol"] > 0 for r in rows)
+            for c in checks},
+        "one_rank_steps_fails": {c: sum(
+            r[c]["one_rank_steps_param_err_over_tol"] > 0 for r in rows)
+            for c in checks}})
+    return 0
+
+
+def infer_dry_run():
+    """16e: the sharded inference dry run on the card, four gloo ranks
+    (dp2 x tp2 with fsdp, dp4, dp4 with fsdp, a one-rank mesh)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "handyrl_tpu_torch.scripts."
+         "multichip_infer_dryrun", "--ranks", "4", "--device", DEV],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=400)
+    with open(os.path.join(OUT_DIR, "infer_dryrun_stdout.txt"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"16e: the dry run exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def infer_dry_run_gates(e):
+    if not (e.get("ok") and e["tp_sharded_leaves"] and
+            e["fsdp_sharded_leaves"] and e["single_rank_bitwise"]
+            and e["infer_resharding_copies"] == 0
+            and e["infer_compiles"] == 1):
+        raise AssertionError(f"16e: {e}")
 
 
 # the learner's epoch path: where a device->host sync costs a step
@@ -4873,10 +5475,22 @@ print(json.dumps({
 """
 
 
-def lint_entry(report, smi):
-    """Phase 17: torchlint over the port in a fresh interpreter, and
-    beside it (another child, at the same time) the suppressions and
-    the epoch path's sync sites."""
+def lint_entry(report, smi, children=None):
+    """Phase 17: ``children`` (:func:`lint_children`'s result, run now
+    when not given) beside the card line and phase 7's host transfers
+    per epoch."""
+    out = children if children is not None else lint_children()
+    out["card"] = smi
+    guards = report.get("phase7", {}).get("guards")
+    out["phase7_host_transfers_per_epoch"] = (
+        [g["host_transfers"] for g in guards] if guards else None)
+    return out
+
+
+def lint_children():
+    """torchlint over the port in a fresh interpreter, and beside it
+    (another child, at the same time) the suppressions and the epoch
+    path's sync sites."""
     env = {**os.environ, "PYTHONPATH": ROOT}
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", code, *args],
@@ -4901,10 +5515,6 @@ def lint_entry(report, smi):
                 proc.kill()
                 proc.wait()
     out["child_s"] = time.perf_counter() - t0
-    out["card"] = smi
-    guards = report.get("phase7", {}).get("guards")
-    out["phase7_host_transfers_per_epoch"] = (
-        [g["host_transfers"] for g in guards] if guards else None)
     return out
 
 
@@ -5025,12 +5635,15 @@ def main(phases=ALL_PHASES):
         jobs.update(resilience_jobs())
     if 10 in phases:
         jobs["geister"] = geister_train_job(smi)
+    if 17 in phases and jobs:
+        # the linter's children use no card: they scan beside phase 8
+        jobs["lint"] = lint_children
     done = together(jobs)
     if 8 in phases:
         report["phase8"] = p8 = {tag: done[tag][0]
                                  for tag in ("drills", "remote")}
         p8["phase_s"] = lap()
-        p8["together_with"] = sorted(phases & {10})
+        p8["together_with"] = sorted(phases & {10, 17})
         emit("phase8", p8)
         a, b = p8["drills"], p8["remote"]
         print(f"resilience: gather respawns {a['gather_respawns']}, "
@@ -5112,12 +5725,16 @@ def main(phases=ALL_PHASES):
             f"mfu {r['mfu']} win rate {r['win_rate']}"
             for r in p13["c"]["epochs"])
             + f"; learning {p13['d']['rates']} mean {p13['d']['mean']:.3f}"
+            f"; two ranks x {p13['e']['games_per_rank']} games: frames "
+            f"{p13['e']['frames']} vs {p13['e']['frames_one_rank']}, max "
+            f"param err over tol {p13['e']['max_param_err_over_tol']:.2e}"
+            f" ({p13['e']['part_s']:.1f} s)"
             f"; phase 13 {p13['phase_s']:.1f} s on {smi}", flush=True)
     # 14. the network serving tier with its telemetry
     if 14 in phases:
         report["phase14"] = p14 = serving_entry(torch, model, model2, smi)
         p14["phase_s"] = lap()
-        a, b, c, d = p14["a"], p14["b"], p14["c"], p14["d"]
+        a, b, c, d, e = (p14[k] for k in "abcde")
         print(f"serving: {a['requests_per_s']:.0f} requests/s, "
               f"{a['net_rows_per_s']:.0f} network rows/s "
               f"({a['all_rows_per_s']:.0f} with the shm workers), serve "
@@ -5133,6 +5750,16 @@ def main(phases=ALL_PHASES):
               f"; telemetry on/off {d['net_rows_per_s_on']:.0f}/"
               f"{d['net_rows_per_s_off']:.0f} rows/s, p99 "
               f"{d['serve_p99_ms_on']:.2f}/{d['serve_p99_ms_off']:.2f} ms; "
+              f"service guards armed/unguarded/bare median ms "
+              + ", ".join(
+                  f"{rows} rows {t['ms_median_armed']:.3f}/"
+                  f"{t['ms_median_service']:.3f}/"
+                  f"{t['ms_median_bare']:.3f}"
+                  for rows, t in e["timing"].items())
+              + f", checks {e['checks']['retrace_check_us']:.1f} + "
+              f"{e['checks']['sharding_check_us']:.1f} us, "
+              f"{e['checks']['proxies_us_per_dispatch']:.1f} us per "
+              f"dispatch; "
               f"phase 14 {p14['phase_s']:.1f} s on {smi}", flush=True)
     # 15. chaos and guards: shm faults and the surge brownout under
     # --train, the serving-replica kill, what the guards cost
@@ -5161,7 +5788,11 @@ def main(phases=ALL_PHASES):
         p16["phase_s"] = lap()
         a, b, c = p16["a"]["runs"], p16["b"], p16["c"]
         print("parallel: " + ", ".join(
-            f"{name} max err over tol {r['max_param_err_over_tol']:.2e}"
+            f"{name} param err over tol "
+            f"{r.get('max_param_err_over_tol', float('nan')):.2e} "
+            f"(vs one rank's steps "
+            f"{r['one_rank_steps_param_err_over_tol']:.2e}), gradient "
+            f"{r.get('max_grad_rel_err', float('nan')):.2e}"
             for name, r in a.items())
             + f"; bf16 step {a['dp_bf16']['step_ms_two_ranks']:.1f} ms on "
             f"two gloo ranks vs {a['dp_bf16']['step_ms_one_rank']:.1f} ms "
@@ -5172,10 +5803,21 @@ def main(phases=ALL_PHASES):
             f"two-rank --train " + ", ".join(
                 f"epoch {r['epoch']} {r['steps']} steps "
                 f"{r['epoch_wall_s']:.1f} s" for r in c["epochs"])
+            + f"; dp2 x tp2 fsdp (GeeseNet {WIDE[0]} x {WIDE[1]}): leaves "
+            f"on both axes {p16['d']['both_axes']}, max param err over tol "
+            f"{p16['d']['max_param_err_over_tol']:.2e} (vs one rank's "
+            f"steps {p16['d']['one_rank_steps_param_err_over_tol']:.2e}), "
+            f"gradient {p16['d']['max_grad_rel_err']:.2e} "
+            f"({p16['d']['part_s']:.1f} s); inference dry run: tp+fsdp "
+            f"diff {p16['e']['tp_fsdp_max_diff']:.2e}, dp diff "
+            f"{p16['e']['dp_max_diff']:.2e}, {p16['e']['infer_compiles']} "
+            f"signature, {p16['e']['infer_resharding_copies']} copies "
+            f"({p16['e']['part_s']:.1f} s)"
             + f"; phase 16 {p16['phase_s']:.1f} s on {smi}", flush=True)
     # 17. the static linter over the port, all six families
     if 17 in phases:
-        report["phase17"] = p17 = lint_entry(report, smi)
+        report["phase17"] = p17 = lint_entry(
+            report, smi, done["lint"][0] if "lint" in done else None)
         p17["phase_s"] = lap()
         emit("phase17", p17)
         lint_gates(p17)
@@ -5207,10 +5849,6 @@ def main(phases=ALL_PHASES):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--jax-curve"]:
-        sys.exit(jax_curve())
-    if sys.argv[1:] == ["--jax-curve", "anakin"]:
-        sys.exit(jax_anakin_curve())
     if sys.argv[1:2] == ["--phases"]:
         try:
             if len(sys.argv) != 3:
@@ -5222,4 +5860,6 @@ if __name__ == "__main__":
         sys.exit(main(chosen))
     if sys.argv[1:2] == ["--grad-error"]:
         sys.exit(grad_error_study(*map(int, sys.argv[2:3])))
+    if sys.argv[1:2] == ["--step-parity"]:
+        sys.exit(step_parity_study(*map(int, sys.argv[2:3])))
     sys.exit(main())

@@ -30,16 +30,20 @@ for the JAX package, with every mode of ``main.py``:
 
 ``train_args.supervise_learner: true`` runs either training mode's
 learner under a guard that relaunches it with ``restart_epoch: auto``.
+``--train`` with no ``train_args.distributed`` on a host with several
+visible cards spawns one rank per card (:mod:`.parallel.launch`: JAX's
+auto-dp over a host's devices; one card runs one process, no spawn).
 ``train_args.distributed`` makes this process one rank of a
-multi-process learner (one process per card; start one per rank, each
-with its ``process_id``): the process group comes up before the card is
-touched and comes down on every exit path (:mod:`.parallel`).
+multi-process learner (start one per rank, each with its
+``process_id``): the process group comes up before the card is touched
+and comes down on every exit path (:mod:`.parallel`).
 ``--device`` defaults to ``cuda``; a missing card is an error, not a
 silent CPU run.  The tools ``python -m handyrl_tpu_torch.scripts.<name>``
 (``aux_swa``, ``export_model``, ``make_onnx_model``) sit beside the
 modes.
 """
 
+import functools
 import sys
 
 import yaml
@@ -80,7 +84,12 @@ def main(argv=None):
 
     if mode in ("--train", "-t"):
         from .learner import train_main
+        from .parallel.launch import launch
 
+        code = launch(args, functools.partial(train_main, device=device),
+                      device=device)
+        if code is not None:
+            return code
         train_main(args, device=device)
         return 0
     if mode in ("--train-server", "-ts"):

@@ -22,6 +22,13 @@ the training device, and the host only enqueues them:
     straight into :class:`..ops.update.UpdateStep` (loss, backward,
     clip, fused Adam).
 
+Over a rank mesh (one host's ranks, each on its card) the env axis
+shards over ``dp``: the rank at dp coordinate ``r`` plays games
+``[r*N/dp, (r+1)*N/dp)`` of ``num_envs = N`` (``rows``), and the update is
+the sharded step's.  Every rank draws the WHOLE ``(N, ...)`` random
+tensor and keeps its rows, so two ranks' rollouts are exactly the rows
+of the one-rank rollout; the opponent pool is the same on every rank.
+
 No step reads a value back to the host: the frame count stays a device
 tensor until the trainer's one metrics copy per epoch.  Sampling is the
 Gumbel-max form of a categorical draw (the JAX package's
@@ -30,12 +37,12 @@ jax.random and torch streams differ, so a test replays the JAX draws
 through ``rollout``'s ``actions`` seam instead.
 """
 
-import copy
-
 import torch
 
 from ..batch import ILLEGAL
+from ..models.wrapper import build_module
 from ..ops.update import make_apply_fn
+from ..parallel.update import full_state_dict
 from .config import AnakinConfig
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -51,7 +58,7 @@ class AnakinEngine:
     boundaries (:meth:`refresh_pool`)."""
 
     def __init__(self, device_env, update_step, cfg: AnakinConfig,
-                 compute_dtype="float32", seed=0):
+                 compute_dtype="float32", seed=0, rows=None):
         module, loss_cfg = update_step.module, update_step.cfg
         if hasattr(module, "init_hidden"):
             raise ValueError(
@@ -72,6 +79,8 @@ class AnakinEngine:
         self.seed = int(seed)
         self.device = next(module.parameters()).device
         self.num_envs = cfg.num_envs
+        # this rank's slice of the env axis (all of it on one rank)
+        self.rows = tuple(rows) if rows is not None else (0, cfg.num_envs)
         self.unroll = cfg.unroll_length or int(device_env.MAX_STEPS)
         if self.unroll < int(device_env.MAX_STEPS):
             raise ValueError(
@@ -97,10 +106,18 @@ class AnakinEngine:
 
     def init_pool(self, module):
         """``opponent_pool`` frozen copies of ``module`` (every snapshot
-        starts as "now"; epoch boundaries shift history in)."""
+        starts as "now"; epoch boundaries shift history in).  A copy is
+        a plain module holding the whole parameters, even when the live
+        one is laid out over a mesh: its forwards run no collective, so
+        a rank whose rows hold none of a snapshot's games skips it."""
         pool = []
+        if not self.K:
+            return pool
+        state = full_state_dict(module)
         for _ in range(self.K):
-            snap = copy.deepcopy(module)
+            snap = build_module((type(module), dict(module.config)),
+                                self.device)
+            snap.load_state_dict(state)
             snap.requires_grad_(False)
             pool.append(snap)
         return pool
@@ -115,7 +132,7 @@ class AnakinEngine:
             return pool
         oldest = pool[-1]
         with torch.no_grad():
-            oldest.load_state_dict(module.state_dict())
+            oldest.load_state_dict(full_state_dict(module))
         return [oldest] + list(pool[:-1])
 
     # -- one segment ---------------------------------------------------
@@ -128,18 +145,26 @@ class AnakinEngine:
         ``make_batch``'s turn-based layout (each env row one complete
         episode, the padded tail carrying the outcome bootstrap),
         ``frames`` the committed env transitions as a device scalar.
-        ``actions``, a (T, N) tensor, replaces the sampled actions (a
-        test seam: it replays another rollout's draws)."""
+        Rows are this rank's games (``rows``).  ``actions``, a (T,
+        num_envs) tensor, replaces the sampled actions (a test seam: it
+        replays another rollout's draws)."""
         env = self.env
-        N, T, P, A = (self.num_envs, self.unroll, self.players,
-                      self.num_actions)
+        T, P, A = self.unroll, self.players, self.num_actions
+        lo, hi = self.rows
+        N = hi - lo
         dev, G = self.device, self.group
         generator, seg = carry["generator"], carry["seg"]
         apply = make_apply_fn(module, self.compute_dtype)
-        pool_apply = [make_apply_fn(m, self.compute_dtype) for m in pool]
+        # (snapshot, its games among this rank's rows) per pool slot:
+        # group k + 1 plays snapshot k
+        pool_apply = [(make_apply_fn(m, self.compute_dtype),
+                       max(lo, G * (k + 1)) - lo,
+                       min(hi, G * (k + 2)) - lo)
+                      for k, m in enumerate(pool)]
+        own = max(0, min(hi, G) - lo)   # this rank's pure self-play rows
         # the learner's seat alternates per game AND per segment, so
         # both seats see both roles whatever the group layout
-        learner_seat = (torch.arange(N, device=dev) + seg) % 2
+        learner_seat = (torch.arange(lo, hi, device=dev) + seg) % 2
         states = env.init(N, dev)
         recs = {k: [] for k in ("obs", "prob", "act", "amask", "value",
                                 "seat", "active")}
@@ -153,24 +178,25 @@ class AnakinEngine:
             if pool_apply:
                 # group k > 0 plays its frozen snapshot on the
                 # opponent seat; group 0's opponent is the live policy
-                opp = [fn(obs[G * (k + 1):G * (k + 2)])
-                       for k, fn in enumerate(pool_apply)]
+                opp = [fn(obs[s:e]) for fn, s, e in pool_apply if e > s]
                 is_learner = (seat == learner_seat)[:, None]
                 policy = torch.where(is_learner, policy, torch.cat(
-                    [policy[:G]] + [o["policy"] for o in opp]))
+                    [policy[:own]] + [o["policy"] for o in opp]))
                 value = torch.where(is_learner, value, torch.cat(
-                    [value[:G]] + [o["value"] for o in opp]))
+                    [value[:own]] + [o["value"] for o in opp]))
             # the masked behaviour policy of agent.masked_logits:
             # illegal entries REPLACED by -ILLEGAL, then a temperature-1
             # softmax draw with the drawn probability recorded
             masked = torch.where(legal, policy, -float(ILLEGAL))
             if actions is None:
-                u = torch.rand((N, A), generator=generator, device=dev)
+                # the whole env axis' draw, this rank's rows kept
+                u = torch.rand((self.num_envs, A), generator=generator,
+                               device=dev)[lo:hi]
                 # torchlint: disable=nonfinite-risk -- u is drawn from [0, 1) and floored at _TINY, so -log(u) is positive and finite
                 gumbel = -torch.log(-torch.log(u.clamp_min(_TINY)))
                 action = (masked + gumbel).argmax(dim=-1)
             else:
-                action = actions[t].to(dev).long()
+                action = actions[t][lo:hi].to(dev).long()
             prob = torch.softmax(masked, dim=-1).gather(
                 1, action[:, None])[:, 0]
             states = env.step(states, action)[0]
@@ -228,7 +254,8 @@ class AnakinEngine:
         the update's device scalars plus ``anakin_frames`` (committed
         env transitions) and ``anakin_games`` (completed games)."""
         update = self.update_step
-        games = torch.full((), float(self.num_envs), device=self.device)
+        games = torch.full((), float(self.rows[1] - self.rows[0]),
+                           device=self.device)
 
         def step(carry, pool=(), actions=None):
             with torch.no_grad():

@@ -106,9 +106,14 @@ metrics over the ``mesh:`` (dp/sp/tp, ``fsdp``), and rank 0 alone
 decides epochs (a control word per step), writes checkpoints, the
 manifest, the WAL and the metrics, and serves the network tier,
 router and status endpoint.  Replicas snapshot collectively at the
-same point (sharded state is gathered), keep the unsharded inference
-dispatch on their own card, and fall back from Anakin, as the JAX
-replicas do.
+same point (sharded state is gathered) and keep the unsharded inference
+dispatch on their own card, as the JAX replicas do.  Ranks that share
+one host are JAX's single-process mesh over local devices: Anakin then
+shards its env axis over dp (each rank plays its share of
+``num_envs``); ranks spread over hosts fall back from Anakin, as the
+JAX replicas do.  ``--train`` with no ``distributed:`` on a host with
+several cards launches one rank per card itself (:mod:`.parallel.launch`:
+the fleet and its episode counts split over the ranks).
 
 Chaos reaches every layer the JAX package's does: besides the gather
 and service kills, ``chaos.serve_kill_epoch`` silences this replica's
@@ -174,6 +179,7 @@ from .ops.update import (
     make_optimizer,
     set_learning_rate,
 )
+from .parallel import launch
 from .parallel import multihost as mh
 from .parallel.mesh import AXES, MeshSpec, axis_size, check_mesh_size, make_mesh
 from .parallel.update import full_state_dict, make_sharded_update_step
@@ -515,30 +521,14 @@ class Trainer:
     def _default_mesh_cfg(self):
         """With no mesh axes configured and several ranks, default to
         pure data parallelism over as many ranks as divide the batch
-        (the JAX package's rule over devices).  One process drives one
-        card: a single-process learner on a host with several cards
-        uses one and says how to use the rest."""
+        (the JAX package's rule over devices).  A single process has
+        no mesh: one host's cards get their ranks from the launcher
+        (:mod:`.parallel.launch`)."""
         n = mh.process_count()
         if n <= 1:
-            cards = (torch.cuda.device_count()
-                     if self.device.type == "cuda" else 1)
-            if cards > 1:
-                print(f"{cards} cards visible, training on {self.device}: "
-                      f"set distributed.num_processes (one process per "
-                      f"card) and mesh to train on all of them")
             return {}
-        batch = self.args["batch_size"]
-        dp = max(d for d in range(1, n + 1) if batch % d == 0)
-        if dp <= 1:
-            print(f"1 of {n} devices used: batch_size "
-                  f"{batch} has no divisor <= {n}")
-            return {}
-        if dp < n:
-            print(f"WARNING: dp={dp} leaves {n - dp} of {n} "
-                  f"devices idle; make batch_size divisible by {n} "
-                  f"or set an explicit mesh")
-        print(f"defaulting to dp={dp} over {n} devices")
-        return {"dp": dp}
+        dp = launch.default_dp(n, self.args["batch_size"])
+        return {"dp": dp} if dp > 1 else {}
 
     def _build_update_step(self):
         """The update step and its Adam: the unsharded step, or with an
@@ -631,7 +621,9 @@ class Trainer:
         if not acfg.enabled:
             return
         env_args = self.args.get("env") or {}
-        if self.multihost:
+        if self.multihost and not mh.one_host():
+            # ranks on one host are JAX's single-process mesh over local
+            # devices; ranks spread over hosts keep JAX's fallback
             msg = ("anakin mode is single-process (multi-host learners "
                    "keep the IMPALA path)")
         elif not device_env_available(env_args):
@@ -644,6 +636,7 @@ class Trainer:
                 raise ValueError("anakin.mode: on — " + msg)
             print(f"WARNING: {msg}; falling back to the worker path")
             return
+        rows = None
         if self.train_mesh is not None:
             dp = axis_size(self.train_mesh, "dp")
             if acfg.num_envs % dp != 0:
@@ -651,11 +644,15 @@ class Trainer:
                     f"anakin.num_envs {acfg.num_envs} must be "
                     f"divisible by the mesh dp axis ({dp}): the env "
                     "axis is the fused step's batch dimension")
+            # this rank's games: its dp coordinate's share of the axis
+            share = acfg.num_envs // dp
+            coord = self.train_mesh.get_local_rank(AXES.index("dp"))
+            rows = (coord * share, (coord + 1) * share)
         try:
             self.anakin = AnakinEngine(
                 make_device_env(env_args), self.update_step, acfg,
                 compute_dtype=self.compute_dtype,
-                seed=int(self.args.get("seed", 0)))
+                seed=int(self.args.get("seed", 0)), rows=rows)
         except ValueError as exc:
             if acfg.mode == "on":
                 raise
@@ -671,7 +668,9 @@ class Trainer:
         print(f"anakin mode: {self.anakin.num_envs} on-device games x "
               f"{self.anakin.unroll}-step segments"
               + (f", opponent pool {self.anakin.K}"
-                 if self.anakin.K else " (pure self-play)"))
+                 if self.anakin.K else " (pure self-play)")
+              + ("" if rows is None else
+                 f"; this rank plays games [{rows[0]}, {rows[1]})"))
 
     def _maybe_device_replay(self):
         """The replay ring on the training device (``device_replay``
@@ -948,7 +947,9 @@ class Trainer:
             if code == mh.EPOCH_END:
                 return batch_cnt, metric_acc
             # committed to one more global step: this rank's rows now
-            if self.device_replay is not None:
+            if self.anakin is not None:
+                metric_acc.append(self._anakin_fused_step())
+            elif self.device_replay is not None:
                 self._replay_ingest()
                 metric_acc.append(self._ring_step())
             else:
@@ -977,20 +978,24 @@ class Trainer:
             if cap and batch_cnt >= cap:
                 time.sleep(0.01)
                 continue
-            t0 = telemetry.span_begin()
-            with self.timers.section("update"):
-                metrics, self.anakin_carry = self.costmodel.call(
-                    self._step_label, self._anakin_step,
-                    self.anakin_carry, self.anakin_pool)
-            # static attrs only: the committed frame count is a device
-            # scalar, read at the epoch boundary
-            telemetry.span_end("anakin.rollout", t0,
-                               games=self.anakin.num_envs,
-                               unroll=self.anakin.unroll)
-            metric_acc.append(metrics)
-            self._count_step()
+            metric_acc.append(self._anakin_fused_step())
             batch_cnt += 1
         return batch_cnt, metric_acc
+
+    def _anakin_fused_step(self):
+        """One fused rollout + update segment, guarded and timed."""
+        t0 = telemetry.span_begin()
+        with self.timers.section("update"):
+            metrics, self.anakin_carry = self.costmodel.call(
+                self._step_label, self._anakin_step,
+                self.anakin_carry, self.anakin_pool)
+        # static attrs only: the committed frame count is a device
+        # scalar, read at the epoch boundary
+        telemetry.span_end("anakin.rollout", t0,
+                           games=self.anakin.num_envs,
+                           unroll=self.anakin.unroll)
+        self._count_step()
+        return metrics
 
     def _queue_depth(self):
         """The feed backlog at the epoch boundary: assembled host
@@ -1083,8 +1088,13 @@ class Trainer:
             # fused-rollout production this epoch (committed env
             # transitions, completed games); the learner divides by the
             # epoch wall into anakin_{frames,games}_per_sec
-            record["anakin_frames"] = int(metrics["anakin_frames"].sum())
-            record["anakin_games"] = int(metrics["anakin_games"].sum())
+            produced = [float(metrics["anakin_frames"].sum()),
+                        float(metrics["anakin_games"].sum())]
+            if self.train_mesh is not None:
+                # each dp rank played its share of the env axis
+                produced = mh.sum_over_dp(produced, self.train_mesh)
+            record["anakin_frames"] = int(produced[0])
+            record["anakin_games"] = int(produced[1])
         if self.target_module is not None:
             record["target_net_age"] = target_net_age(
                 self.steps,
@@ -1385,9 +1395,12 @@ class Learner:
                       "card (multi-process learners keep per-rank "
                       "services)")
             with self._startup.section("service"):
+                # no mesh: every rank's service answers its own workers
                 self.infer_service = InferenceService(
                     self.model, pipeline_cfg, epoch=self.model_epoch,
-                    device=self.device, chaos=chaos)
+                    device=self.device, chaos=chaos,
+                    max_reshard=int(
+                        self.args.get("max_resharding_copies", 0) or 0))
                 self.infer_service.start()
         self._build_serving()
         self._build_guards()
@@ -1992,6 +2005,7 @@ class Learner:
         record.update(self._fleet_record())
         if self.infer_service is not None:
             record.update(self.infer_service.epoch_stats())
+            record["mesh_devices"] = self.infer_service.mesh_devices
             record["infer_respawns"] = self._infer_respawns
             record["infer_param_loads"] = self.infer_service.param_loads
             # shm + spilled episodes reconcile against arrivals: a surge

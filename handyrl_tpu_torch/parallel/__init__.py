@@ -7,12 +7,14 @@ processes.  PyTorch runs ONE process per card, so here a mesh always
 spans ranks of a ``torch.distributed`` process group: the ``mesh:``
 axes (dp, sp, tp and the ``fsdp`` rule) lay out over the ranks that
 ``distributed:`` brings up, each rank a full learner on its own card.
-A learner with no ``distributed:`` section uses one card even where the
-host has several (it says so, and how to use the rest): the JAX
-package's auto-dp over a host's local devices becomes "launch one rank
-per card".  The collectives are placed by hand around the update step
-(:mod:`.update`); the rules deciding which axis of which leaf shards
-are the JAX package's (:mod:`.mesh`).
+``--train`` with no ``distributed:`` section on a host with several
+cards spawns one rank per card itself (:mod:`.launch`): the JAX
+package's auto-dp over a host's local devices.  Ranks that share one
+host (:func:`.multihost.one_host`) also run what JAX runs only on a
+single-process mesh: Anakin's env axis over dp.  The collectives are
+placed by hand around the update step (:mod:`.update`, dp, fsdp, tp and
+sp in any combination); the rules deciding which axis of which leaf
+shards are the JAX package's (:mod:`.mesh`).
 """
 
 from .mesh import (

@@ -208,9 +208,8 @@ def flax_spec(shape, mesh, min_tp_dim: int = 128, fsdp: bool = False,
 class InferenceShardings(NamedTuple):
     """The layout contract of one batched inference dispatch: params
     per :func:`param_sharding`, the observation rows over ``dp``, the
-    outputs back on the same ``dp`` rows.  The port's service
-    dispatches on one rank's card (see ``pipeline.service``), so a
-    multi-rank contract is a plan here, not a dispatch."""
+    outputs back on the same ``dp`` rows.  The service's mesh path
+    (``pipeline.service``) lays its forward out by it."""
 
     params: Any
     obs: Layout

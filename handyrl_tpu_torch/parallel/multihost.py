@@ -23,6 +23,11 @@ decisions:
     stream and costs no device synchronisation.
   * :func:`broadcast_train_state` — rank 0's train state on every rank
     at start-up; the step count crosses as an int64.
+  * :func:`one_host` — whether every rank of the group runs on this
+    host, decided once at start-up from each rank's host name (the
+    counterpart of JAX's single-process mesh over local devices: the
+    paths JAX runs only there, Anakin's sharded env axis, run only
+    then).
 
 The sharded update step reduces gradients explicitly
 (:mod:`.update`), so each rank feeds it its OWN rows, as plain local
@@ -40,6 +45,7 @@ its peers' next collective fail, and every rank then exits.
 
 import datetime
 import os
+import socket
 from typing import Any, Dict, Optional
 
 import torch
@@ -61,6 +67,7 @@ ALLOWED_KEYS = {"coordinator_address", "num_processes", "process_id",
 CONTROL_TIMEOUT = datetime.timedelta(hours=24)
 
 _control = None   # the CPU gloo group of the control word
+_hosts = ()       # every rank's host name, in rank order
 
 
 def check_config(cfg: Optional[Dict[str, Any]]) -> None:
@@ -135,17 +142,30 @@ def init_distributed(cfg: Optional[Dict[str, Any]], device="cuda",
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, **kwargs)
     _control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+    _gather_hosts()
     return True
+
+
+def _gather_hosts():
+    global _hosts
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, socket.gethostname(), group=_control)
+    _hosts = tuple(names)
+
+
+def one_host() -> bool:
+    """True when every rank runs on this host (or there is one rank)."""
+    return len(set(_hosts)) <= 1
 
 
 def shutdown() -> None:
     """Tear the process group down (every exit path of an entry point
     that initialized it): no rank is left holding sockets or NCCL
     communicators."""
-    global _control
+    global _control, _hosts
     if dist.is_initialized():
         dist.destroy_process_group()
-    _control = None
+    _control, _hosts = None, ()
 
 
 def process_count() -> int:
@@ -183,6 +203,16 @@ def sync_epoch_code(code: int) -> int:
     word = torch.tensor([int(code)], dtype=torch.int32)
     dist.broadcast(word, src=0, group=_control)
     return int(word[0])
+
+
+def sum_over_dp(values, mesh):
+    """Host numbers summed over the ``dp`` axis of ``mesh`` on every
+    rank, through the CPU control group (no device sync): the group
+    sums every rank's values, and each dp coordinate's ``sp*tp`` ranks
+    hold the same ones."""
+    total = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    dist.all_reduce(total, group=_control)
+    return (total / replay_group_size(mesh)).tolist()
 
 
 def _broadcast_tensor(tensor, group):

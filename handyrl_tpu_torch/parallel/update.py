@@ -11,19 +11,23 @@ per rank, around the port's :class:`~..ops.update.UpdateStep`:
     (the lr schedule normalizes by the data-count EMA), so the global
     gradient is the sum of the per-rank ones — never their mean, which
     is what DDP and FSDP do by default;
-  * ``fsdp`` — FSDP2 ``fully_shard`` over the dp axis, each leaf on the
-    dim the JAX rule picks (``shard_placement_fn``), the leaves the rule
-    keeps replicated left out (``ignored_params``, summed with the
-    rest); gradient divide factor 1 with SUM reductions, so its
-    reduce-scatter sums too.  Parameters and Adam moments are dp-sharded
-    DTensors;
+  * ``fsdp`` — each leaf the JAX rule dp-shards holds its dp chunk (on
+    the dim the rule picks) as a DTensor ``Shard(d)`` over dp; the
+    owning module's forward all-gathers the whole leaf over dp and the
+    backward reduce-scatters its gradient with SUM, so the gradient
+    arrives summed over dp and sharded like the leaf.  Parameters and
+    Adam moments are dp-sharded DTensors; the leaves the rule keeps
+    replicated stay plain tensors, summed with the rest;
   * ``tp`` — wide conv/dense kernels hold their output-feature slice as
     a DTensor ``Shard(0)`` over tp; DTensor has no sharding strategy
     for a convolution with a sharded weight, so the owning module's
     forward computes its slice of the output channels and all-gathers
     them (the backward keeps its slice; the input's gradient is summed
     over tp, Megatron's "f"/"g" pair).  A bias, replicated by the rule,
-    is added after the gather;
+    is added after the gather.  With ``fsdp`` a kernel may shard on
+    both axes (tp on its output features, dp on the last other dim the
+    rule finds divisible): the dp gather comes first and yields the
+    rank's tp slice;
   * ``sp`` (``shard_time``) — a feed-forward forward runs on this rank's
     slice of the time axis (when ``T % sp == 0``) and the outputs are
     gathered back before the targets' reverse scans; a recurrent net
@@ -34,7 +38,13 @@ The global-norm clip is over the GLOBAL gradient: the squared norms of
 sharded gradients are summed over the axes that shard them.  With every
 axis of size 1 the step is the unsharded step's arithmetic: the
 collectives run over one rank, and the parameters come out bit for bit
-the same.  ``fsdp`` with ``tp > 1`` is not ported (it raises).
+the same.
+
+The dp shards are placed by hand rather than by FSDP2's ``fully_shard``:
+one mechanism carries dp-only, tp-only and doubly-sharded leaves alike,
+each leaf's placements are exactly :func:`.mesh.param_sharding`'s on the
+whole mesh (no ``_StridedShard``), and the reductions are the step's own
+sums with no divide factor to override.
 """
 
 import types
@@ -86,20 +96,62 @@ class _Gather(torch.autograd.Function):
                             ctx.size).contiguous(), None, None)
 
 
-def _tp_forward(self, x):
-    """A tp-sharded Conv2d's or Linear's forward: this rank's output
-    channels, gathered, then the replicated bias."""
-    x = _SumGrad.apply(x, self._tp_group)
-    weight = self.weight.to_local()
-    if isinstance(self, torch.nn.Conv2d):
-        y = _Gather.apply(self._conv_forward(x, weight, None),
-                          self._tp_group, 1)
+class _GatherShards(torch.autograd.Function):
+    """All-gather a dp-sharded leaf along ``dim`` over ``group``; the
+    backward reduce-scatters the gradient with SUM (each dp rank's rows
+    contributed to the whole leaf), so this rank's chunk of the gradient
+    arrives summed over dp."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dim = group, dim
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        whole = grad.movedim(ctx.dim, 0).contiguous()
+        part = whole.new_empty((whole.shape[0] // n,) + whole.shape[1:])
+        dist.reduce_scatter_tensor(part, whole, group=ctx.group)
+        return part.movedim(0, ctx.dim).contiguous(), None, None
+
+
+def _leaf(self, name):
+    """A laid-out module's parameter ``name`` as its forward uses it:
+    this rank's part, with the dp shards gathered."""
+    t = getattr(self, name)
+    if t is None:
+        return None
+    local = t.to_local() if isinstance(t, DTensor) else t
+    dim = self._dp_dims.get(name)
+    if dim is None:
+        return local
+    return _GatherShards.apply(local, self._dp_group, dim)
+
+
+def _sharded_forward(self, x):
+    """A laid-out Conv2d's or Linear's forward: the dp-sharded leaves
+    gathered; with a tp-sharded kernel, this rank's output channels
+    gathered over tp, then the replicated bias."""
+    weight, bias = _leaf(self, "weight"), _leaf(self, "bias")
+    conv = isinstance(self, torch.nn.Conv2d)
+    group = self._tp_group
+    if group is None:
+        if conv:
+            return self._conv_forward(x, weight, bias)
+        return F.linear(x, weight, bias)
+    x = _SumGrad.apply(x, group)
+    if conv:
+        y = _Gather.apply(self._conv_forward(x, weight, None), group, 1)
         shape = (1, -1, 1, 1)
     else:
-        y = _Gather.apply(F.linear(x, weight), self._tp_group, -1)
+        y = _Gather.apply(F.linear(x, weight), group, -1)
         shape = (-1,)
-    if self.bias is not None:
-        y = y + self.bias.to(y.dtype).view(shape)
+    if bias is not None:
+        y = y + bias.to(y.dtype).view(shape)
     return y
 
 
@@ -116,55 +168,42 @@ def _shard(full, mesh, placements):
                               stride=full.contiguous().stride())
 
 
-def _dp_sharded(layout):
-    return layout.placements[AXES.index("dp")].is_shard()
-
-
-def shard_module(module, mesh, layouts, fsdp=False):
+def shard_module(module, mesh, layouts):
     """Lay ``module``'s parameters out by ``layouts`` (from
-    :func:`.mesh.param_sharding`), in place: tp-sharded kernels become
-    DTensor parameters whose owner computes its output slice; with
-    ``fsdp``, FSDP2 shards the dp-sharded leaves.  Returns the set of
-    parameters FSDP2 manages (their gradients arrive summed)."""
-    tp_axis = AXES.index("tp")
+    :func:`.mesh.param_sharding`), in place: each leaf sharded on any
+    axis becomes a DTensor parameter holding this rank's chunk, and its
+    owner (a Conv2d or Linear) computes with its dp chunks gathered and,
+    when tp shards its kernel, its slice of the output.  Returns the
+    set of dp-sharded parameters (their gradients arrive summed)."""
+    tp_axis, dp_axis = AXES.index("tp"), AXES.index("dp")
     named = dict(module.named_parameters())
-    dp_leaves = {n for n, lay in layouts.items() if _dp_sharded(lay)}
-    tp_leaves = {n for n, lay in layouts.items()
-                 if lay.placements[tp_axis].is_shard()}
-    if dp_leaves and tp_leaves:
-        raise ValueError(
-            "mesh {fsdp: true} with tp > 1 is not ported to "
-            "handyrl_tpu_torch yet: use fsdp or tp")
-    for name in sorted(tp_leaves):
+    dp_sharded = set()
+    for name in sorted(n for n, lay in layouts.items()
+                       if not lay.is_fully_replicated):
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name)
         placements = layouts[name].placements
-        if (leaf != "weight" or placements[tp_axis].dim != 0 or not
-                isinstance(owner, (torch.nn.Conv2d, torch.nn.Linear))):
-            raise ValueError(f"tp layout of {name} has no sharded "
-                             f"forward (only Conv2d/Linear output "
-                             f"features shard over tp)")
-        owner.weight = torch.nn.Parameter(
+        tp, dp = placements[tp_axis], placements[dp_axis]
+        if (leaf not in ("weight", "bias")
+                or not isinstance(owner, (torch.nn.Conv2d, torch.nn.Linear))
+                or (tp.is_shard() and (leaf != "weight" or tp.dim != 0))
+                or placements[AXES.index("sp")].is_shard()):
+            raise ValueError(f"layout of {name} has no sharded forward "
+                             f"(only Conv2d/Linear leaves shard, over tp "
+                             f"on their output features only)")
+        param = torch.nn.Parameter(
             _shard(named[name].detach(), mesh, placements))
-        owner._tp_group = mesh.get_group(tp_axis)
-        owner.forward = types.MethodType(_tp_forward, owner)
-    if not dp_leaves:
-        return set()
-    from torch.distributed.fsdp import fully_shard
-
-    dim_of = {named[n]: layouts[n].placements[AXES.index("dp")]
-              for n in dp_leaves}
-    fully_shard(module, mesh=mesh["dp"],
-                shard_placement_fn=lambda p: dim_of[p],
-                ignored_params={p for n, p in named.items()
-                                if n not in dp_leaves})
-    # the loss is a sum over rows: reduce-scatter SUMS (no mean)
-    divide = (getattr(module, "set_gradient_divide_factor", None)
-              or module.set_reduce_scatter_divide_factor)
-    divide(1.0)
-    if hasattr(module, "set_force_sum_reduction_for_comms"):
-        module.set_force_sum_reduction_for_comms(True)
-    return {p for p in module.parameters() if isinstance(p, DTensor)}
+        setattr(owner, leaf, param)
+        if not hasattr(owner, "_dp_dims"):
+            owner._dp_dims, owner._tp_group = {}, None
+            owner._dp_group = mesh.get_group(dp_axis)
+            owner.forward = types.MethodType(_sharded_forward, owner)
+        if tp.is_shard():
+            owner._tp_group = mesh.get_group(tp_axis)
+        if dp.is_shard():
+            owner._dp_dims[leaf] = dp.dim
+            dp_sharded.add(param)
+    return dp_sharded
 
 
 def full_tensor(t):
@@ -224,12 +263,10 @@ class ShardedUpdateStep(UpdateStep):
                  compute_dtype="float32", target_module=None,
                  shard_time=False, fsdp=False):
         layouts = param_sharding(mesh, module, fsdp=fsdp)
-        self.fsdp_params = shard_module(module, mesh, layouts, fsdp)
-        self.target_fsdp = False
+        self.fsdp_params = shard_module(module, mesh, layouts)
         if target_module is not None:
             # the IMPACT target is the same net: the same layout
-            self.target_fsdp = bool(
-                shard_module(target_module, mesh, layouts, fsdp))
+            shard_module(target_module, mesh, layouts)
         super().__init__(module, cfg,
                          make_optimizer(module.parameters(), learning_rate),
                          compute_dtype, target_module=target_module)
@@ -285,13 +322,8 @@ class ShardedUpdateStep(UpdateStep):
             losses, dcnt = super().loss_and_grads(batch)
         finally:
             self._window = None
-        if self.target_fsdp:
-            # FSDP2 keeps a root's parameters gathered after a forward
-            # that no backward follows: back to the shards the target
-            # refresh pairs with the live ones
-            self.target_module.reshard()
         grads = [(p, p.grad) for p in self.params if p.grad is not None]
-        # FSDP2's reduce-scatter already summed its leaves over dp
+        # the dp-sharded leaves' reduce-scatter already summed them
         _sum_([local_tensor(g) for p, g in grads
                if p not in self.fsdp_params], self.dp_group)
         if split:

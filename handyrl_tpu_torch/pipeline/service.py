@@ -15,7 +15,18 @@ swap** (``set_model``) is adopted between batches on the service
 thread, which copies the new snapshot's params into a module once; no
 request ever pays a parameter upload, and the learner's own tensors
 are never read mid-dispatch.  ``param_loads`` counts those copies, one
-per distinct snapshot while the LRU holds them all.  Each dispatch
+per distinct snapshot while the LRU holds them all.
+
+**Guards** (the JAX service's contract): the forward runs behind the
+port's :class:`~..analysis.guards.RetraceGuard` and
+:class:`~..analysis.guards.ShardingContractGuard` (``name=
+"inference_batch"``), built with the service, so they survive
+``respawn()``.  ``infer_compiles`` counts the forward's distinct call
+signatures: one per batch-bucket geometry, never one per snapshot (each
+snapshot's parameters are arguments of one guarded forward); ``infer_resharding_copies``
+counts arguments whose layout moved (steady state 0; ``max_reshard >
+0`` raises past it).  ``mesh_devices`` is the mesh's rank count, 1
+without one.  Each dispatch
 uploads the bucket-padded observation batch once and downloads the
 outputs once (:func:`..models.wrapper.forward_numpy`).  Batch shapes
 bucket to powers of two (floor 8, ceiling ``max_batch``), as in the
@@ -51,13 +62,19 @@ so reply pushes can tear, truncate or be refused, request and
 trajectory pops can stall, and heartbeats can be withheld or
 backdated; ``stats()`` then carries the injected counts (``chaos``).
 
-Meshes: one process drives one card in the port, so a training mesh
-always spans ranks (:mod:`..parallel`), and the JAX package's rule for
-multi-host replicas applies to every mesh: each rank's service answers
-its own workers with an unsharded dispatch on that rank's card (a
-dispatch over the mesh would need every rank in each forward).  Not
-ported yet: a sharded dispatch across ranks, the service's own retrace
-guard (``infer_compiles``) and its sharding guard.
+**With a mesh** (``mesh=``, a rank ``DeviceMesh``): the pow2 bucket
+floor rises to a pow2 ``dp`` (a ``dp`` the buckets cannot honour
+disarms the mesh with the JAX warning, and the dispatch runs
+unsharded).  Each snapshot's module is laid out once by
+:func:`..parallel.mesh.inference_shardings` (tp kernels compute their
+output slice, fsdp leaves hold their dp chunk and gather it), cached on
+the model keyed by the layout.  ``_forward(model, obs)`` is then a
+collective: every rank of the mesh calls it in lockstep with the SAME
+observation batch, each forwards its ``dp`` rows, and the outputs are
+gathered back over ``dp``.  A one-rank mesh is bit-identical to the
+mesh-less dispatch.  The learner passes no mesh: its ranks each answer
+their own workers (the JAX rule for replicas); a live dispatch across
+one host's ranks, followers joining each forward, is not ported.
 """
 
 import random
@@ -68,10 +85,17 @@ from collections import OrderedDict, deque
 
 import numpy as np
 
+import torch
+
 from .. import telemetry
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.wrapper import build_module, forward_numpy
-from ..utils.tree import tree_structure, tree_unflatten
+from ..utils.tree import (
+    tree_leaves,
+    tree_map_leaves,
+    tree_structure,
+    tree_unflatten,
+)
 from .shm import (
     ShmBoard,
     ShmRing,
@@ -146,11 +170,44 @@ class InferenceService:
     BUCKET_FLOOR = 8
 
     def __init__(self, model, cfg, epoch=0, device=DEFAULT_DEVICE,
-                 clock=time.monotonic, sleep=time.sleep, chaos=None):
+                 clock=time.monotonic, sleep=time.sleep, chaos=None,
+                 mesh=None, fsdp=False, max_reshard=0):
+        from ..analysis.guards import RetraceGuard, ShardingContractGuard
         from ..resilience.chaos import maybe_chaos_board
 
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the sharded dispatch (module docstring): the pow2 bucket
+        # floor must divide by dp so every dispatch splits the rows
+        # evenly; a dp the buckets cannot honour disarms the mesh
+        # LOUDLY (unsharded dispatch, never a shape error)
+        self._mesh = None
+        self._fsdp = bool(fsdp)
+        self._bucket_floor = self.BUCKET_FLOOR
+        if mesh is not None:
+            from ..parallel.mesh import axis_size
+
+            dp = int(axis_size(mesh, "dp")) or 1
+            floor = self._bucket_floor
+            if dp > floor and dp & (dp - 1) == 0:
+                floor = dp  # pow2 dp above the floor: raise the floor
+            if (floor % dp == 0 and int(cfg.max_batch) % dp == 0
+                    and floor <= int(cfg.max_batch)):
+                self._mesh = mesh
+                self._bucket_floor = floor
+            else:
+                print(f"WARNING: inference mesh disarmed: dp={dp} "
+                      f"does not divide the pow2 batch buckets "
+                      f"(floor {floor}, max_batch {cfg.max_batch}); "
+                      f"inference dispatch runs unsharded")
+        # the guard contract, the update step's: signatures counted per
+        # geometry (one per batch bucket, NOT per snapshot), layout
+        # moves at the call boundary budgeted at 0 in steady state
+        self.retrace_guard = RetraceGuard(name="inference_batch")
+        self.shard_guard = ShardingContractGuard(
+            max_copies=int(max_reshard or 0), name="inference_batch")
+        self._fwd = None             # the guarded forward of _fwd_spec
+        self._infer_sh = None        # InferenceShardings when mesh-armed
         self.clock = clock
         self.sleep = sleep
         self._lock = threading.Lock()
@@ -160,9 +217,10 @@ class InferenceService:
         self._epoch = int(epoch)
         self._pending_model = None
         # service-owned modules on the device, LRU by snapshot:
-        # id(model) -> (model, module); the model reference pins the id
+        # id(model) -> (model, (module, {name: tensor})); the model
+        # reference pins the id
         self._fwds = OrderedDict()
-        self._fwd_spec = None        # (class, config) they were built for
+        self._fwd_spec = None        # (class, config) of the forward
         # routed snapshots the LRU keeps beside the live one (the
         # learner sets serving.snapshot_cache when it serves)
         self.snapshot_cache = 0
@@ -357,6 +415,11 @@ class InferenceService:
         out = {
             "infer_batches": len(rows),
             "infer_requests": requests,
+            # the forward's guard contract: copies is the epoch's delta
+            # (steady state 0); compiles is cumulative and stops growing
+            # once every bucket geometry has been seen
+            "infer_resharding_copies": self.shard_guard.snapshot(),
+            "infer_compiles": self.retrace_guard.compiles,
             "shm_ring_full_count": self.ring_full_count(),
             "shm_torn_slots": self.torn_slot_count(),
         }
@@ -407,7 +470,15 @@ class InferenceService:
             "corrupt_slots": self.corrupt,
             "reply_drops": self.reply_drops,
             "clients_reaped": self.reaped,
+            "infer_resharding_copies": self.shard_guard.copies,
+            "infer_compiles": self.retrace_guard.compiles,
+            "mesh_devices": self.mesh_devices,
         }
+
+    @property
+    def mesh_devices(self):
+        """Ranks of the armed inference mesh (1 without one)."""
+        return int(self._mesh.size()) if self._mesh is not None else 1
 
     # -- trajectory intake (learner thread) ----------------------------
     def drain_trajectories(self, max_episodes=512):
@@ -470,43 +541,124 @@ class InferenceService:
         self._model, self._epoch = pending
         # copy the new params onto the device now, between batches:
         # the first request after a swap does not wait for the copy
-        self._ensure_forward(self._model)
+        self._adopt_params(self._model)
 
     def _ensure_forward(self, model):
-        """The service-owned device module holding ``model``'s params,
-        from the LRU: params are copied once per snapshot the LRU does
-        not hold (the live one plus ``snapshot_cache`` routed ones); a
-        full LRU hands its least recently used module over to the new
-        snapshot instead of building another.  Every module is rebuilt
-        only when the net's spec changes.  None for duck models without
-        a ``spec`` (RandomModel, stubs), which keep their own
-        ``inference_batch``."""
+        """The service-owned guarded forward ``fwd(module, params,
+        obs)``, built once per net spec and shared by every snapshot;
+        ``params`` (the module's tensors) rides as an argument so the
+        guards see each snapshot's layouts, as the JAX jit's arguments.
+        With a mesh the inference shardings are planned here.  None for
+        duck models without a ``spec`` (RandomModel, stubs), which keep
+        their own ``inference_batch``."""
         spec = getattr(model, "spec", None)
         if spec is None:
             return None
-        if self._fwd_spec != spec:
-            self._fwds.clear()
-            self._fwd_spec = spec
+        if self._fwd is not None and self._fwd_spec == spec:
+            return self._fwd
+        self._fwds.clear()
+        self._fwd_spec = spec
+        self._infer_sh = None
+        if self._mesh is not None:
+            from ..parallel.mesh import inference_shardings
+
+            self._infer_sh = inference_shardings(
+                self._mesh, build_module(spec, "meta"), fsdp=self._fsdp)
+
+        def forward(module, params, obs):
+            return module(obs, None)
+
+        self._fwd = self.retrace_guard.wrap(self.shard_guard.wrap(forward))
+        return self._fwd
+
+    def _placed(self, model):
+        """``(module, params)``: a service-owned device module holding
+        ``model``'s parameters, and its tensors by name.
+
+        Without a mesh: from the snapshot LRU, copied once per snapshot
+        it does not hold (the live one plus ``snapshot_cache`` routed
+        ones); a full LRU hands its least recently used module over to
+        the new snapshot instead of building another.  With a mesh: laid
+        out on the inference param shardings ONCE per snapshot and
+        cached on the model, keyed by the shardings it was placed with
+        (a model that crosses services re-places instead of dispatching
+        another mesh's layout)."""
+        if self._infer_sh is not None:
+            cached = getattr(model, "_infer_placed", None)
+            if cached is not None and cached[0] is self._infer_sh:
+                return cached[1]
+            from ..parallel.update import shard_module
+
+            module = build_module(self._fwd_spec, self.device)
+            module.load_state_dict(model.module.state_dict())
+            shard_module(module, self._mesh, self._infer_sh.params)
+            placed = (module, dict(module.named_parameters()))
+            model._infer_placed = (self._infer_sh, placed)
+            self.param_loads += 1
+            return placed
         key = id(model)
         hit = self._fwds.get(key)
         if hit is not None and hit[0] is model:
             self._fwds.move_to_end(key)
             return hit[1]
         if len(self._fwds) > max(0, int(self.snapshot_cache)):
-            _old, module = self._fwds.popitem(last=False)[1]
+            _old, (module, _params) = self._fwds.popitem(last=False)[1]
         else:
-            module = build_module(spec, self.device)
+            module = build_module(self._fwd_spec, self.device)
         module.load_state_dict(model.module.state_dict())
         self.param_loads += 1
-        self._fwds[key] = (model, module)
-        return module
+        placed = (module, dict(module.named_parameters()))
+        self._fwds[key] = (model, placed)
+        return placed
+
+    def _adopt_params(self, model):
+        """Place a newly adopted snapshot's params between batches."""
+        if self._ensure_forward(model) is not None:
+            self._placed(model)
+
+    def _gather_rows(self, out):
+        """Each dp rank's output rows, concatenated in dp order on every
+        rank (a collective over the mesh's dp group)."""
+        from ..parallel.mesh import AXES
+
+        group = self._mesh.get_group(AXES.index("dp"))
+        n = torch.distributed.get_world_size(group)
+
+        def gather(t):
+            if t is None or n == 1:
+                return t
+            parts = [torch.empty_like(t) for _ in range(n)]
+            torch.distributed.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim=0)
+
+        return tree_map_leaves(gather, out)
 
     def _forward(self, model, obs):
-        """One batched forward: numpy leaves in, numpy dict out."""
+        """One batched forward: numpy leaves in, numpy dict out, through
+        the guarded forward.  With a mesh, a collective every rank calls
+        with the same ``obs``: this rank forwards its dp rows."""
         fwd = self._ensure_forward(model)
         if fwd is None:
             return model.inference_batch(obs, None)
-        return forward_numpy(fwd, self.device, obs)
+        module, params = self._placed(model)
+        if self._mesh is None:
+            return forward_numpy(lambda x, _h: fwd(module, params, x),
+                                 self.device, obs)
+        from ..parallel.mesh import AXES, axis_size
+
+        dp = axis_size(self._mesh, "dp")
+        rows = len(tree_leaves(obs)[0])
+        if rows % dp:
+            # the bucket floor keeps every dispatch divisible; a direct
+            # caller must too
+            raise ValueError(f"{rows} observation rows do not split "
+                             f"over dp={dp}")
+        share = rows // dp
+        lo = self._mesh.get_local_rank(AXES.index("dp")) * share
+        local = tree_map_leaves(lambda a: a[lo:lo + share], obs)
+        return forward_numpy(
+            lambda x, _h: self._gather_rows(fwd(module, params, x)),
+            self.device, local)
 
     # -- the batching loop --------------------------------------------
     def _collect(self, pending, now):
@@ -620,7 +772,7 @@ class InferenceService:
                 i += 1
             t0 = telemetry.span_begin()
             bucket = _bucket(rows, max(rows, self.cfg.max_batch),
-                             self.BUCKET_FLOOR)
+                             self._bucket_floor)
             leaves = [np.concatenate(parts, axis=0) for parts in zip(
                 *[leaves for _, _, _, leaves, _ in chunk])]
             if bucket > rows:
@@ -673,9 +825,9 @@ class InferenceService:
             if client is not None:
                 self._adopt_model()
                 buckets = {_bucket(1, self.cfg.max_batch,
-                                   self.BUCKET_FLOOR),
+                                   self._bucket_floor),
                            _bucket(client.rows_max, self.cfg.max_batch,
-                                   self.BUCKET_FLOOR)}
+                                   self._bucket_floor)}
                 for rows in sorted(buckets):
                     leaves = [np.zeros((rows,) + shape, dtype)
                               for shape, dtype in client.leaf_specs]

@@ -16,7 +16,9 @@ module may be loaded.  An AST scan of the package, its ``interop/``,
 ``scripts/``, ``anakin/``, ``telemetry/``, ``serving/``,
 ``analysis/``, ``parallel/`` and ``utils/`` subpackages included, finds no such
 import anywhere, lazy ones included; importing ``chip_smoke`` loads
-none either.  The static linter's thirteen modules import the stdlib
+none either, and neither its source nor any program it embeds for a
+child interpreter imports them or runs one of the JAX package's entry
+scripts (its ``--jax-curve`` modes are gone).  The static linter's thirteen modules import the stdlib
 alone, and a fresh ``python -m handyrl_tpu_torch.analysis.torchlint
 --list-rules`` loads neither torch nor JAX.  And the card is never
 replaced by the CPU behind the caller's back.
@@ -309,6 +311,65 @@ def test_importing_chip_smoke_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN_MODULES []" in proc.stdout
+
+
+JAX_ENTRY_SCRIPTS = ("main.py", "bench.py", "__graft_entry__.py")
+
+
+def _embedded_programs(tree):
+    """Every string constant of ``tree`` that parses as a Python program
+    with an import in it: the sources handed to child interpreters."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and "import" in node.value:
+            try:
+                yield node.lineno, ast.parse(textwrap.dedent(node.value))
+            except SyntaxError:
+                continue
+
+
+def _forbidden_imports(tree):
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            if name.split(".")[0] in FORBIDDEN:
+                yield node.lineno, name
+
+
+@pytest.mark.parametrize("source", ["chip_smoke.py", "handyrl_tpu_torch"])
+def test_no_child_program_imports_jax_or_runs_a_jax_entry(source):
+    """``chip_smoke.py`` and the port start child interpreters (``python
+    -c`` programs, script paths): none of their programs imports JAX or
+    the JAX package, and none runs the JAX package's entry scripts."""
+    path = os.path.join(REPO, source)
+    paths = [path] if path.endswith(".py") else [
+        os.path.join(root, f) for root, _dirs, files in os.walk(path)
+        for f in files if f.endswith(".py")]
+    bad, programs = [], 0
+    for p in paths:
+        text = open(p).read()
+        tree = ast.parse(text, filename=p)
+        rel = os.path.relpath(p, REPO)
+        bad += [f"{rel}:{line}: {name}"
+                for line, name in _forbidden_imports(tree)]
+        for line, program in _embedded_programs(tree):
+            programs += 1
+            bad += [f"{rel}:{line}+{inner}: {name} (child program)"
+                    for inner, name in _forbidden_imports(program)]
+        bad += [f"{rel}:{node.lineno}: runs {node.value}"
+                for node in ast.walk(tree)
+                if isinstance(node, ast.Constant)
+                and isinstance(node.value, str)
+                and os.path.basename(node.value) in JAX_ENTRY_SCRIPTS]
+        assert "--jax-curve" not in text, rel
+    assert not bad, bad
+    if source == "chip_smoke.py":
+        # the smoke embeds its rank and learner children as programs
+        assert programs >= 5, programs
 
 
 def test_asking_for_the_card_without_one_raises():

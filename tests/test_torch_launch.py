@@ -1,0 +1,258 @@
+"""One rank per local card: the launcher behind ``--train``.
+
+``parallel.launch`` spawns one rank per visible card when ``--train``
+has no ``distributed:`` section (JAX's auto-dp over a host's devices).
+Here the card count is injected through ``launch``'s ``cards`` argument
+and the ranks train on the CPU over gloo:
+
+  * JAX's auto-dp rule and its messages, the split of ``--train``'s
+    local fleet (``train_args.worker``; remainder to rank 0, worker ids
+    numbered on across ranks) and of its episode counts in the same
+    shares, each rank's config, and the one-card reduction (no spawn,
+    said aloud);
+  * a mesh the user set stands: ``{dp: 1}`` runs one process (JAX's
+    explicit all-ones mesh), ``{tp: 2}`` spawns two ranks that train
+    at tp=2, and a mesh larger than the host is JAX's error;
+  * ``--train`` on TicTacToe for one epoch on two ranks: both exit 0,
+    rank 0 alone writes the checkpoint and the metrics, the fleet of 3
+    workers runs as 2 + 1 (not 3 per rank), and each record carries
+    the inference service's guard keys;
+  * Anakin on the two ranks: each plays its half of the games;
+  * a rank that dies ends the run with its exit code, and ranks asked
+    for the card where there is none fail rather than train on the CPU.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from handyrl_tpu_torch.parallel import launch
+from torchfix import CHILD_ENV, one_torch_thread  # noqa: F401  (autouse)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEADLINE = 150
+
+CHILD = textwrap.dedent("""
+    import functools, os, sys, threading
+
+    mode, device = sys.argv[1], sys.argv[2]
+    args = {
+        "env_args": {"env": "TicTacToe"},
+        "train_args": {
+            "turn_based_training": True, "observation": False,
+            "gamma": 0.8, "forward_steps": 4, "burn_in_steps": 0,
+            "compress_steps": 4, "entropy_regularization": 0.1,
+            "entropy_regularization_decay": 0.1, "update_episodes": 12,
+            "batch_size": 8, "minimum_episodes": 4,
+            "maximum_episodes": 200, "num_batchers": 1, "eval_rate": 0.1,
+            "epochs": -1 if mode == "die" else 1,
+            "worker": {"num_parallel": 3}, "lambda": 0.7,
+            "policy_target": "TD", "value_target": "TD", "seed": 3,
+            "lockstep_episodes": 4, "updates_per_epoch": 4,
+            "metrics_path": "metrics.jsonl",
+            "pipeline": {"mode": "on"},
+        },
+        "worker_args": {"num_parallel": 1, "server_address": ""},
+    }
+    if mode == "tp":
+        args["train_args"]["mesh"] = {"tp": 2}
+    if mode == "anakin":
+        args["train_args"].update(
+            updates_per_epoch=3, pipeline={"mode": "off"},
+            anakin={"mode": "on", "num_envs": 16, "opponent_pool": 1})
+
+
+    def rank_one_dies(args):
+        # rank 1 dies mid-run with its own code; rank 0 trains on
+        from handyrl_tpu_torch.learner import train_main
+
+        if os.environ["RANK"] == "1":
+            threading.Timer(8.0, os._exit, (3,)).start()
+        train_main(args, device="cpu")
+
+
+    if __name__ == "__main__":  # spawn-safe: the ranks re-import
+        from handyrl_tpu_torch.learner import train_main
+        from handyrl_tpu_torch.parallel.launch import launch
+
+        target = (rank_one_dies if mode == "die"
+                  else functools.partial(train_main, device=device))
+        code = launch(args, target, device=device, cards=2)
+        print("LAUNCH EXIT %s" % code, flush=True)
+        sys.exit(code)
+""")
+
+
+def _run(tmp_path, mode, device="cpu"):
+    script = tmp_path / "child.py"
+    script.write_text(CHILD)
+    env = dict(CHILD_ENV, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, str(script), mode, device],
+                            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=DEADLINE)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    return proc.returncode, out
+
+
+def test_the_auto_dp_rule_and_its_messages_are_jax(capsys, monkeypatch):
+    import handyrl_tpu.learner as jlearner
+
+    class Host:
+        args = {}
+
+    for n, batch in ((1, 8), (2, 8), (4, 6), (8, 7), (3, 9)):
+        capsys.readouterr()
+        dp = launch.default_dp(n, batch)
+        port = capsys.readouterr().out
+        Host.args = {"batch_size": batch}
+        monkeypatch.setattr(jlearner.jax, "device_count", lambda n=n: n)
+        ref = jlearner.Trainer._default_mesh_cfg(Host)
+        assert port == capsys.readouterr().out, (n, batch)
+        assert dp == ref.get("dp", 1), (n, batch)
+
+
+def test_fleet_split_and_rank_config():
+    assert launch.fleet_split(3, 2) == [2, 1]
+    assert launch.fleet_split(8, 4) == [2, 2, 2, 2]
+    assert launch.fleet_split(1, 2) == [1, 1]   # every ring needs a feed
+    args = {"train_args": {"batch_size": 8, "mesh": {"fsdp": True},
+                           "worker": {"num_parallel": 5, "num_gathers": 2}}}
+    assert launch.fleet_size(args) == 5
+    assert launch.fleet_size({"train_args": {}}) == 6   # the default
+    fleet = launch.fleet_split(5, 2)
+    mesh = {"dp": 2, "fsdp": True}
+    ranks = [launch.rank_args(args, r, mesh, fleet)["train_args"]
+             for r in range(2)]
+    assert all(t["distributed"] == {"auto": True} for t in ranks)
+    assert all(t["mesh"] == {"dp": 2, "fsdp": True} for t in ranks)
+    # 3 + 2 workers, numbered 0-2 and 3-4: no two ranks seed alike
+    assert [t["worker"] for t in ranks] == [
+        {"num_parallel": 3, "base_worker_id": 0},
+        {"num_parallel": 2, "base_worker_id": 3}]
+    assert args["train_args"]["worker"]["num_parallel"] == 5   # a copy
+    # the episode counts (the config's defaults here) in the fleet's
+    # shares: the ranks together count, warm and trim as one learner
+    for key, total in (("update_episodes", 200), ("minimum_episodes", 400),
+                       ("maximum_episodes", 100_000)):
+        assert [t[key] for t in ranks] == launch.share_split(total, fleet)
+        assert sum(t[key] for t in ranks) == total
+    assert launch.share_split(12, [2, 1]) == [8, 4]
+    assert launch.share_split(4, [2, 1]) == [3, 1]
+    assert launch.share_split(1, [1, 1]) == [1, 1]   # never 0
+
+
+def test_a_mesh_the_user_set_stands(capsys):
+    """JAX auto-shards only when the mesh axes are unset: an explicit
+    all-ones mesh is the unsharded step in one process, any other is
+    launched as written, and one larger than the host is JAX's error."""
+    from handyrl_tpu_torch.parallel.launch import _planned_mesh
+
+    def plan(mesh, cards=2, batch=8):
+        return _planned_mesh({"train_args": {"batch_size": batch,
+                                             "mesh": mesh}}, "cpu", cards)
+
+    assert plan({"dp": 1}) == {}
+    assert "mesh (1, 1, 1) is unsharded, no spawn" in capsys.readouterr().out
+    assert plan({"dp": 1, "fsdp": True}) == {}
+    assert plan({"tp": 2}) == {"tp": 2}
+    assert plan({"dp": 1, "tp": 2}) == {"dp": 1, "tp": 2}
+    assert plan({"dp": 2, "fsdp": True}, cards=4) == {"dp": 2, "fsdp": True}
+    # unset axes: JAX's auto-dp, fsdp kept
+    assert plan({}) == {"dp": 2, "fsdp": False}
+    assert plan({"fsdp": True}, cards=4) == {"dp": 4, "fsdp": True}
+    with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
+        plan({"dp": 2, "tp": 2})
+
+
+def test_one_card_makes_no_spawn(capsys):
+    args = {"train_args": {"batch_size": 8}}
+    assert launch.launch(args, print, device="cpu", cards=1) is None
+    assert "1 card(s) visible, no spawn" in capsys.readouterr().out
+    # a CPU device without an injected count, an explicit card index or
+    # a distributed: section never spawn
+    assert launch.launch(args, print, device="cpu") is None
+    assert launch.launch(args, print, device="cuda:0", cards=None) is None
+    hand = {"train_args": {"batch_size": 8, "distributed": {"auto": True}}}
+    assert launch.launch(hand, print, device="cpu", cards=2) is None
+    # batch_size 7 has no divisor <= 2: JAX's message, one process
+    odd = {"train_args": {"batch_size": 7}}
+    assert launch.launch(odd, print, device="cpu", cards=2) is None
+    assert "1 of 2 devices used" in capsys.readouterr().out
+
+
+def test_two_ranks_train_one_epoch(tmp_path):
+    code, out = _run(tmp_path, "train")
+    assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
+    assert "launch: 2 ranks, one per card; workers per rank [2, 1]" in out
+    assert "distributed: process 0 of 2, gloo" in out
+    assert "distributed: process 1 of 2, gloo" in out
+    assert out.count("mesh dp=2 sp=1 tp=1 over 2 processes") == 2
+    # the fleet is split, not multiplied: 3 workers in all
+    assert out.count("closed worker ") == 3, out[-5000:]
+    # rank 0 alone writes: one checkpoint series, one record per epoch
+    assert (tmp_path / "models" / "1.ckpt").exists()
+    with open(tmp_path / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in records] == sorted(
+        {r["epoch"] for r in records})
+    last = records[-1]
+    assert last["resharding_copies"] == 0 and last["retrace_count"] == 1
+    # the inference service's guard keys ride every record
+    assert last["infer_resharding_copies"] == 0
+    assert 0 <= last["infer_compiles"] <= 4
+    assert last["mesh_devices"] == 1
+
+
+def test_a_launched_tp_mesh_trains_as_written(tmp_path):
+    code, out = _run(tmp_path, "tp")
+    assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
+    assert "launch: 2 ranks, one per card; workers per rank [2, 1]" in out
+    # tp=2 on both ranks, not the dp the cards alone would give
+    assert out.count("mesh dp=1 sp=1 tp=2 over 2 processes") == 2
+    assert "defaulting to dp" not in out
+    assert (tmp_path / "models" / "1.ckpt").exists()
+
+
+def test_two_ranks_run_anakin_on_the_rank_mesh(tmp_path):
+    """Launched ranks share one host: ``anakin: {mode: on}`` shards its
+    16 games over dp=2 (JAX's env axis over a local mesh), and each
+    record counts both ranks' games."""
+    code, out = _run(tmp_path, "anakin")
+    assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
+    assert "this rank plays games [0, 8)" in out
+    assert "this rank plays games [8, 16)" in out
+    assert "single-process" not in out   # no multi-host fallback
+    with open(tmp_path / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    assert records
+    for r in records:
+        assert r["anakin_games"] == 16 * r["epoch_steps"]
+        assert r["retrace_count"] == 1 and r["resharding_copies"] == 0
+
+
+def test_a_dying_rank_ends_the_run_with_its_code(tmp_path):
+    code, out = _run(tmp_path, "die")
+    assert code == 3, out[-5000:]
+    assert "launch: rank1 exited 3; stopping the other ranks" in out
+    assert "LAUNCH EXIT 3" in out
+
+
+def test_launched_ranks_never_fall_back_to_the_cpu(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    code, out = _run(tmp_path, "train", device="cuda")
+    assert code == 1, out[-5000:]
+    assert "CUDA is not available" in out
+    assert "LAUNCH EXIT 1" in out

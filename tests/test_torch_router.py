@@ -235,7 +235,10 @@ def test_announcer_registers_beats_and_reregisters_after_eviction():
         router.registry.sweep(now=router.clock() + 100.0)
         _wait(lambda: router.registry.generation("r0") == 1,
               msg="re-register never landed")
-        assert ann.registrations >= 2
+        # the router bumps the generation before its ack reaches the
+        # announcer, which counts the registration on the ack
+        _wait(lambda: ann.registrations >= 2,
+              msg="the re-register's ack never landed")
         # graceful close sends the drain goodbye: the entry survives
         # (in-flight completes) but is never picked again
         ann.close()
