@@ -31,7 +31,8 @@ from a seed:
                  three bf16 steps against them, then the fused replay
                  step timed with CUDA events and profiled;
   7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
-                 config.yaml cut to 3 epochs, the port's ``--eval`` of
+                 config.yaml cut to 3 epochs of 100 + 100 episodes (then
+                 100 each), the port's ``--eval`` of
                  ``models/3.ckpt``, and a restart from epoch 3 that
                  restores the optimizer, replays the episode WAL into
                  the ring on the card and trains a fourth epoch;
@@ -47,16 +48,27 @@ from a seed:
                  second process: the guard relaunches the SIGKILLed
                  learner, the worker machine re-enters its session, and
                  training reaches epoch 3; no worker initializes CUDA;
+                 (c) right after (b), its config, cuts and worker
+                 machine with ``train_server_main`` launching two ranks
+                 that share the card over gloo (``cards=2``): rank 0 alone
+                 listens on 9999/9998 and deals the episodes, each ring
+                 gets its half within one episode, both ranks' parameters
+                 are bitwise equal at every epoch's end, rank 0's kill
+                 ends the group and the guard relaunches it once (the
+                 WAL dealt in halves), the machine re-enters, epoch 3
+                 lands with one record per epoch; printed beside the
+                 gates: the wall, each rank's ms per step, the
+                 relaunch's time to its first step;
   9. Geister   — GeisterNet (32 filters, DRC 3 x 3) training steps at
                  the shipped batch (128 windows x (4 burn-in + 16)
-                 steps, turn mode, TD/TD): 64 Geister episodes from a
+                 steps, turn mode, TD/TD): 32 Geister episodes from a
                  CPU ``RolloutPool`` into the ring on the card; gather
                  parity, float32 losses card (``pinned_f32``) vs CPU,
                  the burn-in gate, bf16 against float32; the fused bf16
                  step timed, profiled and split by layer;
  10. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml with ``env: 'Geister'`` and
-                 ``burn_in_steps: 4``, cut to 2 epochs of 100 and 50
+                 ``burn_in_steps: 4``, cut to 2 epochs of 60 and 30
                  episodes, then ``--eval`` of its checkpoint against
                  ``random`` (10 games);
  11. GRF       — GRFNet (32 filters, DRC 1 x 2) training steps on the
@@ -65,7 +77,7 @@ from a seed:
                  the same gates but burn-in, and the same readings;
  12. league    — (a) ``--train`` on the shipped config with
                  ``generation_opponent: {past_epochs: 3, prob: 0.5}``,
-                 4 epochs of 50 + 50 episodes: league episodes in
+                 4 epochs of 30 + 30 episodes: league episodes in
                  epochs 2-3, each
                  ``league_opponent_mean`` key a past epoch whose
                  checkpoint exists, no worker fallback, no worker on
@@ -175,7 +187,7 @@ from a seed:
                  words with no host sync (the guard and
                  ``set_sync_debug_mode("error")``); (c) phase 7's config
                  as two ``--train`` ranks of a gloo group on the card
-                 (``mesh: {dp: 2}``, 2 epochs of 50 + 50 episodes, 2
+                 (``mesh: {dp: 2}``, 2 epochs of 30 + 30 episodes, 2
                  workers per rank): both exit 0, equal loss lines, rank
                  0 alone writes ``models/`` and metrics, one step
                  signature and no resharding copy in every record; (d)
@@ -204,16 +216,21 @@ from a seed:
 Phase 7 also holds every epoch record to the runtime guards' keys (no
 stall, no lock-order inversion, no nonfinite step, one update-step
 signature), and its ``--train`` to the launcher's one-card reduction
-(``launch: 1 card(s) visible, no spawn``).  Depth cut to make room for phases 15 and 16 (gates
-unchanged): phase 7's restart, phase 8's drills, phase 10, phase 12's
-league and phase 15a-b run epochs of 50 + 50 episodes, phase 13c 3
-epochs of 20 fused steps, 14a's load 6 s and 14d's blocks 1 s; 8b's
-worker machine starts once the learner's entry port is up; phase 8's
-drills, its remote workers and phase 10's Geister run (three learners
-whose gates hold no time) run together, with phase 17's linter children
-beside them, phase 10 before phase 9, and phase 7's ``--eval`` beside
-its restart; likewise 12b-12d (after 12a), 13c with 13e, and 16c-16e
-(``together``: none of them gates a time).
+(``launch: 1 card(s) visible, no spawn``).  Depth cut to make room
+for phases 15, 16 and 8c (gates unchanged): phase 7's restart, phase
+8's drills and phase 15a-b run epochs of 50 + 50 episodes, phase 10,
+phase 12's league and 16c of 30 + 30, phase 13c 3 epochs of 20 fused
+steps, 14a's load 6 s and 14d's blocks 1 s, phase 7's first run and
+14c 3 epochs of 100 + 100 episodes and phase 9's ring 32 episodes.
+8b's and 8c's worker machines start once the learner's entry port is
+up.  Runs whose gates hold no time overlap (``together``): phase 8's
+drills, its remote workers (8b, then 8c, which needs 8b's fixed ports
+free) and phase 10's Geister run go together with phase 17's linter
+children, all in the background beside phases 9, 11, 12 and 13 (whose
+step times, ONNX runner times and Anakin rates they make read high;
+none gates a time), joined before phase 14; phase 7's ``--eval`` runs
+beside its restart; likewise 12b-12d (after 12a), 13c with 13e, and
+16c-16e.
 
 Every phase prints one ``phaseN {json}`` line (phases 12-16 one per
 part) and raises on failure.
@@ -1118,7 +1135,10 @@ def train_steps(torch, episodes, params):
 # ---------------------------------------------------------------------
 
 # what a bounded run forces; everything else is the shipped config.yaml
-TRAIN_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl"}
+# phase 7: 3 epochs, the first at 100 + 100 episodes (the shipped 400 +
+# 200 cut: depth, to make room for 8c)
+TRAIN_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+              "minimum_episodes": 100, "update_episodes": 100}
 
 
 def train_config(cuts):
@@ -1469,10 +1489,64 @@ def in_tmp(prefix, fn):
 
 
 def resilience_jobs():
-    """Phase 8's two runs, the drills and the remote workers: each its
-    own learner, with no port of the other's, run together."""
-    return {tag: in_tmp(f"resilience_{tag}_", fn)
-            for tag, fn in (("drills", _drills), ("remote", _remote))}
+    """Phase 8's runs as two jobs, each its own learner with no port of
+    the other's: the drills, and the remote workers on one rank (8b)
+    then on two ranks (8c), which binds 8b's fixed ports after it."""
+    remote = in_tmp("resilience_remote_", _remote)
+    ranks = in_tmp("resilience_ranks_", _remote_ranks)
+
+    def remote_then_ranks():
+        b = remote()
+        t0 = time.perf_counter()
+        c = ranks()
+        c["part_s"] = time.perf_counter() - t0
+        return b, c
+    return {"drills": in_tmp("resilience_drills_", _drills),
+            "remote": remote_then_ranks}
+
+
+def in_background(fn):
+    """Start ``fn`` on a thread of its own; the returned ``join()``
+    waits for it and returns ``(result, seconds)``, or raises its
+    failure."""
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["done"] = fn(), time.perf_counter() - t0
+        except BaseException as exc:  # re-raised by join
+            box["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["done"]
+    return join
+
+
+def report_remote_ranks(report, c, smi):
+    """8c's line, its gates and its summary; its record joins phase 8's
+    in report.json."""
+    c_s = c["part_s"]
+    report["phase8"]["remote_ranks"] = c
+    emit("phase8c", c)
+    remote_ranks_gates(c)
+    print(f"--train-server on two gloo ranks sharing the card: wall "
+          f"{c['wall_s']:.1f} s ({c_s:.1f} s with its directory), "
+          + ", ".join(
+              f"epoch {e} " + " ".join(
+                  f"rank {r} {v['ms_per_step']:.2f} ms/step x "
+                  f"{v['steps']}" for r, v in sorted(by.items()))
+              for e, by in sorted(c["ranks"].items()))
+          + f"; deal {c['deal_at_exit']}, WAL dealt {c['wal_dealt']}; "
+          f"relaunch first step {c['first_step_s']} s after its learner "
+          f"started (training from {c['training_started_s']} s); on "
+          f"{smi}", flush=True)
 
 
 def _drills(cwd):
@@ -1622,6 +1696,10 @@ def _remote(cwd):
            "startup_s": startup(records[-1:]),
            "guard_relaunches": stdout.count(
                "learner guard: learner exited"),
+           # one rank's step, beside 8c's two ranks'
+           "ms_per_step": [1e3 * r.get("device_step_sec", 0.0)
+                           / max(r.get("epoch_steps") or 1, 1)
+                           for r in records],
            "session_reentries": worker_out.count(
                "gather fleet lost; re-entering the session"),
            "workers": _workers(worker_out)}
@@ -1648,11 +1726,171 @@ def _remote(cwd):
     return out
 
 
+# 8c: 8b's run as --train-server on two gloo ranks sharing the card (the
+# launch told of 2 cards, as 16c shares it): rank 0 the one endpoint,
+# dealing the episodes to both rings; the guard relaunches the group
+RANKS_DEVICE = "cuda:0"             # both ranks' card
+RANKS_SERVER = """\
+import os
+import yaml
+from handyrl_tpu_torch.learner import PARAMS_DIGEST_ENV, train_server_main
+
+if __name__ == "__main__":
+    # each rank prints its parameters' digest and ms per step
+    os.environ[PARAMS_DIGEST_ENV] = "1"
+    with open("config.yaml") as f:
+        args = yaml.safe_load(f)
+    train_server_main(args, device="{device}", backend="gloo", cards=2)
+"""
+RANK_LINE = re.compile(r"rank (\d+) epoch (\d+): params (\w+), (\d+) steps, "
+                       r"([\d.]+) ms per step")
+
+
+def _remote_ranks(cwd):
+    """8c: 8b's config and cuts on two ranks of a launch."""
+    import yaml
+
+    config = train_config(REMOTE_CUTS)
+    config["worker_args"] = {"server_address": "127.0.0.1",
+                             "num_parallel": 6}
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    t0 = time.perf_counter()
+    server, slog = _popen(
+        [sys.executable, "-c", RANKS_SERVER.format(device=RANKS_DEVICE)],
+        cwd, "remote_ranks_server")
+    machine = None
+    try:
+        deadline = time.monotonic() + 120
+        while "started entry server" not in _peek(slog):
+            if server.poll() is not None or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        machine, mlog = _popen(
+            [sys.executable, "-m", "handyrl_tpu_torch", "--worker", "6"],
+            cwd, "remote_ranks_worker")
+        code = server.wait(timeout=480)
+        wall = time.perf_counter() - t0
+    finally:
+        _stop(server)
+        if machine is not None:
+            _stop(machine)
+    stdout = _read(slog)
+    if code != 0:
+        raise RuntimeError(f"8c: --train-server on two ranks exited {code}:"
+                           f"\n{stdout[-3000:]}")
+    worker_out = _read(mlog)
+    records = _records(cwd)
+    ranks = {}
+    for rank, epoch, digest, steps, ms in RANK_LINE.findall(stdout):
+        ranks.setdefault(int(epoch), {})[int(rank)] = {
+            "params": digest, "steps": int(steps), "ms_per_step": float(ms)}
+    dealt = [json.loads(m) for m in re.findall(
+        r"episode deal: (\[[\d, ]+\]) live", stdout)]
+    fed = [int(n) for n in re.findall(
+        r"episode feed: rank 1 ingested (\d+) live", stdout)]
+    return {
+        "wall_s": wall, "machine_exit": machine.returncode,
+        "epochs": epoch_rows(records),
+        "ranks": ranks,
+        "episodes_dealt": [r.get("episodes_dealt") for r in records],
+        "deal_at_exit": dealt, "fed_at_exit": fed,
+        "wal": wal_replay(stdout),
+        "wal_dealt": json.loads(re.search(
+            r"\(dealt (\[[\d, ]+\]) over the ranks\)", stdout).group(1))
+        if "over the ranks)" in stdout else None,
+        "first_step_s": records[-1].get("first_step_sec") if records
+        else None,
+        "training_started_s": records[-1].get("training_started_sec")
+        if records else None,
+        "startup_s": startup(records[-1:]),
+        # two ranks' lines may share one line of the log: by pattern
+        "bring_up": re.findall(r"distributed: process (\d+) of (\d+), "
+                               r"(\w+) on ([\w:]+?)(?=distributed|\s|$)",
+                               stdout),
+        "launches": stdout.count("launch: 2 ranks, one per card"),
+        "endpoints": re.findall(r"started (entry|worker) server (\d+)",
+                                stdout),
+        "followers_without_port": stdout.count(
+            "rank 1: no worker endpoint"),
+        "port_clashes": stdout.count("Address already in use"),
+        "guard_relaunches": stdout.count("learner guard: learner exited"),
+        "guard_finished": "learner guard: training finished after 1 "
+                          "relaunch(es)" in stdout,
+        "guard_cuda": "learner guard: cuda initialized False" in stdout,
+        "killed": "CHAOS: SIGKILL of the learner at epoch 2" in stdout,
+        "session_reentries": worker_out.count(
+            "gather fleet lost; re-entering the session"),
+        "workers": _workers(worker_out),
+        "models": sorted(os.listdir(os.path.join(cwd, "models")))
+        if os.path.isdir(os.path.join(cwd, "models")) else [],
+        "replays": [(r.get("replay"), r.get("replay_device"))
+                    for r in records]}
+
+
+def remote_ranks_gates(c):
+    """8c's gates: one endpoint per launch, the deal in halves, the
+    ranks' parameters one, one group relaunch, epoch 3, rank 0 alone
+    writing."""
+    if c["launches"] != 2 or c["guard_relaunches"] != 1 or not (
+            c["guard_finished"] and c["guard_cuda"] and c["killed"]):
+        raise AssertionError(f"8c: not one kill and one group relaunch: "
+                             f"{c['launches']} launches, "
+                             f"{c['guard_relaunches']} relaunches")
+    ports = {(kind, int(port)) for kind, port in c["endpoints"]}
+    if (len(c["endpoints"]) != 4 or ports != {("entry", 9999),
+                                              ("worker", 9998)}
+            or c["followers_without_port"] != 2 or c["port_clashes"]):
+        raise AssertionError(f"8c: not rank 0 alone on 9999/9998: "
+                             f"{c['endpoints']}, "
+                             f"{c['followers_without_port']} followers "
+                             f"without a port, {c['port_clashes']} clashes")
+    for rank in range(2):
+        if sum(tuple(b) == (str(rank), "2", "gloo", RANKS_DEVICE)
+               for b in c["bring_up"]) != 2:
+            raise AssertionError(f"8c rank {rank}: {c['bring_up']}")
+    # the relaunched group ends cleanly: rank 1 ingested all its deal
+    # (the killed group's rank 0 printed none; its follower may have)
+    if not c["deal_at_exit"] or not c["fed_at_exit"] or (
+            c["fed_at_exit"][-1] != c["deal_at_exit"][-1][1]):
+        raise AssertionError(f"8c: rank 1 did not ingest its deal: "
+                             f"{c['deal_at_exit']} vs {c['fed_at_exit']}")
+    for dealt in c["episodes_dealt"] + c["deal_at_exit"]:
+        if not dealt or abs(dealt[0] - dealt[1]) > 1:
+            raise AssertionError(f"8c: the deal is not in halves: {dealt}")
+    for epoch in (1, 2, 3):
+        by = c["ranks"].get(epoch, {})
+        if 0 not in by or len({r["params"] for r in by.values()}) != 1:
+            raise AssertionError(f"8c: the ranks' parameters at epoch "
+                                 f"{epoch}: {by}")
+    if set(c["ranks"].get(3, {})) != {0, 1}:
+        raise AssertionError(f"8c: epoch 3 not on both ranks: {c['ranks']}")
+    if [e["epoch"] for e in c["epochs"]] != [0, 1, 2] or not {
+            "1.ckpt", "2.ckpt", "3.ckpt"} <= set(c["models"]):
+        raise AssertionError(f"8c: not one record per epoch (rank 0 alone "
+                             f"writes) to epoch 3: {c['epochs']}, "
+                             f"{c['models']}")
+    dealt = c["wal_dealt"]
+    if (not c["wal"]["replayed"] or not dealt or sum(dealt) !=
+            c["wal"]["replayed"] or abs(dealt[0] - dealt[1]) > 1):
+        raise AssertionError(f"8c: the relaunch did not deal its WAL in "
+                             f"halves: {c['wal']}, {dealt}")
+    if c["session_reentries"] < 1:
+        raise AssertionError("8c: the worker machine did not re-enter")
+    if len(c["workers"]) < 12 or any(cuda for _, cuda in c["workers"]):
+        raise AssertionError(f"8c: worker reports {c['workers']}: "
+                             f"expected two sessions of 6, none on CUDA")
+    for replay, device in c["replays"]:
+        if replay != "device" or not str(device).startswith(DEV):
+            raise AssertionError(f"8c: not the ring path on the card: "
+                                 f"{c['replays']}")
+
+
 # ---------------------------------------------------------------------
 # phases 9 and 11: recurrent training steps from the device replay ring
 # ---------------------------------------------------------------------
 
-GEISTER_EPISODES = 64                   # cut: not a filled ring
+GEISTER_EPISODES = 32                   # cut: not a filled ring
 GRF_EPISODES, GRF_MAX_STEPS = 8, 256    # cut: GRF episodes run 1,000
 RECURRENT_WARMUP, RECURRENT_BLOCKS, RECURRENT_BLOCK_STEPS = 5, 3, 8
 RECURRENT_PROFILED = 3
@@ -2031,7 +2269,7 @@ GEISTER_CONFIG = {"env": "Geister", "burn_in_steps": 4}
 # episodes instead of the shipped 600 and 800, and 10 games of --eval,
 # to keep the whole smoke near 700 s
 GEISTER_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
-                "minimum_episodes": 50, "update_episodes": 50}
+                "minimum_episodes": 30, "update_episodes": 30}
 GEISTER_EVAL_GAMES = 10
 
 
@@ -2100,7 +2338,7 @@ def _geister_train_entry(cwd):
 # the shipped config.yaml with league-lite on, and what a bounded run
 # forces
 LEAGUE_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
-               "minimum_episodes": 50, "update_episodes": 50,
+               "minimum_episodes": 30, "update_episodes": 30,
                "generation_opponent": {"past_epochs": 3, "prob": 0.5}}
 EVAL_GAMES_12 = 20
 BATTLE_GAMES = 10
@@ -3044,6 +3282,7 @@ DRILL = {"mode": "on", "port": 0, "heartbeat_interval": 0.1,
 # the router learns a new checkpoint from the replica's next beat: a
 # quarter-second cadence lets 14c's pins land inside the short epoch 2
 SERVE_CUTS = {"epochs": 3, "metrics_path": "metrics.jsonl",
+              "minimum_episodes": 100, "update_episodes": 100,
               "profile_dir": "prof",
               "serving": {"mode": "on", "port": 0},
               "router": {"mode": "on", "port": 0,
@@ -4533,9 +4772,9 @@ PARALLEL_RTOL, PARALLEL_ATOL, PARALLEL_TOTAL_REL = 2e-4, 2e-5, 1e-4
 
 CONTROL_WORDS = 20                 # 16b: control words under sync checks
 # 16c: phase 7's config over two ranks sharing the card (gloo), cut to 2
-# epochs of 50 + 50 episodes and 2 workers per rank
+# epochs of 30 + 30 episodes and 2 workers per rank
 PARALLEL_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
-                 "minimum_episodes": 50, "update_episodes": 50,
+                 "minimum_episodes": 30, "update_episodes": 30,
                  "worker": {"num_parallel": 2}, "mesh": {"dp": 2}}
 RANK_TRAIN = """\
 import sys
@@ -5626,10 +5865,12 @@ def main(phases=ALL_PHASES):
         report["phase7"]["phase_s"] = lap()
         emit("phase7", report["phase7"])
 
-    # 8. resilience: chaos drills and SIGTERM, and remote workers; 10.
-    # --train on Geister, then --eval of its checkpoint.  Three learners
-    # whose gates hold no time, run together: phase 8's time covers
-    # both phases, phase 10's is its own run's
+    # 8. resilience: chaos drills and SIGTERM, and remote workers on one
+    # rank then two (8c binds 8b's fixed ports after it); 10. --train on
+    # Geister, then --eval of its checkpoint.  Learners whose gates hold
+    # no time: they run together, in the background beside phases 9,
+    # 11, 12 and 13 (none gates a time); phase 8's time covers its runs,
+    # phase 10's is its own run's
     jobs = {}
     if 8 in phases:
         jobs.update(resilience_jobs())
@@ -5638,49 +5879,101 @@ def main(phases=ALL_PHASES):
     if 17 in phases and jobs:
         # the linter's children use no card: they scan beside phase 8
         jobs["lint"] = lint_children
-    done = together(jobs)
-    if 8 in phases:
-        report["phase8"] = p8 = {tag: done[tag][0]
-                                 for tag in ("drills", "remote")}
-        p8["phase_s"] = lap()
-        p8["together_with"] = sorted(phases & {10, 17})
-        emit("phase8", p8)
-        a, b = p8["drills"], p8["remote"]
-        print(f"resilience: gather respawns {a['gather_respawns']}, "
-              f"service respawns {a['service_respawns']}, emergency save "
-              f"{a['emergency_save_ms']} ms after SIGTERM; WAL replayed "
-              f"{a['relaunch']['wal']['replayed']} episodes at "
-              f"{a['relaunch']['wal']['ingest_ms_per_episode']:.3f} ms "
-              f"each on the card, first step "
-              f"{a['relaunch']['first_step_s']} s after the learner "
-              f"started; remote: {b['guard_relaunches']} guard relaunch, "
-              f"{b['session_reentries']} session re-entry, "
-              f"{len(b['workers'])} worker reports, none on CUDA",
-              flush=True)
+    beside = sorted(phases & {9, 11, 12, 13})
+    background = in_background(lambda: together(jobs)) if jobs else None
+    done = {}
 
-    if 10 in phases:
-        report["phase10"] = p10 = done["geister"][0]
-        p10["phase_s"] = done["geister"][1]
-        p10["together_with"] = sorted(phases & {8})
-        if 8 not in phases:
-            lap()
-        emit("phase10", p10)
-        print("Geister --train: " + ", ".join(
-            f"epoch {r['epoch']} {r['steps']} steps "
-            f"{r['epoch_wall_s']:.1f} s win rate {r['win_rate']}"
-            for r in p10["epochs"]), flush=True)
+    def join_beside():
+        """Wait for phases 8 and 10, then their lines and gates."""
+        done.update(background()[0])
+        # their time past the main thread's phases, charged to no phase
+        after = lap()
+        if 8 in phases:
+            (b, c), remote_s = done["remote"]
+            report["phase8"] = p8 = {"drills": done["drills"][0],
+                                     "remote": b}
+            p8["phase_s"] = max(done["drills"][1], remote_s)
+            p8["together_with"] = sorted(phases & {10, 17})
+            p8["beside"] = beside
+            p8["after_beside_s"] = after
+            emit("phase8", p8)
+            a, b = p8["drills"], p8["remote"]
+            print(f"resilience: gather respawns {a['gather_respawns']}, "
+                  f"service respawns {a['service_respawns']}, emergency save "
+                  f"{a['emergency_save_ms']} ms after SIGTERM; WAL replayed "
+                  f"{a['relaunch']['wal']['replayed']} episodes at "
+                  f"{a['relaunch']['wal']['ingest_ms_per_episode']:.3f} ms "
+                  f"each on the card, first step "
+                  f"{a['relaunch']['first_step_s']} s after the learner "
+                  f"started; remote: {b['guard_relaunches']} guard relaunch, "
+                  f"{b['session_reentries']} session re-entry, "
+                  f"{len(b['workers'])} worker reports, none on CUDA; "
+                  f"--train-server on one rank: wall {b['wall_s']:.1f} s, ms "
+                  f"per step by epoch "
+                  f"{[round(ms, 2) for ms in b['ms_per_step']]}", flush=True)
+            report_remote_ranks(report, c, smi)
+        if 10 in phases:
+            report["phase10"] = p10 = done["geister"][0]
+            p10["phase_s"] = done["geister"][1]
+            p10["together_with"] = sorted(phases & {8})
+            p10["beside"] = beside
+            emit("phase10", p10)
+            print("Geister --train: " + ", ".join(
+                f"epoch {r['epoch']} {r['steps']} steps "
+                f"{r['epoch_wall_s']:.1f} s win rate {r['win_rate']}"
+                for r in p10["epochs"]), flush=True)
 
-    # 9. GeisterNet training steps on the card at full width
-    if 9 in phases:
-        report["phase9"] = p9 = geister_steps(torch, smi)
-        p9["phase_s"] = lap()
-        emit("phase9", p9)
+    if background is not None and not beside:
+        join_beside()
+        background = None
+    try:
+        # 9. GeisterNet training steps on the card at full width
+        if 9 in phases:
+            report["phase9"] = p9 = geister_steps(torch, smi)
+            p9["phase_s"] = lap()
+            emit("phase9", p9)
 
-    # 11. GRFNet training steps on the GRF raster
-    if 11 in phases:
-        report["phase11"] = p11 = grf_steps(torch, smi)
-        p11["phase_s"] = lap()
-        emit("phase11", p11)
+        # 11. GRFNet training steps on the GRF raster
+        if 11 in phases:
+            report["phase11"] = p11 = grf_steps(torch, smi)
+            p11["phase_s"] = lap()
+            emit("phase11", p11)
+
+        # 12. league --train, ONNX export and run, SWA, a network battle
+        if 12 in phases:
+            report["phase12"] = p12 = league_entry(torch, smi)
+            p12["phase_s"] = lap()
+
+        # 13. the Anakin path: gates, the timed fused step, --train,
+        # learning
+        if 13 in phases:
+            report["phase13"] = p13 = anakin_entry(torch, smi)
+            p13["phase_s"] = lap()
+            b, e = p13["b"], p13["e"]
+            print("Anakin: " + ", ".join(
+                f"K={r['opponent_pool']} {r['step_ms_median']:.2f} "
+                f"ms/step (p90 {r['step_ms_p90']:.2f}), "
+                f"{r['frames_per_s']:.0f} frames/s, host {r['host_share']}"
+                for k, r in b.items() if k.startswith("K"))
+                + "; --train " + ", ".join(
+                f"epoch {r['epoch']} {r['anakin_frames_per_sec']} "
+                f"frames/s mfu {r['mfu']} win rate {r['win_rate']}"
+                for r in p13["c"]["epochs"])
+                + f"; learning {p13['d']['rates']} mean "
+                f"{p13['d']['mean']:.3f}; two ranks x "
+                f"{e['games_per_rank']} games: frames {e['frames']} vs "
+                f"{e['frames_one_rank']}, max param err over tol "
+                f"{e['max_param_err_over_tol']:.2e} ({e['part_s']:.1f} s)"
+                f"; phase 13 {p13['phase_s']:.1f} s on {smi}", flush=True)
+    except BaseException:
+        if background is not None:
+            try:   # phases 8 and 10 end with every process they started
+                background()
+            except BaseException:
+                pass   # the first failure is the one raised
+        raise
+    if background is not None:
+        join_beside()
     for n, tag in ((9, "GeisterNet"), (11, "GRFNet")):
         if n not in phases:
             continue
@@ -5693,10 +5986,7 @@ def main(phases=ALL_PHASES):
               f"peak {st['max_memory_allocated_bytes'] / 2 ** 30:.2f} GiB "
               f"on {smi}", flush=True)
 
-    # 12. league --train, ONNX export and run, SWA, a network battle
     if 12 in phases:
-        report["phase12"] = p12 = league_entry(torch, smi)
-        p12["phase_s"] = lap()
         print("league --train: " + ", ".join(
             f"epoch {r['epoch']} {r['epoch_wall_s']:.1f} s "
             f"{r['episodes_per_s'] or 0:.1f} episodes/s {r['steps']} steps "
@@ -5711,25 +6001,6 @@ def main(phases=ALL_PHASES):
             f"{p12['d']['wall_s']:.1f} s; phase 12 {p12['phase_s']:.1f} s "
             f"on {smi}", flush=True)
 
-    # 13. the Anakin path: gates, the timed fused step, --train, learning
-    if 13 in phases:
-        report["phase13"] = p13 = anakin_entry(torch, smi)
-        p13["phase_s"] = lap()
-        print("Anakin: " + ", ".join(
-            f"K={r['opponent_pool']} {r['step_ms_median']:.2f} ms/step "
-            f"(p90 {r['step_ms_p90']:.2f}), {r['frames_per_s']:.0f} "
-            f"frames/s, host {r['host_share']}"
-            for k, r in p13["b"].items() if k.startswith("K"))
-            + "; --train " + ", ".join(
-            f"epoch {r['epoch']} {r['anakin_frames_per_sec']} frames/s "
-            f"mfu {r['mfu']} win rate {r['win_rate']}"
-            for r in p13["c"]["epochs"])
-            + f"; learning {p13['d']['rates']} mean {p13['d']['mean']:.3f}"
-            f"; two ranks x {p13['e']['games_per_rank']} games: frames "
-            f"{p13['e']['frames']} vs {p13['e']['frames_one_rank']}, max "
-            f"param err over tol {p13['e']['max_param_err_over_tol']:.2e}"
-            f" ({p13['e']['part_s']:.1f} s)"
-            f"; phase 13 {p13['phase_s']:.1f} s on {smi}", flush=True)
     # 14. the network serving tier with its telemetry
     if 14 in phases:
         report["phase14"] = p14 = serving_entry(torch, model, model2, smi)

@@ -10,8 +10,8 @@ for the JAX package, with every mode of ``main.py``:
       package's format, the episode WAL in ``models/wal/``.
   --train-server / -ts [--device DEV]
       a learner serving remote worker machines (entry port 9999,
-      worker port 9998); the ring, the net and Adam on DEV.  Remote
-      workers keep local CPU inference.
+      worker port 9998); the ring, the net and Adam on DEV, one rank
+      per card of the host.  Remote workers keep local CPU inference.
   --worker / -w [num_parallel]
       this machine's gathers and workers join the learner at
       ``worker_args.server_address``; every process stays on the CPU
@@ -28,11 +28,15 @@ for the JAX package, with every mode of ``main.py``:
       network battle client: takes seats at the server on ``host``,
       one spawned process per seat with the model on DEV.
 
-``train_args.supervise_learner: true`` runs either training mode's
-learner under a guard that relaunches it with ``restart_epoch: auto``.
-``--train`` with no ``train_args.distributed`` on a host with several
-visible cards spawns one rank per card (:mod:`.parallel.launch`: JAX's
-auto-dp over a host's devices; one card runs one process, no spawn).
+Either training mode with no ``train_args.distributed`` on a host with
+several visible cards spawns one rank per card (:mod:`.parallel.launch`:
+JAX's auto-dp over a host's devices; one card runs one process, no
+spawn); under ``--train-server`` rank 0 alone listens on the entry and
+worker ports and deals every admitted episode to one rank's ring
+(:mod:`.parallel.deal`).  ``train_args.supervise_learner: true`` runs
+either training mode under a guard that relaunches it, the whole rank
+group on a host with several cards, with ``restart_epoch: auto``; a
+launch's exit code (a rank's, or the guard's) is this process's.
 ``train_args.distributed`` makes this process one rank of a
 multi-process learner (start one per rank, each with its
 ``process_id``): the process group comes up before the card is touched
@@ -43,7 +47,6 @@ silent CPU run.  The tools ``python -m handyrl_tpu_torch.scripts.<name>``
 modes.
 """
 
-import functools
 import sys
 
 import yaml
@@ -84,12 +87,7 @@ def main(argv=None):
 
     if mode in ("--train", "-t"):
         from .learner import train_main
-        from .parallel.launch import launch
 
-        code = launch(args, functools.partial(train_main, device=device),
-                      device=device)
-        if code is not None:
-            return code
         train_main(args, device=device)
         return 0
     if mode in ("--train-server", "-ts"):

@@ -34,9 +34,11 @@ The resilience layer is the JAX package's:
     evicted; a dead inference service is respawned behind
     ``respawn_backoff`` and a windowed circuit breaker;
   * ``supervise_learner`` runs the learner under a ``LearnerGuard``
-    that relaunches it with ``restart_epoch: auto``; chaos drills
-    (gather kills and surges, frame faults, the learner SIGKILL, the
-    service kill) drive all of it;
+    that relaunches it with ``restart_epoch: auto`` (on a host with
+    several cards the whole launch: a rank that dies ends the group,
+    and the group is relaunched); chaos drills (gather kills and
+    surges, frame faults, the learner SIGKILL, the service kill) drive
+    all of it;
   * ``--train-server`` serves remote worker machines
     (``WorkerServer``); it runs no inference service, because shared
     memory does not cross machines.
@@ -113,7 +115,17 @@ shards its env axis over dp (each rank plays its share of
 ``num_envs``); ranks spread over hosts fall back from Anakin, as the
 JAX replicas do.  ``--train`` with no ``distributed:`` on a host with
 several cards launches one rank per card itself (:mod:`.parallel.launch`:
-the fleet and its episode counts split over the ranks).
+the fleet and its episode counts split over the ranks).  So does
+``--train-server``: its ranks share one host and one endpoint, rank 0's
+(:mod:`.parallel.deal`).  Rank 0 admits every episode (the staleness
+budget, the WAL, the stats, the kill switch and the fleet's epoch clock
+at ``minimum_episodes + k * update_episodes``, the fleet's counts being
+the ranks' summed) and deals it to one rank's ring, round robin in
+admission order, over a localhost channel that no trainer collective
+shares; a WAL replay goes through the same deal.  A follower binds no
+port and only ingests; a broken channel ends its rank (or rank 0) as a
+dead rank.  Across hosts each rank keeps its own endpoint, the JAX rule
+for replicas, and a host may then hold one rank.
 
 Chaos reaches every layer the JAX package's does: besides the gather
 and service kills, ``chaos.serve_kill_epoch`` silences this replica's
@@ -123,6 +135,7 @@ intake reduces into ``upload_backlog`` per epoch.
 """
 
 import functools
+import hashlib
 import json
 import os
 import pickle
@@ -142,6 +155,7 @@ except ImportError:  # pragma: no cover
     psutil = None
 
 from . import telemetry
+from . import worker as worker_module
 from .analysis import (
     HostTransferGuard,
     LockOrderGuard,
@@ -181,6 +195,7 @@ from .ops.update import (
 )
 from .parallel import launch
 from .parallel import multihost as mh
+from .parallel.deal import ChannelBroken, FollowerEndpoint, open_channel
 from .parallel.mesh import AXES, MeshSpec, axis_size, check_mesh_size, make_mesh
 from .parallel.update import full_state_dict, make_sharded_update_step
 from .resilience import ChaosConfig, FleetRegistry, LearnerKillSwitch
@@ -828,8 +843,11 @@ class Trainer:
     # -- epochs ---------------------------------------------------------
 
     def update(self):
-        """Called by the learner: finish the epoch, get a snapshot.
-        Returns ``(None, steps)`` if the training thread has died."""
+        """Called by the learner: finish the epoch, get a snapshot, the
+        step count and that epoch's record (a replica's trainer may
+        already be an epoch further, so ``last_metrics`` may be the
+        next one's).  Returns ``(None, steps, last_metrics)`` if the
+        training thread has died."""
         self.update_flag = True
         while True:
             if self.stall_beat is not None:
@@ -840,7 +858,7 @@ class Trainer:
                 return self.update_queue.get(timeout=1)
             except queue.Empty:
                 if self.failure is not None or self.shutdown_flag:
-                    return None, self.steps
+                    return None, self.steps, self.last_metrics
 
     def _epoch_loop_local(self):
         """Host batcher path: one staged batch per step."""
@@ -1164,8 +1182,9 @@ class Trainer:
                     # busy and will not drain this queue
                     self._maybe_emergency_save()
                     try:
-                        self.update_queue.put((model, self.steps),
-                                              timeout=0.3)
+                        self.update_queue.put(
+                            (model, self.steps, self.last_metrics),
+                            timeout=0.3)
                         break
                     except queue.Full:
                         continue
@@ -1251,6 +1270,11 @@ class Learner:
     # episode at intake, this epoch (metrics) and this run (status)
     _upload_backlog_epoch = 0
     _upload_backlog_peak = 0
+    # the episode deal's ends and the fleet's ring size (set in
+    # __init__ for --train-server on one host's ranks)
+    dealer = None
+    feed = None
+    _fleet_maximum = 0
 
     def __init__(self, args, net=None, device=DEFAULT_DEVICE, remote=False):
         from .config import Config
@@ -1320,8 +1344,22 @@ class Learner:
         self._shm_epoch = 0
         self._spilled_epoch = 0
 
-        self.worker = WorkerServer(self.args) if remote \
-            else WorkerCluster(self.args)
+        # --train-server over one host's ranks: rank 0 alone owns the
+        # endpoint and deals every admitted episode to one rank's ring
+        # (parallel/deal.py); a follower's endpoint is its feed, set up
+        # once the trainer is built
+        deals = remote and self.multihost and mh.one_host()
+        if remote and self.multihost and not deals:
+            _check_one_rank_per_host()
+        if deals and not self.primary:
+            self.worker = None
+            print(f"rank {mh.process_index()}: no worker endpoint: rank 0 "
+                  f"serves the worker machines on ports "
+                  f"{worker_module.ENTRY_PORT}/{worker_module.WORKER_PORT}"
+                  f" and deals this rank its episodes", flush=True)
+        else:
+            self.worker = WorkerServer(self.args) if remote \
+                else WorkerCluster(self.args)
         # fleet health: every control-plane message timestamps its
         # peer; silence past heartbeat_timeout is a counted miss and an
         # eviction
@@ -1344,10 +1382,28 @@ class Learner:
             self.trainer.steps
             + int(self.args.get("updates_per_epoch", 0) or 0))
         self.metrics_path = self.args.get("metrics_path") or ""
+        # the fleet's counts: this learner's, or under the deal every
+        # rank's summed (each rank's config holds its share)
+        self._epoch_minimum = self.args["minimum_episodes"]
+        self._fleet_maximum = self.args["maximum_episodes"]
+        if deals:
+            # the deal goes round the mesh's dp coordinates (an int on
+            # the host: the mesh is the trainer's)
+            dp = int(axis_size(self.trainer.train_mesh, "dp"))
+            with self._startup.section("channel"):
+                (self._epoch_minimum, self._fleet_maximum), end = \
+                    open_channel((self._epoch_minimum, self._fleet_maximum),
+                                 dp)
+            if self.primary:
+                self.dealer = end
+            else:
+                self.feed = end
+                self.worker = FollowerEndpoint(end)
 
         # the episode WAL: admitted episodes are logged at intake, and a
         # resumed learner replays its backlog into the ring now, on
-        # this thread, before the trainer thread starts
+        # this thread, before the trainer thread starts (under the deal
+        # through it: each follower stages its share the same way)
         self.wal = None
         self.episodes_replayed = 0
         # primary only: the WAL lives in the checkpoint dir rank 0 owns
@@ -1361,6 +1417,12 @@ class Learner:
             if self._resume.epoch > 0:
                 with self._startup.section("wal_replay"):
                     self._replay_wal()
+        if self.dealer is not None and not self.dealer.warmed:
+            self.dealer.replay()     # no replay: the followers start cold
+        if self.feed is not None:
+            with self._startup.section("wal_replay"):
+                self.episodes_replayed = self._stage(self.feed.warm())
+            self.feed.start(self._ingest)
         chaos = ChaosConfig.from_config(self.args.get("chaos") or {})
         self._kill_switch = None
         if chaos.learner_kill_enabled:
@@ -1630,7 +1692,7 @@ class Learner:
     # -- durability ---------------------------------------------------
     def _wal_keep_episodes(self):
         return (int(self.args.get("wal_keep_episodes", 0) or 0)
-                or self.args["maximum_episodes"])
+                or self._fleet_maximum or self.args["maximum_episodes"])
 
     def _replay_wal(self):
         """Restore the backlog from the episode WAL (resume path, before
@@ -1642,31 +1704,52 @@ class Learner:
         t0 = time.perf_counter()
         restored = deque(maxlen=self._wal_keep_episodes())
         scanned = stale = 0
-        for _seq, episode in self.wal.replay():
+        for seq, episode in self.wal.replay():
             scanned += 1
             if (self.max_policy_lag > 0
                     and self._episode_lag(episode) > self.max_policy_lag):
                 stale += 1
                 continue
-            restored.append(episode)
-        restored = list(restored)
+            restored.append((seq, episode))
+        seqs = [seq for seq, _ in restored]
+        restored = [episode for _, episode in restored]
+        own = restored
+        if self.dealer is not None:
+            # the live deal's ranks: each ring refills with its share
+            own = self.dealer.replay(restored, seqs)
         t1 = time.perf_counter()
-        if self.trainer.device_replay is not None:
-            self.episodes_replayed = \
-                self.trainer.device_replay.warm_start(restored)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        else:
-            self.trainer.episodes.extend(restored)
-            self.episodes_replayed = len(restored)
+        self._stage(own)
+        self.episodes_replayed = len(restored)
         t2 = time.perf_counter()
         if scanned:
             print(f"wal: replayed {self.episodes_replayed} of {scanned} "
                   f"logged episode(s) into the backlog"
                   + (f" ({stale} past the staleness budget)"
                      if stale else "")
+                  + (f" (dealt {self.dealer.replayed} over the ranks)"
+                     if self.dealer is not None else "")
                   + f" in {t2 - t0:.3f} s (read {t1 - t0:.3f} s, "
                   f"ingest {t2 - t1:.3f} s)", flush=True)
+
+    def _stage(self, episodes):
+        """A replayed backlog into this rank's ring (or the host deque)
+        on this thread, before the trainer thread starts; returns the
+        episodes staged."""
+        if self.trainer.device_replay is not None:
+            count = self.trainer.device_replay.warm_start(episodes)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return count
+        self.trainer.episodes.extend(episodes)
+        return len(episodes)
+
+    def _ingest(self, episodes):
+        """Admitted episodes into this rank's ring: the trainer thread
+        drains them (or the host batcher draws from the deque)."""
+        if self.trainer.device_replay is not None:
+            self.trainer.device_replay.offer(episodes)
+        else:
+            self.trainer.episodes.extend(episodes)
 
     def _preempt_save(self):
         """SIGTERM: durable state inside the grace window, in rescue
@@ -1684,7 +1767,10 @@ class Learner:
             except Exception as exc:  # e.g. mid-roll: file just closed
                 print(f"WARNING: WAL seal failed ({exc!r})")
         grace = float(self.args.get("preempt_grace_seconds", 5.0) or 0.0)
-        if grace > 0:
+        # a rank of a multi-process learner takes no emergency save (a
+        # gather inside the grace window is unsafe): the boundary
+        # checkpoint is its resume point, and it need not wait
+        if grace > 0 and not self.multihost:
             event = threading.Event()
             self.trainer.emergency = event
             if event.wait(grace):
@@ -1839,11 +1925,11 @@ class Learner:
             else:
                 kept.append(episode)
                 self._note_intake(episode, lag)
+        seqs = None
         if self.wal is not None:
             # write-ahead: an admitted episode reaches the log before
             # any stats or buffer touch it
-            for episode in kept:
-                self.wal.append(episode)
+            seqs = [self.wal.append(episode) for episode in kept]
         for episode in kept:
             job = episode["args"]
             # trained seats credit the epoch that actually finished the
@@ -1870,10 +1956,11 @@ class Learner:
         for mark in range(before // 100 + 1,
                           self.episodes_received // 100 + 1):
             print(mark * 100, end=" ", flush=True)
-        if self.trainer.device_replay is not None:
-            self.trainer.device_replay.offer(kept)
-        else:
-            self.trainer.episodes.extend(kept)
+        if self.dealer is not None:
+            # each admitted episode to one rank: the followers' shares
+            # leave on the channel, this rank's stays
+            kept = self.dealer.deal(kept, seqs)
+        self._ingest(kept)
         if self._kill_switch is not None:
             # durability chaos: the scheduled learner SIGKILL ticks on
             # the intake clock (deterministically mid-window)
@@ -1954,6 +2041,9 @@ class Learner:
         record["time_sec"] = round(now - self._run_t0, 3)
         record["epoch_wall_sec"] = round(now - self._epoch_t, 3)
         record["episodes_received"] = self.episodes_received
+        if self.dealer is not None:
+            # the live deal so far, per rank (a relaunch counts afresh)
+            record["episodes_dealt"] = list(self.dealer.dealt)
         # off-policy staleness of the episodes admitted this epoch, and
         # how many arrivals the staleness budget rejected
         record.update(summarize_lags(self._policy_lags))
@@ -1971,7 +2061,7 @@ class Learner:
         self._report_win_rates(record)
         self._report_generation(record)
 
-        model, steps = self.trainer.update()
+        model, steps, metrics = self.trainer.update()
         if model is None:
             # keep serving the last snapshot, but say so LOUDLY
             if self.trainer.failure is not None:
@@ -1981,7 +2071,15 @@ class Learner:
             model = self.model
         self.update_model(model, steps)
         record["steps"] = steps
-        record.update(self.trainer.last_metrics)
+        record.update(metrics)
+        if self.multihost and os.environ.get(PARAMS_DIGEST_ENV) == "1":
+            # asked for: every rank says which parameters it holds (the
+            # replicas' are one) and what its steps took
+            n = record.get("epoch_steps", 0)
+            ms = 1e3 * record.get("device_step_sec", 0.0) / max(n, 1)
+            print(f"rank {mh.process_index()} epoch {self.model_epoch}: "
+                  f"params {params_digest(self.model)}, {n} steps, "
+                  f"{ms:.3f} ms per step", flush=True)
         if "anakin_frames" in record and record["epoch_wall_sec"] > 0:
             # fused-rollout throughput: committed env transitions and
             # completed self-play games per second of epoch wall
@@ -2216,8 +2314,7 @@ class Learner:
             "beat": self._on_beat,
             "shm": self._on_shm,
         }
-        next_epoch_at = (self.args["minimum_episodes"]
-                         + self.args["update_episodes"])
+        next_epoch_at = self._epoch_minimum + self.args["update_episodes"]
         while self.worker.connection_count() > 0 or not self.shutdown_flag:
             if self.stall_watchdog is not None:
                 self.stall_watchdog.beat("server")
@@ -2437,7 +2534,20 @@ class Learner:
         self._arm_lock_guard()
         try:
             self.server()
+        except ChannelBroken as exc:
+            _leave_dead(exc)
         finally:
+            if self.dealer is not None:
+                # every episode admitted has been dealt: the followers
+                # drain their channels to the end mark
+                self.dealer.close()
+                print(f"episode deal: {self.dealer.dealt} live and "
+                      f"{self.dealer.replayed} replayed over the ranks",
+                      flush=True)
+            if self.feed is not None:
+                print(f"episode feed: rank {mh.process_index()} ingested "
+                      f"{self.feed.received} live and {self.feed.replayed} "
+                      f"replayed", flush=True)
             # stop device work before interpreter teardown
             self.trainer.request_shutdown()
             trainer_thread.join(timeout=30)
@@ -2475,6 +2585,54 @@ class Learner:
                     pass
 
 
+# "1" in a learner's environment (launched ranks inherit it): each rank
+# of a multi-process learner prints a SHA-256 of its parameters and its
+# ms per step at every epoch's end, a check that the replicas agree; off
+# by default, as it copies the parameters to the host
+PARAMS_DIGEST_ENV = "HANDYRL_PARAMS_DIGEST"
+
+
+def params_digest(model):
+    """A short SHA-256 of a model's parameters (names, dtypes, shapes
+    and bytes), to show that ranks hold the same ones."""
+    h = hashlib.sha256()
+    for name, tensor in sorted(model.module.state_dict().items()):
+        array = tensor.detach().cpu().contiguous().numpy()
+        h.update(f"{name}:{array.dtype}:{array.shape}".encode())
+        h.update(array.tobytes())
+    return h.hexdigest()[:16]
+
+
+# a rank whose episode channel broke exits with this code
+DEAD_RANK_EXIT = 3
+
+
+def _leave_dead(exc):
+    """A broken episode channel ends this rank as a dead rank: its
+    trainer thread may sit in a collective with the others, and a
+    process group cannot come down under it (gloo joins its threads),
+    so the process leaves at once; its sockets close, every peer's next
+    collective fails, and the launch ends the group with this code."""
+    print(f"ERROR: {exc}; rank {mh.process_index()} leaves as a dead rank "
+          f"(exit {DEAD_RANK_EXIT})", flush=True)
+    telemetry.flush()
+    os._exit(DEAD_RANK_EXIT)
+
+
+def _check_one_rank_per_host():
+    """``--train-server`` across hosts keeps the JAX rule for replicas
+    (each host's process owns its endpoint and its machines), so a host
+    may hold one rank: two would both bind the fixed ports."""
+    crowded = sorted({h for h in mh.hosts() if mh.hosts().count(h) > 1})
+    if crowded:
+        raise ValueError(
+            f"--train-server over several hosts takes one rank per host: "
+            f"ranks share {crowded}, and each would bind the entry and "
+            f"worker ports {worker_module.ENTRY_PORT}/"
+            f"{worker_module.WORKER_PORT} (run one rank per host, or every "
+            f"rank on one host)")
+
+
 def _maybe_init_distributed(args, device, backend=None):
     """Multi-process bring-up (``train_args.distributed``) before any
     use of the device; returns this rank's device."""
@@ -2491,9 +2649,9 @@ def _maybe_init_distributed(args, device, backend=None):
 
 def _train_local(args, device=DEFAULT_DEVICE, backend=None):
     """One learner incarnation with its local fleet (module-level: the
-    supervised child's entry point, pickled by the spawn context).
-    The process group, when there is one, comes down on every exit
-    path, so no peer is left waiting in a collective on this rank."""
+    launched ranks' entry point, pickled by the spawn context).  The
+    process group, when there is one, comes down on every exit path,
+    so no peer is left waiting in a collective on this rank."""
     try:
         device = _maybe_init_distributed(args, device, backend)
         prepare_env(args["env_args"])
@@ -2503,7 +2661,8 @@ def _train_local(args, device=DEFAULT_DEVICE, backend=None):
 
 
 def _train_remote(args, device=DEFAULT_DEVICE, backend=None):
-    """One learner incarnation serving remote worker machines."""
+    """One learner incarnation serving remote worker machines (on one
+    host's ranks, rank 0 serves them and deals the episodes)."""
     try:
         device = _maybe_init_distributed(args, device, backend)
         prepare_env(args["env_args"])
@@ -2513,11 +2672,13 @@ def _train_remote(args, device=DEFAULT_DEVICE, backend=None):
 
 
 def _maybe_supervised(args, target):
-    """``supervise_learner: true`` runs the learner as a guarded child
-    process: a crash or preemption relaunches it with ``restart_epoch:
-    auto`` behind the fleet's backoff and circuit breaker.  The guard's
-    process never initializes CUDA; the child makes its own context.
-    Returns True when the guard ran (and has finished)."""
+    """``supervise_learner: true`` runs ``target`` (the whole launch:
+    one process, or every rank of the host) as a guarded child
+    process: a crash or preemption, or any rank's, relaunches it with
+    ``restart_epoch: auto`` behind the fleet's backoff and circuit
+    breaker.  The guard's process never initializes CUDA and counts no
+    card; the child makes its own context (or spawns the ranks that
+    do).  Returns True when the guard ran (and has finished)."""
     if not (args.get("train_args") or {}).get("supervise_learner"):
         return False
     from .resilience.guardian import LearnerGuard
@@ -2530,22 +2691,31 @@ def _maybe_supervised(args, target):
     return True
 
 
-def train_main(args, device=DEFAULT_DEVICE, backend=None):
-    """``--train``: one local learner with its worker fleet; with
-    ``distributed:`` this process is one rank of a multi-process
-    learner (``backend`` overrides NCCL/gloo, e.g. gloo for two ranks
-    sharing one card)."""
+def _run_mode(args, run, device, backend, cards, server):
+    """A training mode: ``run`` on the launch's ranks or in one process
+    (:func:`.parallel.launch.run_group`), under the guard when
+    ``supervise_learner`` asks for it."""
     resolve_device(device)  # fail before any work when the card is absent
-    target = functools.partial(_train_local, device=device, backend=backend)
-    if not _maybe_supervised(args, target):
-        target(args)
+    group = functools.partial(
+        launch.run_group,
+        target=functools.partial(run, device=device, backend=backend),
+        device=device, cards=cards, server=server)
+    if not _maybe_supervised(args, group):
+        group(args)
 
 
-def train_server_main(args, device=DEFAULT_DEVICE, backend=None):
+def train_main(args, device=DEFAULT_DEVICE, backend=None, cards=None):
+    """``--train``: one local learner with its worker fleet, on one rank
+    per card of the host when there are several (``cards`` overrides
+    the count); with ``distributed:`` this process is one rank of a
+    multi-process learner (``backend`` overrides NCCL/gloo, e.g. gloo
+    for ranks sharing one card)."""
+    _run_mode(args, _train_local, device, backend, cards, server=False)
+
+
+def train_server_main(args, device=DEFAULT_DEVICE, backend=None, cards=None):
     """``--train-server``: a learner serving remote worker machines on
-    the entry and worker ports; the ring and the step on ``device``."""
-    resolve_device(device)
-    target = functools.partial(_train_remote, device=device,
-                               backend=backend)
-    if not _maybe_supervised(args, target):
-        target(args)
+    the entry and worker ports, on one rank per card of the host when
+    there are several (rank 0 the endpoint, dealing the episodes);
+    the rings and the step on ``device``."""
+    _run_mode(args, _train_remote, device, backend, cards, server=True)

@@ -1,10 +1,10 @@
 """One rank per local card: the counterpart of JAX's auto-dp.
 
 The JAX learner is one process whose mesh defaults to ``dp`` over every
-device of its host (``_default_mesh_cfg``).  PyTorch drives one card
-per process, so ``python -m handyrl_tpu_torch --train`` with no
-``distributed:`` section on a host with ``n > 1`` visible cards spawns
-the ranks itself:
+device of its host (``_default_mesh_cfg``), in ``--train`` and
+``--train-server`` alike.  PyTorch drives one card per process, so
+either mode with no ``distributed:`` section on a host with ``n > 1``
+visible cards spawns the ranks itself:
 
   * with the ``mesh:`` axes (dp/sp/tp) unset, ``d`` ranks, ``d`` the
     largest divisor of ``batch_size`` that is at most ``n`` (JAX's rule
@@ -18,26 +18,44 @@ the ranks itself:
     variables :func:`.multihost.init_distributed` reads (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``)
     and its card from ``LOCAL_RANK``;
-  * together the ranks run the JAX single-host learner's fleet and
-    counts: the local fleet of ``--train``
-    (``train_args.worker.num_parallel``; ``worker_args`` sizes a remote
-    ``--worker`` machine) is split over the ranks, the remainder to
-    rank 0, each rank's workers numbered on from the previous rank's
-    (so no two draw alike); ``update_episodes``, ``minimum_episodes``
-    and ``maximum_episodes`` are split in the same shares, so each rank
-    counts, warms and trims its own ring on its own workers' episodes
-    and the fleet's epoch is JAX's ``update_episodes``; rank 0 decides
-    the epoch's end.  ``batch_size`` is global (each dp rank draws
-    ``batch_size / dp`` rows);
+  * ``--train``: together the ranks run the JAX single-host learner's
+    fleet and counts: the local fleet (``train_args.worker.num_parallel``;
+    ``worker_args`` sizes a remote ``--worker`` machine) is split over
+    the ranks, the remainder to rank 0, each rank's workers numbered on
+    from the previous rank's (so no two draw alike);
+    ``update_episodes``, ``minimum_episodes`` and ``maximum_episodes``
+    are split in the same shares, so each rank counts, warms and trims
+    its own ring on its own workers' episodes and the fleet's epoch is
+    JAX's ``update_episodes``; rank 0 decides the epoch's end;
+  * ``--train-server`` (``server=True``): there is no local fleet to
+    split, and ``worker_args`` is what remote machines receive, so
+    both stay as they are; rank 0 alone owns the entry and worker
+    ports and deals every admitted episode to one dp coordinate's
+    rings (:mod:`.deal`; the ``sp``/``tp`` ranks of a coordinate hold
+    copies, as its rows replicate over them), so ``minimum_episodes``
+    and ``maximum_episodes`` split in equal shares over the dp
+    coordinates (each rank warms and trims its ring on what its
+    coordinate is dealt, as each coordinate draws ``batch_size / dp``
+    rows) and ``update_episodes`` stays whole: rank 0 counts every
+    episode its endpoint receives, and the fleet's epochs fall at JAX's
+    ``minimum_episodes + k * update_episodes``;
+  * ``batch_size`` is global (each dp rank draws ``batch_size / dp``
+    rows);
   * a rank that dies brings the others down, and the launch returns its
     exit code; every rank exits 0 or the launch does not.
 
+``supervise_learner`` guards the launch, not the ranks
+(:func:`run_group` is the guard's target): a rank that dies ends the
+group, and the guard relaunches the whole group with ``restart_epoch:
+auto``, which :func:`rank_args` hands every rank.
+
 A rank never falls back to the CPU: the device is the caller's, and a
 missing card fails the rank as it fails a single process.  The card
-count comes from ``torch.cuda.device_count()``; only the ``cards``
-argument of :func:`launch` overrides it (tests run CPU ranks with it).
-``--train-server`` stays one process: remote worker machines reach one
-learner on the host's fixed entry port.
+count comes from ``torch.cuda.device_count()``, read in the process
+that launches (under the guard, its child: the guard never touches the
+card); only the ``cards`` argument of :func:`launch` overrides it
+(tests run CPU ranks with it, and ranks sharing one card name it as
+``cuda:0`` with the count given).
 """
 
 import copy
@@ -53,6 +71,8 @@ TERM_GRACE = 10.0     # seconds a surviving rank gets to exit on SIGTERM
 
 # the episode counts split over the ranks in the fleet's shares
 SPLIT_COUNTS = ("update_episodes", "minimum_episodes", "maximum_episodes")
+# --train-server: each rank's ring counts split, the epoch clock whole
+SERVER_SPLIT_COUNTS = ("minimum_episodes", "maximum_episodes")
 
 
 def default_dp(n, batch_size):
@@ -111,15 +131,26 @@ def fleet_size(args):
     return int(worker.get("num_parallel", WorkerConfig.num_parallel))
 
 
-def rank_args(args, rank, mesh, fleet):
+def rank_args(args, rank, mesh, fleet, server=False):
     """Rank ``rank``'s copy of the config: ``distributed: {auto:
-    true}``, the launch's ``mesh``, its share ``fleet[rank]`` of the
-    workers, numbered after the lower ranks', and the same share of
-    the episode counts."""
+    true}``, the launch's ``mesh``, and no guard of its own (the guard
+    wraps the launch).  ``--train``: its share ``fleet[rank]`` of the
+    workers, numbered after the lower ranks', and the same share of the
+    episode counts.  ``server``: the ring's counts in equal shares over
+    the mesh's dp coordinates, the rank's coordinate's share (``fleet``
+    unused), the workers and ``update_episodes`` untouched."""
     args = copy.deepcopy(args)
     train = args.setdefault("train_args", {})
     train["distributed"] = {"auto": True}
     train["mesh"] = dict(mesh)
+    train.pop("supervise_learner", None)
+    if server:
+        spec = MeshSpec.from_config(mesh)
+        for key in SERVER_SPLIT_COUNTS:
+            total = int(train.get(key, _default(key)))
+            train[key] = share_split(total, [1] * spec.dp)[
+                rank // (spec.sp * spec.tp)]
+        return args
     for key in SPLIT_COUNTS:
         total = int(train.get(key, _default(key)))
         train[key] = share_split(total, fleet)[rank]
@@ -155,10 +186,6 @@ def _planned_mesh(args, device, cards):
         print(f"launch: {max(cards, 0)} card(s) visible, no spawn: one "
               f"process trains on {device}", flush=True)
         return {}
-    if train.get("supervise_learner"):
-        print(f"launch: {cards} cards visible, no spawn: "
-              f"supervise_learner guards one process", flush=True)
-        return {}
     mesh = dict(train.get("mesh") or {})
     fsdp = bool(mesh.get("fsdp"))
     if any(k != "fsdp" for k in mesh):
@@ -175,31 +202,48 @@ def _planned_mesh(args, device, cards):
     return {"dp": dp, "fsdp": fsdp} if dp > 1 else {}
 
 
-def launch(args, target, device="cuda", cards=None):
+def launch(args, target, device="cuda", cards=None, server=False):
     """Run ``target(args)`` (a training mode's entry, picklable) on one
-    rank per device of the launch's mesh.  Returns None when no spawn
-    is due (the caller runs ``target`` itself), else the launch's exit
-    code."""
+    rank per device of the launch's mesh; ``server`` for
+    ``--train-server``'s ranks.  Returns None when no spawn is due (the
+    caller runs ``target`` itself), else the launch's exit code."""
     mesh = _planned_mesh(args, device, cards)
     if not mesh:
         return None
     from ..connection import find_free_port
 
     world = MeshSpec.from_config(mesh).size
-    fleet = fleet_split(fleet_size(args), world)
-    print(f"launch: {world} ranks, one per card; workers per rank "
-          f"{fleet}", flush=True)
+    if server:
+        fleet = None
+        print(f"launch: {world} ranks, one per card; rank 0 serves the "
+              f"worker machines and deals the episodes", flush=True)
+    else:
+        fleet = fleet_split(fleet_size(args), world)
+        print(f"launch: {world} ranks, one per card; workers per rank "
+              f"{fleet}", flush=True)
     port = find_free_port()
     ctx = mp.get_context("spawn")
     procs = []
     for rank in range(world):
         proc = ctx.Process(
             target=_rank_main, name=f"rank{rank}",
-            args=(target, rank_args(args, rank, mesh, fleet), rank,
-                  world, port))
+            args=(target, rank_args(args, rank, mesh, fleet, server),
+                  rank, world, port))
         proc.start()
         procs.append(proc)
     return _supervise(procs)
+
+
+def run_group(args, target, device="cuda", cards=None, server=False):
+    """A training mode's whole run: ``target`` on the launch's ranks,
+    or in this process when no spawn is due.  A launch that fails
+    exits with its code (a rank killed by signal ``s``: ``128 + s``, as
+    a shell reports it), so a guard around this sees the group die."""
+    code = launch(args, target, device=device, cards=cards, server=server)
+    if code is None:
+        target(args)
+    elif code:
+        raise SystemExit(code if code > 0 else 128 - code)
 
 
 def _supervise(procs):

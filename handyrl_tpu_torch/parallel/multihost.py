@@ -26,8 +26,12 @@ decisions:
   * :func:`one_host` — whether every rank of the group runs on this
     host, decided once at start-up from each rank's host name (the
     counterpart of JAX's single-process mesh over local devices: the
-    paths JAX runs only there, Anakin's sharded env axis, run only
-    then).
+    paths JAX runs only there, Anakin's sharded env axis and
+    ``--train-server``'s one endpoint with its episode deal, run only
+    then); :func:`hosts` is every rank's host name;
+  * :func:`broadcast_int` and :func:`sum_over_ranks` — one-time
+    start-up agreements on host integers (the episode channel's port,
+    the fleet's episode counts), on the control group.
 
 The sharded update step reduces gradients explicitly
 (:mod:`.update`), so each rank feeds it its OWN rows, as plain local
@@ -156,6 +160,26 @@ def _gather_hosts():
 def one_host() -> bool:
     """True when every rank runs on this host (or there is one rank)."""
     return len(set(_hosts)) <= 1
+
+
+def hosts():
+    """Every rank's host name, in rank order (empty with no group)."""
+    return _hosts
+
+
+def broadcast_int(value: int) -> int:
+    """Rank 0's integer on every rank, through the CPU control group."""
+    word = torch.tensor([int(value)], dtype=torch.int64)
+    dist.broadcast(word, src=0, group=_control)
+    return int(word[0])
+
+
+def sum_over_ranks(values):
+    """Host integers summed over every rank, through the CPU control
+    group."""
+    total = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(total, group=_control)
+    return total.tolist()
 
 
 def shutdown() -> None:

@@ -397,10 +397,10 @@ class ShardedUpdateStep(UpdateStep):
             for k, v in s.items():
                 v = torch.as_tensor(v)
                 if k == "step":
-                    state[k] = v.to(torch.float32,
-                                    device=local.device if fused else "cpu")
+                    state[k] = v.to(device=local.device if fused else "cpu",
+                                    dtype=torch.float32)
                     continue
-                v = v.to(local.dtype, device=local.device)
+                v = v.to(device=local.device, dtype=local.dtype)
                 state[k] = (_shard(v, p.device_mesh, p.placements)
                             if isinstance(p, DTensor) else v)
             self.optimizer.state[p] = state

@@ -14,7 +14,10 @@ restart storm.
 
 The spawn, clock and sleep are injectable.  Production spawns a
 spawn-context ``multiprocessing.Process``: the child creates its own
-CUDA context, and the guard's own process never touches the card.
+CUDA context, and the guard's own process never touches the card.  The
+child is not daemonic, because on a host with several cards it is the
+launch (``parallel.launch.run_group``): it spawns one rank per card, a
+rank that dies ends it, and the guard relaunches the whole group.
 """
 
 import time
@@ -25,10 +28,11 @@ from .supervisor import BackoffPolicy, FailureWindow
 
 def _spawn_process(target, args):
     """Default spawn: the learner entry point in a spawn-context child
-    (a CUDA context does not survive fork)."""
+    (a CUDA context does not survive fork), not daemonic (a daemonic
+    process may not start the ranks)."""
     from ..connection import _mp
 
-    proc = _mp.Process(target=target, args=(args,))
+    proc = _mp.Process(target=target, args=(args,), daemon=False)
     proc.start()
     return proc
 

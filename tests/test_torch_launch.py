@@ -19,7 +19,10 @@ and the ranks train on the CPU over gloo:
     the inference service's guard keys;
   * Anakin on the two ranks: each plays its half of the games;
   * a rank that dies ends the run with its exit code, and ranks asked
-    for the card where there is none fail rather than train on the CPU.
+    for the card where there is none fail rather than train on the CPU;
+  * ``supervise_learner`` guards the launch, not one process: the ranks
+    get no guard of their own, and the launch's code is the guard's
+    child's.
 """
 
 import json
@@ -172,6 +175,34 @@ def test_a_mesh_the_user_set_stands(capsys):
     assert plan({"fsdp": True}, cards=4) == {"dp": 4, "fsdp": True}
     with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
         plan({"dp": 2, "tp": 2})
+
+
+def test_supervise_learner_guards_the_launch(monkeypatch):
+    """``supervise_learner`` no longer keeps a host with several cards
+    on one process: the guard wraps the launch (``run_group``), the
+    ranks get no guard of their own and each gets the guard's
+    ``restart_epoch: auto``, and a launch that fails exits with its
+    code (a rank killed by a signal as a shell reports it)."""
+    from handyrl_tpu_torch.parallel.launch import _planned_mesh
+
+    guarded = {"train_args": {"batch_size": 8, "supervise_learner": True,
+                              "restart_epoch": "auto"}}
+    assert _planned_mesh(guarded, "cpu", 2) == {"dp": 2, "fsdp": False}
+    for server in (False, True):
+        ranks = [launch.rank_args(guarded, r, {"dp": 2}, [1, 1], server)
+                 ["train_args"] for r in range(2)]
+        assert all("supervise_learner" not in t for t in ranks)
+        assert all(t["restart_epoch"] == "auto" for t in ranks)
+    ran = []
+    for code, exit_code in ((None, None), (0, None), (3, 3), (-9, 137)):
+        monkeypatch.setattr(launch, "launch", lambda *a, c=code, **k: c)
+        if exit_code is None:
+            launch.run_group(guarded, ran.append, device="cpu", cards=2)
+        else:
+            with pytest.raises(SystemExit) as exc:
+                launch.run_group(guarded, ran.append, device="cpu", cards=2)
+            assert exc.value.code == exit_code
+    assert ran == [guarded]   # in this process only when no spawn is due
 
 
 def test_one_card_makes_no_spawn(capsys):
