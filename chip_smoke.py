@@ -30,12 +30,32 @@ from a seed:
                  ``relu_pattern``),
                  three bf16 steps against them, then the fused replay
                  step timed with CUDA events and profiled;
+                 (b) the same episodes and train_args through host-path
+                 ``Trainer``s (``device_replay: off``, two batcher
+                 processes, ``prefetch_batches: 2``,
+                 ``transfer_threads: 2``, bf16 wire): the first
+                 prefetched batch equals the CPU's staging of the host
+                 batch it came from, every leaf bit for bit; the first
+                 float32 step (TF32 and cuDNN off) equals the CPU
+                 trainer's host step within LOSS_RTOL; 20 bf16 steps of
+                 the trainer's own loop make no host sync on the
+                 trainer thread (the host-transfer guard and
+                 ``set_sync_debug_mode("warn")``); in a profiler window
+                 the batches' HtoD copies run on streams other than the
+                 step's; printed: ms per step, the ``batch_wait``
+                 share, HtoD ms per batch and its overlap with kernels;
   7. --train   — ``python -m handyrl_tpu_torch --train`` on the shipped
                  config.yaml cut to 3 epochs of 100 + 100 episodes (then
                  100 each), the port's ``--eval`` of
                  ``models/3.ckpt``, and a restart from epoch 3 that
                  restores the optimizer, replays the episode WAL into
-                 the ring on the card and trains a fourth epoch;
+                 the ring on the card and trains a fourth epoch; in the
+                 background beside phases 9-13, one ``--train`` of the
+                 shipped config with ``device_replay: off`` (2 epochs
+                 of 30 + 30 episodes): exit 0, the device prefetcher on
+                 the card, ``replay: host`` and a ``queue_depth`` in
+                 every record, finite losses, the guard keys (every
+                 other run must keep off the host batcher path);
   8. resilience — (a) ``--train`` with chaos (a gather kill, the
                  inference service killed at epoch 1): both respawn;
                  SIGTERM, once two epochs and the respawned service
@@ -252,6 +272,12 @@ float32 gradient error on the card (ROADMAP C6): per draw, each
 tensor's error against float64 with cuDNN's default algorithms, with
 ``cudnn.deterministic``, with the gates' pinned set (``pinned_f32``) and
 on the CPU, and the kernels each card run launches.
+
+``python3 chip_smoke.py --surge-drill [runs [hold [epochs]]]`` instead
+runs 15a's ``--train`` that many times (at that surge hold in seconds
+and that many epochs) and prints, per run, each epoch's backlog and
+arrivals, the torn-slot reclaims, each worker's held episodes and
+whether 15a's gates hold.
 
 ``python3 chip_smoke.py --step-parity [batches]`` instead runs 16a's
 float32 runs and 16d on that many batches and counts, per check, the
@@ -1131,6 +1157,339 @@ def train_steps(torch, episodes, params):
 
 
 # ---------------------------------------------------------------------
+# phase 6b: the host batcher path's device feed
+# ---------------------------------------------------------------------
+
+# phase 6's train_args through host-path Trainers: two batcher
+# processes (the shipped num_batchers) assemble the windows of phase
+# 4's episodes on the CPU, and the DevicePrefetcher stages them on the
+# card, 2 deep from 2 threads, the observations in bf16 bit patterns
+HOST_ARGS = dict(TRAIN_ARGS, compress_steps=4, device_replay="off",
+                 prefetch_batches=2, transfer_threads=2, num_batchers=2,
+                 transfer_dtype="bfloat16", compute_dtype="bfloat16",
+                 minimum_episodes=1, maximum_episodes=100000, seed=SEED,
+                 metrics_path="", updates_per_epoch=0)
+HOST_WARMUP, HOST_STEPS, HOST_PROFILED = 5, 20, 10
+HOST_BIG_COPY = 1 << 20            # bytes: a batch's copies, not a scalar's
+
+
+def _host_trainer(torch, params, device, **overrides):
+    """A host-path Trainer of GeeseNet 32x12 on ``device``, from phase
+    2's seeded weights."""
+    from handyrl_tpu_torch.learner import Trainer
+    from handyrl_tpu_torch.models import TorchModel
+    from handyrl_tpu_torch.models.geese_net import GeeseNet
+
+    model = TorchModel.from_flax(GeeseNet(FILTERS, BLOCKS), params,
+                                 device="cpu")
+    trainer = Trainer(dict(HOST_ARGS, **overrides), model, device=device)
+    if trainer.batcher is None or trainer.device_replay is not None:
+        raise AssertionError("the trainer did not take the host path")
+    return trainer
+
+
+def _recorded(trainer):
+    """Keep every host batch the trainer's batcher hands its feed."""
+    batches, source = [], trainer.batcher.batch
+
+    def batch(timeout=None):
+        out = source(timeout=timeout)
+        batches.append(out)
+        return out
+
+    trainer.batcher.batch = batch
+    return batches
+
+
+def _same_bits(torch, a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _staging_matches(torch, staged, host_batches, compute_dtype):
+    """The index of the recorded host batch whose CPU staging equals
+    ``staged`` bit for bit in every leaf (None: none does)."""
+    from handyrl_tpu_torch.learner import stage_batch
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+
+    card = [t.cpu() for t in tree_leaves(staged)]
+    for i, host in enumerate(list(host_batches)):
+        ref = stage_batch(host, "cpu", compute_dtype)
+        if sorted(ref) == sorted(staged) and all(
+                _same_bits(torch, a, b)
+                for a, b in zip(card, tree_leaves(ref))):
+            return i
+    return None
+
+
+class _StepBudget:
+    """Stands in for a trainer's profiler window, whose ``tick()`` the
+    trainer calls once per step: after ``steps`` ticks it raises the
+    learner's snapshot request (``update_flag``), which ends the
+    epoch's loop after that step, with no thread polling beside it."""
+
+    def __init__(self, trainer, steps):
+        self.trainer, self.left = trainer, steps
+
+    def tick(self):
+        self.left -= 1
+        if self.left == 0:
+            self.trainer.update_flag = True
+
+
+def _host_epoch(trainer, steps):
+    """``steps`` steps of the trainer's own host-path loop on this
+    thread, the trainer thread."""
+    trace, trainer.trace = trainer.trace, _StepBudget(trainer, steps)
+    trainer.update_flag = False
+    try:
+        return trainer._epoch_loop_local()
+    finally:
+        trainer.trace = trace
+        trainer.update_flag = False
+
+
+def _intervals_overlap(spans, others):
+    """Microseconds of ``spans`` that lie inside the union of
+    ``others`` (both lists of (start, end))."""
+    merged = []
+    for lo, hi in sorted(others):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    total = 0.0
+    for lo, hi in spans:
+        for mlo, mhi in merged:
+            total += max(0.0, min(hi, mhi) - max(lo, mlo))
+    return total
+
+
+def _copy_streams(trace_path, wire_arrays):
+    """From a chrome trace: the step's stream (the one with the most
+    kernel time), the HtoD copies on other streams and on it, and how
+    much of the feed's copy time overlaps the step's kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, copies = [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        stream = (e.get("args") or {}).get("stream")
+        span = (e["ts"], e["ts"] + e.get("dur", 0))
+        if e.get("cat") == "kernel":
+            kernels.append((stream, span))
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            copies.append((stream, span,
+                           (e.get("args") or {}).get("bytes") or 0))
+    busy = Counter()
+    for stream, (lo, hi) in kernels:
+        busy[stream] += hi - lo
+    step_stream = busy.most_common(1)[0][0] if busy else None
+    step_spans = [span for stream, span in kernels if stream == step_stream]
+    feed = [c for c in copies if c[0] != step_stream]
+    on_step = [c for c in copies if c[0] == step_stream]
+    feed_us = sum(hi - lo for _, (lo, hi), _ in feed)
+    overlap_us = _intervals_overlap([span for _, span, _ in feed],
+                                    step_spans)
+    batches = len(feed) / wire_arrays
+    return {
+        "kernels": len(kernels), "step_stream": step_stream,
+        "kernel_streams": sorted(str(s) for s in busy),
+        "feed_copy_streams": sorted({str(c[0]) for c in feed}),
+        "feed_copies": len(feed),
+        "feed_copy_bytes": sum(c[2] for c in feed),
+        "batches_copied": batches,
+        "htod_ms_per_batch": feed_us / 1e3 / batches if batches else None,
+        "overlap_share": overlap_us / feed_us if feed_us else None,
+        "step_stream_copies": len(on_step),
+        "step_stream_big_copies": sum(
+            1 for c in on_step if c[2] >= HOST_BIG_COPY)}
+
+
+def host_path_trainers(torch, params):
+    """6b's trainers, built before phase 6 so that their batcher
+    processes start up beside it (they make no batch before
+    ``start_host_feed``): float32 and bf16 on the card, and a float32
+    CPU reference that takes its batches by hand (no batcher)."""
+    return {"f32": _host_trainer(torch, params, DEV,
+                                 compute_dtype="float32"),
+            "bf16": _host_trainer(torch, params, DEV),
+            "cpu": _host_trainer(torch, params, "cpu",
+                                 compute_dtype="float32", num_batchers=0)}
+
+
+def host_path_steps(torch, trainers, episodes, smi):
+    """6b: phase 6's training through the host batcher path: the first
+    prefetched batch against the CPU's staging of the same host batch,
+    the first float32 step against the CPU's host step, the steps'
+    host syncs, the copies' streams, ms per step with the feed running
+    and with it stopped."""
+    import warnings
+
+    from handyrl_tpu_torch.analysis import HostTransferGuard
+    from handyrl_tpu_torch.learner import _geometry, stage_batch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"card": smi, "episodes": len(episodes),
+           "args": {k: HOST_ARGS[k] for k in (
+               "prefetch_batches", "transfer_threads", "num_batchers",
+               "transfer_dtype", "batch_size", "forward_steps")}}
+    f32, bf16, cpu = (trainers[k] for k in ("f32", "bf16", "cpu"))
+    hosts = {}
+    for tag, trainer in (("f32", f32), ("bf16", bf16)):
+        trainer.episodes.extend(episodes)
+        hosts[tag] = _recorded(trainer)
+        trainer.start_host_feed()
+    # (a) the first prefetched batch of each against the CPU's
+    # staging of the host batch it came from, bit for bit
+    t0 = time.perf_counter()
+    first = {"f32": f32.prefetcher.get(timeout=300),
+             "bf16": bf16.prefetcher.get(timeout=300)}
+    out["first_batch_s"] = time.perf_counter() - t0
+    out["staged_equal"] = {
+        tag: _staging_matches(torch, first[tag], hosts[tag], dtype)
+        for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+    geometry = _geometry(hosts["bf16"][0])
+    out["wire"] = {"arrays": len(geometry.wire), "bytes": int(sum(
+        np.prod(shape) * dtype.itemsize for shape, dtype in geometry.wire)),
+        "shapes": [list(shape) for shape, _ in geometry.wire]}
+    # (b) the first float32 step (TF32 and cuDNN off) against the
+    # CPU trainer's host step on the same host batch
+    match = out["staged_equal"]["f32"]
+    if match is not None:
+        with pinned_f32(torch):
+            card_m = f32._host_batch_step(first["f32"])
+            cpu_m = cpu._host_batch_step(stage_batch(
+                hosts["f32"][match], "cpu", "float32"))
+        card_l = {k: float(card_m[k]) for k in LOSS_KEYS}
+        cpu_l = {k: float(cpu_m[k]) for k in LOSS_KEYS}
+        out["f32_step"] = {
+            "card": card_l, "cpu": cpu_l, "rtol": LOSS_RTOL,
+            "rel_max": max(abs(card_l[k] - cpu_l[k])
+                           / max(abs(cpu_l[k]), 1e-12)
+                           for k in LOSS_KEYS)}
+    f32.stop_feeds()
+
+    # the shipped bf16 setting: the first batch's step, a warm-up,
+    # then (d) 20 steps under the host-transfer guard and the sync
+    # debug mode, timed on the host clock
+    bf16._host_batch_step(first["bf16"])
+    _host_epoch(bf16, HOST_WARMUP)
+    torch.cuda.synchronize()
+    bf16.timers.snapshot()
+    caught = []
+
+    def show(message, category, filename, lineno, file=None,
+             line=None):
+        caught.append((threading.current_thread() is
+                       threading.main_thread(), str(message)))
+
+    guard = HostTransferGuard()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with guard:
+                t0 = time.perf_counter()
+                batch_cnt, metrics = _host_epoch(bf16, HOST_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = bf16.timers.snapshot()
+    syncs = [(main, m) for main, m in caught
+             if "synchronizing CUDA operation" in m]
+    wait = prof.get("batch_wait", {}).get("sec", 0.0)
+    out["steady"] = {
+        "steps": batch_cnt, "wall_s": wall,
+        "ms_per_step": 1e3 * wall / batch_cnt,
+        "batch_wait_s": wait, "batch_wait_share": wait / wall,
+        "update_s": prof.get("update", {}).get("sec", 0.0),
+        "finite": all(float(m["nonfinite"]) == 0 for m in metrics),
+        "totals": [float(m["total"]) for m in metrics[:3]]}
+    out["syncs"] = {
+        "steps": batch_cnt, "guard_host_transfers": guard.transfers,
+        "trainer_thread_sync_warnings": sum(1 for main, _ in syncs
+                                            if main),
+        "other_thread_sync_warnings": sum(1 for main, _ in syncs
+                                          if not main),
+        "first": sorted({m[:120] for _, m in syncs})[:3]}
+
+    # (c) a profiler window: the copies' streams against the step's
+    path = os.path.join(OUT_DIR, "host_path_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as window:
+        _host_epoch(bf16, HOST_PROFILED)
+        torch.cuda.synchronize()
+    window.export_chrome_trace(path)
+    out["profile"] = dict(_copy_streams(path, len(geometry.wire)),
+                          steps=HOST_PROFILED)
+
+    # the same step on one staged batch with the feed stopped (no
+    # prefetch thread, no batcher thread in this process): what the
+    # feed's threads cost the trainer thread
+    staged = bf16.prefetcher.get(timeout=60)
+    bf16.stop_feeds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_STEPS):
+        bf16._host_batch_step(staged)
+    torch.cuda.synchronize()
+    out["steady"]["ms_per_step_feed_stopped"] = (
+        1e3 * (time.perf_counter() - t0) / HOST_STEPS)
+    out["feed_cost"] = _feed_host_cost(bf16.batcher, hosts["bf16"][0])
+    return out
+
+
+def _feed_host_cost(batcher, batch, reps=5):
+    """What the feed's threads in the learner's process hold the
+    interpreter for, per batch, timed alone: the sender's window
+    selection and the pickling of the job it ships to a batcher
+    process, and the receiver's unpickling of the batch that comes
+    back (``multiprocessing``'s own pickler)."""
+    from multiprocessing.reduction import ForkingPickler
+
+    ms = {"select": [], "pickle_job": [], "unpickle_batch": []}
+    blob = ForkingPickler.dumps(batch)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        job = [batcher.select_episode() for _ in range(batcher.batch_size)]
+        t1 = time.perf_counter()
+        sent = ForkingPickler.dumps(job)
+        t2 = time.perf_counter()
+        ForkingPickler.loads(blob)
+        t3 = time.perf_counter()
+        for key, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+            ms[key].append(1e3 * dt)
+    return {"job_bytes": len(sent), "batch_bytes": len(blob),
+            **{f"{k}_ms": statistics.median(v) for k, v in ms.items()}}
+
+
+def host_path_gates(p):
+    for tag, match in p["staged_equal"].items():
+        if match is None:
+            raise AssertionError(f"6b: the first {tag} prefetched batch "
+                                 f"equals no host batch's CPU staging")
+    step = p.get("f32_step")
+    if step is None or step["rel_max"] > LOSS_RTOL:
+        raise AssertionError(f"6b: the card's first float32 host step "
+                             f"differs from the CPU's: {step}")
+    prof = p["profile"]
+    if prof["feed_copies"] < HOST_PROFILED or prof[
+            "step_stream_big_copies"]:
+        raise AssertionError(f"6b: the batches' HtoD copies are not on "
+                             f"streams of their own: {prof}")
+    s = p["syncs"]
+    if s["guard_host_transfers"] or s["trainer_thread_sync_warnings"]:
+        raise AssertionError(f"6b: the host-path steps synced the "
+                             f"trainer thread: {s}")
+    if not p["steady"]["finite"]:
+        raise AssertionError("6b: a host-path step was not finite")
+
+
+# ---------------------------------------------------------------------
 # phase 7: python -m handyrl_tpu_torch --train on the shipped config
 # ---------------------------------------------------------------------
 
@@ -1215,14 +1574,19 @@ def train_entry():
         shutil.rmtree(cwd, ignore_errors=True)
 
 
-def _check_run(proc, tag):
+def _check_run(proc, tag, host_path=False):
+    """Exit 0, and the ring path (the host batcher path where
+    ``host_path``: phase 7's one host-path run)."""
     with open(os.path.join(OUT_DIR, f"{tag}_stdout.txt"), "w") as f:
         f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"{tag} exited {proc.returncode}:\n"
                            f"{proc.stderr[-3000:]}")
-    if "WARNING: device_replay is off" in proc.stdout:
+    took = "WARNING: device_replay is off" in proc.stdout
+    if took and not host_path:
         raise AssertionError(f"{tag} took the host batcher path")
+    if host_path and not took:
+        raise AssertionError(f"{tag} did not take the host batcher path")
 
 
 def _train_entry(cwd):
@@ -1315,6 +1679,48 @@ def _train_entry(cwd):
     if records2[-1]["epoch"] != 3 or not os.path.exists(
             os.path.join(cwd, "models", "4.ckpt")):
         raise AssertionError("the restart trained no further epoch")
+    return out
+
+
+# phase 7's one host-path run: the shipped config, 2 epochs of 30 + 30
+# episodes, the batches assembled by the batcher processes and staged
+# on the card by the device prefetcher; 2 workers (16c's cut), as it
+# runs beside phases 9-13 and phase 8's background learners
+HOST_TRAIN_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
+                   "minimum_episodes": 30, "update_episodes": 30,
+                   "device_replay": "off", "worker": {"num_parallel": 2}}
+PREFETCH_LINE = re.compile(r"device prefetch: (\d+) batches deep from "
+                           r"(\d+) threads onto (\S+)")
+
+
+def _host_train(cwd):
+    train = [sys.executable, "-m", "handyrl_tpu_torch", "--train",
+             *CLI_DEVICE]
+    proc, records, wall = run_training(train, cwd,
+                                       train_config(HOST_TRAIN_CUTS))
+    _check_run(proc, "host_train", host_path=True)
+    out = {"cuts": HOST_TRAIN_CUTS, "wall_s": wall,
+           "prefetch": PREFETCH_LINE.findall(proc.stdout),
+           "epochs": epoch_rows(records),
+           "feed": [{k: r.get(k) for k in (
+               "epoch", "epoch_steps", "replay", "queue_depth",
+               "batch_wait_sec", "device_step_sec", "epoch_wall_sec")}
+               for r in records]}
+    if not out["prefetch"] or not all(
+            dev.startswith(DEV) for *_, dev in out["prefetch"]):
+        raise AssertionError(f"host --train: no device prefetcher on the "
+                             f"card: {out['prefetch']}")
+    if [r["epoch"] for r in records] != [0, 1]:
+        raise AssertionError(f"host --train: 2 epochs did not land: "
+                             f"{records}")
+    for r in records:
+        if r.get("replay") != "host" or r.get("queue_depth") is None:
+            raise AssertionError(f"host --train: not the host path's "
+                                 f"record: {r}")
+        if not all(np.isfinite(r[k]) for k in ("p", "v", "ent", "total")):
+            raise AssertionError(f"host --train: nonfinite losses: {r}")
+    out["guards"] = guard_rows(records)
+    guard_gates(records, "host --train")
     return out
 
 
@@ -4294,9 +4700,15 @@ def served_phase(torch, model, model2, report, finish):
 # ---------------------------------------------------------------------
 
 # 15a: phase 7's config (TicTacToe 32x3, 6 workers, the pipeline, the
-# WAL), 4 epochs of 50 + 50 episodes (phase 8's cut), every shm fault
-# armed and a surge at epoch 2 whose upload hold browns out both planes
-CHAOS_CUTS = {"epochs": 4, "metrics_path": "metrics.jsonl",
+# WAL), epochs of 50 + 50 episodes (phase 8's cut), every shm fault
+# armed and a surge at epoch 2 whose upload hold browns out both planes.
+# 10 epochs: the surge's backlog reaches the records only behind what
+# the trajectory rings held when the hold began (up to 6 x 64 episodes,
+# released at once when a torn slot's 30 s grace ends), so epochs 2-9
+# (400 episodes) outlast that release by arithmetic; with 4 epochs a
+# release could end the run before any stamped episode landed.  The
+# epochs after the hold take ~0.1 s each
+CHAOS_CUTS = {"epochs": 10, "metrics_path": "metrics.jsonl",
               "minimum_episodes": 50, "update_episodes": 50,
               "chaos": {"seed": 7, "shm_tear_prob": 0.05,
                         "shm_full_prob": 0.05, "shm_truncate_prob": 0.05,
@@ -4402,8 +4814,9 @@ def _shm_chaos_train(cwd):
 
 def shm_chaos_gates(a):
     recs = a.pop("records")
-    if [r["epoch"] for r in recs] != [0, 1, 2, 3]:
-        raise AssertionError(f"15a: 4 epochs did not land: "
+    epochs = a["cuts"]["epochs"]
+    if [r["epoch"] for r in recs] != list(range(epochs)):
+        raise AssertionError(f"15a: {epochs} epochs did not land: "
                              f"{[r['epoch'] for r in recs]}")
     for key in ("torn_injected", "full_injected", "truncated_injected"):
         if not a["injected"][key]:
@@ -5587,6 +6000,55 @@ def wide_steps_gates(d):
                              f"off the rule {d['layout_mismatched']}")
 
 
+def surge_drill_study(runs=3, hold=None, epochs=None):
+    """15a's ``--train`` ``runs`` times, at ``hold`` seconds of surge
+    hold and ``epochs`` epochs where given (else 15a's own): per run,
+    each epoch's ``upload_backlog``, arrivals by plane and wall, the
+    service's torn-slot reclaims, each worker's held episodes and
+    fallbacks, and whether 15a's gates hold."""
+    import shutil
+
+    import torch
+
+    global CHAOS_CUTS
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    card = card_line()
+    cuts = json.loads(json.dumps(CHAOS_CUTS))
+    if hold is not None:
+        cuts["chaos"]["surge_hold_uploads"] = float(hold)
+    if epochs is not None:
+        cuts["epochs"] = int(epochs)
+    CHAOS_CUTS, failed, runs = cuts, 0, int(runs)
+    for k in range(runs):
+        cwd = tempfile.mkdtemp(prefix="surge_")
+        try:
+            a = _shm_chaos_train(cwd)
+        finally:
+            shutil.rmtree(cwd, ignore_errors=True)
+        row = {"run": k, "wall_s": a["wall_s"],
+               "epochs": [[r["epoch"], r.get("upload_backlog"),
+                           r.get("episodes_shm"), r.get("episodes_spilled"),
+                           r.get("epoch_wall_sec")] for r in a["records"]],
+               "torn_reclaimed": a["torn_reclaimed"],
+               "held_fallbacks": {w: [v["held"], v["fallbacks"]]
+                                  for w, v in sorted(a["workers"].items())}}
+        try:
+            shm_chaos_gates(a)
+            row["gates"] = "ok"
+        except AssertionError as exc:
+            row["gates"], failed = str(exc), failed + 1
+        emit("surge_drill_run", row)
+    emit("surge_drill_summary", {
+        "runs": runs, "failed": failed, "card": card,
+        "hold_s": cuts["chaos"]["surge_hold_uploads"],
+        "epochs": cuts["epochs"],
+        "columns": "epoch, upload_backlog, shm, spilled, wall s"})
+    return 0
+
+
 def step_parity_study(batches=6):
     """16a's float32 runs and 16d on ``batches`` batches of one set of
     episodes: per batch, the gated comparisons (:func:`_step_parity`)
@@ -5855,9 +6317,32 @@ def main(phases=ALL_PHASES):
 
     # 6. GeeseNet training steps on the card
     if 6 in phases:
-        report["phase6"] = train_steps(torch, drained, params)
-        report["phase6"]["phase_s"] = lap()
-        emit("phase6", report["phase6"])
+        # 6b's trainers first: their batcher processes start beside 6
+        host = host_path_trainers(torch, params)
+        try:
+            report["phase6"] = train_steps(torch, drained, params)
+            report["phase6"]["phase_s"] = lap()
+            emit("phase6", report["phase6"])
+            # 6b. the same training through the host batcher path
+            report["phase6b"] = p6b = host_path_steps(torch, host,
+                                                      drained, smi)
+        finally:
+            for trainer in host.values():
+                trainer.stop_feeds()
+        p6b["phase_s"] = lap()
+        emit("phase6b", p6b)
+        host_path_gates(p6b)
+        st, pr = p6b["steady"], p6b["profile"]
+        print(f"host path: {st['ms_per_step']:.2f} ms per step (ring "
+              f"{report['phase6']['steady']['step_ms_median']:.2f} ms, "
+              f"feed stopped {st['ms_per_step_feed_stopped']:.2f} ms), "
+              f"batch_wait {st['batch_wait_share']:.3f} of the wall, HtoD "
+              f"{pr['htod_ms_per_batch']:.3f} ms per batch of "
+              f"{p6b['wire']['bytes']} bytes, overlapping kernels "
+              f"{pr['overlap_share']:.3f}, copies on streams "
+              f"{pr['feed_copy_streams']} vs the step's "
+              f"{pr['step_stream']}; phase 6b {p6b['phase_s']:.1f} s on "
+              f"{smi}", flush=True)
 
     # 7. --train on the shipped config, then a restart
     if 7 in phases:
@@ -5872,6 +6357,9 @@ def main(phases=ALL_PHASES):
     # 11, 12 and 13 (none gates a time); phase 8's time covers its runs,
     # phase 10's is its own run's
     jobs = {}
+    if 7 in phases:
+        # phase 7's host-path run: a learner whose gates hold no time
+        jobs["host_train"] = in_tmp("host_train_", _host_train)
     if 8 in phases:
         jobs.update(resilience_jobs())
     if 10 in phases:
@@ -5884,10 +6372,22 @@ def main(phases=ALL_PHASES):
     done = {}
 
     def join_beside():
-        """Wait for phases 8 and 10, then their lines and gates."""
+        """Wait for phases 8 and 10 and phase 7's host-path run, then
+        their lines and gates."""
         done.update(background()[0])
         # their time past the main thread's phases, charged to no phase
         after = lap()
+        if 7 in phases:
+            report["phase7_host"] = p7h = done["host_train"][0]
+            p7h["phase_s"] = done["host_train"][1]
+            p7h["beside"] = beside
+            emit("phase7_host", p7h)
+            print("host-path --train: " + ", ".join(
+                f"epoch {r['epoch']} {r['epoch_steps']} steps queue_depth "
+                f"{r['queue_depth']} batch_wait {r['batch_wait_sec']:.2f} "
+                f"s of {r['epoch_wall_sec']:.1f} s"
+                for r in p7h["feed"]) + f"; {p7h['phase_s']:.1f} s on "
+                f"{smi}", flush=True)
         if 8 in phases:
             (b, c), remote_s = done["remote"]
             report["phase8"] = p8 = {"drills": done["drills"][0],
@@ -6133,4 +6633,6 @@ if __name__ == "__main__":
         sys.exit(grad_error_study(*map(int, sys.argv[2:3])))
     if sys.argv[1:2] == ["--step-parity"]:
         sys.exit(step_parity_study(*map(int, sys.argv[2:3])))
+    if sys.argv[1:2] == ["--surge-drill"]:
+        sys.exit(surge_drill_study(*map(float, sys.argv[2:5])))
     sys.exit(main())

@@ -17,7 +17,10 @@ The counterpart of the local single-process path of
     workers and to the batched inference service, and checkpoints it
     in the JAX package's format;
   * ``device_replay: off`` trains from host batches assembled by
-    batcher processes instead, and says so loudly.
+    batcher processes instead, and says so loudly; a
+    :class:`DevicePrefetcher` stages them on the device ahead of the
+    step (``prefetch_batches`` deep, from ``transfer_threads`` threads
+    that copy from pinned memory on CUDA streams of their own).
 
 The resilience layer is the JAX package's:
 
@@ -144,7 +147,7 @@ import random
 import signal
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import OrderedDict, deque, namedtuple
 
 import numpy as np
 import torch
@@ -204,7 +207,7 @@ from .staging import DeviceReplay, make_replay_update_step
 from .telemetry import CostModel, PerfConfig, summarize_lags
 from .telemetry.costmodel import device_kind
 from .utils.profiling import SectionTimers, TraceWindow
-from .utils.tree import tree_map_leaves
+from .utils.tree import tree_flatten, tree_leaves, tree_unflatten
 from .worker import WorkerCluster, WorkerServer
 
 
@@ -240,25 +243,199 @@ def host_copy(state):
             for k, v in state.items()}
 
 
-def stage_batch(batch, device, compute_dtype="bfloat16"):
-    """A host batch of ``make_batch`` as tensors on ``device``.
-    Observations arrive in their wire format (bfloat16 as uint16 bit
-    patterns, viewed on the device; uint8 planes) and leave in the
-    compute dtype; every other leaf keeps its dtype."""
+# How one batch geometry ships: ``layout`` holds ``(key, shape, dtype,
+# width)`` per non-observation leaf in sorted key order (the columns of
+# the packed ``(B, C)`` float32 array), ``obs_def`` the observation
+# tree, ``obs_bits`` which of its leaves are bfloat16 bit patterns,
+# ``wire`` the ``(shape, dtype)`` of each array the upload copies
+# (the packed one first).  Equal geometries are equal tuples, so each
+# keys one set of pinned buffers per prefetch thread.
+_Geometry = namedtuple("_Geometry", "layout obs_def obs_bits wire")
+
+
+def _obs_wire(a):
+    """An observation leaf as it ships: bfloat16 bit patterns as int16
+    (viewed back as bfloat16 on the device), anything else as is."""
+    return np.ascontiguousarray(a.view(np.int16) if a.dtype == np.uint16
+                                else a)
+
+
+def _geometry(batch):
+    """The geometry of a host batch of ``make_batch``."""
+    layout = []
+    for key in sorted(k for k in batch if k != "observation"):
+        a = batch[key]
+        layout.append((key, a.shape, torch.from_numpy(a[:0]).dtype,
+                       int(np.prod(a.shape[1:], dtype=np.int64))))
+    leaves, obs_def = tree_flatten(batch["observation"])
+    wire = [((layout[0][1][0], sum(w for *_, w in layout)), torch.float32)]
+    wire += [(a.shape, torch.from_numpy(_obs_wire(a[:0])).dtype)
+             for a in leaves]
+    return _Geometry(tuple(layout), obs_def,
+                     tuple(a.dtype == np.uint16 for a in leaves),
+                     tuple(wire))
+
+
+def _pack(batch, geometry, out=None):
+    """The non-observation leaves as one ``(B, C)`` float32 array (into
+    ``out`` when given): one upload instead of a dozen small ones.
+    Exact: every such leaf is float32 or a small integer that
+    round-trips through float32."""
+    cols = [batch[key].reshape(len(batch[key]), -1).astype(
+        np.float32, copy=False) for key, *_ in geometry.layout]
+    return np.concatenate(cols, axis=1, out=out)
+
+
+def _unpack(uploaded, geometry, compute_dtype):
+    """The staged batch from its uploaded arrays, on their device: each
+    packed column group back in its leaf's shape and dtype, bfloat16
+    bit patterns viewed as bfloat16, every observation leaf cast to
+    the compute dtype."""
+    packed, obs = uploaded[0], uploaded[1:]
+    staged, offset = {}, 0
+    for key, shape, dtype, width in geometry.layout:
+        staged[key] = packed[:, offset:offset + width].reshape(
+            shape).to(dtype).contiguous()
+        offset += width
     obs_dtype = getattr(torch, compute_dtype)
-
-    def obs(a):
-        if a.dtype == np.uint16:
-            t = torch.from_numpy(a.view(np.int16)).to(device).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return t.to(obs_dtype)
-
-    staged = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-              for k, v in batch.items() if k != "observation"}
-    staged["observation"] = tree_map_leaves(obs, batch["observation"])
+    staged["observation"] = tree_unflatten(geometry.obs_def, [
+        (t.view(torch.bfloat16) if bits else t).to(obs_dtype)
+        for t, bits in zip(obs, geometry.obs_bits)])
     return staged
+
+
+def stage_batch(batch, device, compute_dtype="bfloat16"):
+    """A host batch of ``make_batch`` as tensors on ``device``, the
+    JAX package's packed upload: the non-observation leaves ride one
+    packed float32 array and come back in their shapes and dtypes;
+    observations arrive in their wire format (bfloat16 as bit
+    patterns, viewed on the device; uint8 planes) and leave in the
+    compute dtype.  Synchronous, from pageable memory: the host path
+    stages through :class:`DevicePrefetcher`."""
+    geometry = _geometry(batch)
+    host = [_pack(batch, geometry)]
+    host += [_obs_wire(a) for a in tree_leaves(batch["observation"])]
+    return _unpack([torch.from_numpy(a).to(device) for a in host],
+                   geometry, compute_dtype)
+
+
+class _PinnedUpload:
+    """One prefetch thread's copy engine on a card: a CUDA stream of
+    its own and, per batch geometry, ``slots`` sets of pinned host
+    buffers used in turn.  A set is refilled only once the copies that
+    last read it are done (this thread waits on their event; the
+    trainer thread never does)."""
+
+    slots = 2
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = {}     # geometry -> deque of [buffers, event]
+
+    def _buffers(self, geometry):
+        ring = self.pool.setdefault(geometry, deque())
+        if len(ring) < self.slots:
+            return [torch.empty(shape, dtype=dtype, pin_memory=True)
+                    for shape, dtype in geometry.wire]
+        buffers, done = ring.popleft()
+        done.synchronize()
+        return buffers
+
+    def stage(self, batch, compute_dtype):
+        """``(staged batch, ready event)``: the copies and the unpack
+        are queued on this thread's stream, and the event marks their
+        end."""
+        geometry = _geometry(batch)
+        buffers = self._buffers(geometry)
+        _pack(batch, geometry, out=buffers[0].numpy())
+        for dst, a in zip(buffers[1:], tree_leaves(batch["observation"])):
+            np.copyto(dst.numpy(), _obs_wire(a))
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            uploaded = [b.to(self.device, non_blocking=True)
+                        for b in buffers]
+            staged = _unpack(uploaded, geometry, compute_dtype)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        self.pool[geometry].append([buffers, ready])
+        return staged, ready
+
+
+class DevicePrefetcher:
+    """Stages upcoming host batches on the training device from
+    background threads, so the upload overlaps the update step and the
+    hot loop always finds a staged batch waiting (the JAX package's
+    ``DevicePrefetcher``).
+
+    ``max(1, depth)`` staged batches wait in a bounded queue, fed by
+    ``max(1, threads)`` daemon threads that pull from ``source``
+    (``Batcher.batch``).  On a card each thread copies from pinned
+    host buffers on a CUDA stream of its own (:class:`_PinnedUpload`),
+    and :meth:`get` makes the caller's stream wait for the batch's
+    event on the device; on the CPU the same threads stage
+    synchronously.  Batches are independent, so their order across
+    threads does not matter.  No thread issues a collective: the rows
+    a dp group shares are exchanged on the trainer thread.  A thread's
+    exception ends it and is raised from :meth:`get` once the queue
+    runs dry."""
+
+    def __init__(self, source, depth, device, threads=2,
+                 compute_dtype="bfloat16"):
+        self.source = source          # callable(timeout=) -> host batch
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.staged = queue.Queue(maxsize=max(1, depth))
+        self.stop_flag = False
+        self.error = None
+        self.threads = [threading.Thread(target=self._pump, daemon=True)
+                        for _ in range(max(1, threads))]
+        for thread in self.threads:
+            thread.start()
+
+    def _pump(self):
+        try:
+            upload = (_PinnedUpload(self.device)
+                      if self.device.type == "cuda" else None)
+            while not self.stop_flag:
+                try:
+                    batch = self.source(timeout=0.3)
+                except queue.Empty:
+                    continue
+                if upload is not None:
+                    item = upload.stage(batch, self.compute_dtype)
+                else:
+                    item = stage_batch(batch, self.device,
+                                       self.compute_dtype), None
+                while not self.stop_flag:
+                    try:
+                        self.staged.put(item, timeout=0.3)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as exc:  # surface in the trainer, don't hang it
+            self.error = exc
+
+    def get(self, timeout=None):
+        """The next staged batch, ready for work queued on the caller's
+        current stream (its memory is held for that stream too)."""
+        try:
+            staged, ready = self.staged.get(timeout=timeout)
+        except queue.Empty:
+            if self.error is not None:
+                raise RuntimeError("device prefetch failed") from self.error
+            raise
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            for tensor in tree_leaves(staged):
+                tensor.record_stream(stream)
+        return staged
+
+    def stop(self):
+        self.stop_flag = True
+        # no interpreter teardown under an in-flight copy
+        for thread in self.threads:
+            thread.join(timeout=5)
 
 
 # ---------------------------------------------------------------------
@@ -508,6 +685,7 @@ class Trainer:
         self._replay_step = None
         self._host_step = None
         self.batcher = None
+        self.prefetcher = None
         self._replay_state = None
         if self.device_replay is not None:
             # seeded from the config seed, the resumed step count and
@@ -861,7 +1039,7 @@ class Trainer:
                     return None, self.steps, self.last_metrics
 
     def _epoch_loop_local(self):
-        """Host batcher path: one staged batch per step."""
+        """Host batcher path: one prefetched batch per step."""
         cap = self.updates_cap
         batch_cnt, metric_acc = 0, []
         while batch_cnt == 0 or not self.update_flag:
@@ -873,7 +1051,7 @@ class Trainer:
                 continue
             try:
                 with self.timers.section("batch_wait"):
-                    batch = self.batcher.batch(timeout=0.3)
+                    batch = self.prefetcher.get(timeout=0.3)
             except queue.Empty:
                 continue
             metric_acc.append(self._host_batch_step(batch))
@@ -881,11 +1059,10 @@ class Trainer:
         return batch_cnt, metric_acc
 
     def _host_batch_step(self, batch):
-        """One step on a host batch: staged on the device, the rows of
-        this rank's dp group, the guarded update."""
+        """One step on a batch staged on the device: the rows of this
+        rank's dp group, the guarded update."""
         with self.timers.section("update"):
-            batch = self._share_rows(
-                stage_batch(batch, self.device, self.compute_dtype))
+            batch = self._share_rows(batch)
             metrics = self.costmodel.call(self._step_label,
                                           self._host_step, batch)
         self._count_step()
@@ -974,7 +1151,7 @@ class Trainer:
                 while True:
                     try:
                         with self.timers.section("batch_wait"):
-                            batch = self.batcher.batch(timeout=1)
+                            batch = self.prefetcher.get(timeout=1)
                         break
                     except queue.Empty:
                         continue
@@ -1016,14 +1193,18 @@ class Trainer:
         return metrics
 
     def _queue_depth(self):
-        """The feed backlog at the epoch boundary: assembled host
-        batches waiting (host path) or episodes queued for ring ingest
-        (device ring); Anakin has no feed."""
+        """The feed backlog at the epoch boundary: batches staged on the
+        device and assembled host batches waiting (host path), or
+        episodes queued for ring ingest (device ring); Anakin has no
+        feed."""
+        depth = 0
+        if self.prefetcher is not None:
+            depth += self.prefetcher.staged.qsize()
         if self.batcher is not None:
-            return self.batcher.executor.output_queue.qsize()
+            depth += self.batcher.executor.output_queue.qsize()
         if self.device_replay is not None:
-            return len(self.device_replay.pending)
-        return 0
+            depth += len(self.device_replay.pending)
+        return depth
 
     def train(self):
         if self.multihost:
@@ -1134,7 +1315,25 @@ class Trainer:
     def request_shutdown(self):
         self.shutdown_flag = True
 
+    def start_host_feed(self):
+        """The host path's feed: the batcher processes, and the device
+        prefetcher that stages their batches ahead of the step."""
+        self.batcher.run()
+        self.prefetcher = DevicePrefetcher(
+            self.batcher.batch,
+            depth=self.args.get("prefetch_batches", 2),
+            device=self.device,
+            threads=self.args.get("transfer_threads", 2),
+            compute_dtype=self.compute_dtype)
+        print(f"device prefetch: {self.prefetcher.staged.maxsize} batches "
+              f"deep from {len(self.prefetcher.threads)} threads onto "
+              f"{self.device}")
+
     def stop_feeds(self):
+        """Tear the feed down after the trainer thread has ended: the
+        prefetch threads first, then the batchers they read."""
+        if self.prefetcher is not None:
+            self.prefetcher.stop()
         if self.batcher is not None:
             self.batcher.shutdown()
 
@@ -1169,7 +1368,7 @@ class Trainer:
                         return
                     self._maybe_emergency_save()
                     time.sleep(0.2)
-                self.batcher.run()
+                self.start_host_feed()
             print("started training", flush=True)
             self.started_at = time.monotonic()
             while not self.shutdown_flag:

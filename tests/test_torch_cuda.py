@@ -535,3 +535,43 @@ def test_host_transfer_guard_counts_card_syncs(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert guard.transfers == 2 and len(caught) >= 2
+
+
+def test_prefetched_batches_equal_the_cpu_staging(cuda_device):
+    """The host path's device feed on the card: pinned buffers and copy
+    streams give every staged batch bit for bit as the CPU's staging of
+    its host batch (more batches than each thread's pinned slots, so
+    buffers are reused), ready for the consumer's stream."""
+    import itertools
+
+    from handyrl_tpu_torch.batch import make_batch
+    from handyrl_tpu_torch.learner import DevicePrefetcher, stage_batch
+    from handyrl_tpu_torch.utils.tree import tree_leaves
+    from torchfix import make_episodes, window
+
+    cfg = {"turn_based_training": True, "observation": False,
+           "forward_steps": 8, "burn_in_steps": 0, "compress_steps": 4,
+           "transfer_dtype": "bfloat16"}
+    episodes, _ = make_episodes("TicTacToe", 6, seed=3)
+    rng = np.random.default_rng(3)
+    hosts = []
+    for _ in range(4):
+        picks = [episodes[int(rng.integers(len(episodes)))]
+                 for _ in range(16)]
+        hosts.append(make_batch([window(ep, 0, cfg) for ep in picks], cfg))
+    refs = [[t.reshape(-1).view(torch.uint8) for t in tree_leaves(
+        stage_batch(h, "cpu", "bfloat16"))] for h in hosts]
+    script = itertools.cycle(hosts)
+    prefetcher = DevicePrefetcher(lambda timeout=None: next(script),
+                                  depth=2, device=cuda_device, threads=2)
+    try:
+        for _ in range(12):
+            staged = prefetcher.get(timeout=60)
+            card = [t.cpu().reshape(-1).view(torch.uint8)
+                    for t in tree_leaves(staged)]
+            assert any(all(torch.equal(a, b) for a, b in zip(card, ref))
+                       for ref in refs)
+            assert all(t.device.type == "cuda" for t in tree_leaves(staged))
+    finally:
+        prefetcher.stop()
+    assert prefetcher.error is None

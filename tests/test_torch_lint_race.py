@@ -48,3 +48,23 @@ def test_race_registry_keeps_the_jax_ids():
     from handyrl_tpu.analysis.racerules import RACE_RULES as JAX_RACE
 
     assert set(RULE_IDS) == set(JAX_RACE)
+
+
+def test_the_ports_thread_roots_include_the_prefetch_pump():
+    """The twin of the JAX linter's thread-graph check: the race rules
+    see the host path's prefetch threads, so the clean gate covers
+    what they share with the trainer thread."""
+    from test_torch_lint_base import PACKAGE
+
+    from handyrl_tpu_torch.analysis import torchlint
+    from handyrl_tpu_torch.analysis.racelint import analyze_race
+
+    package, _, errors = torchlint.load_package([PACKAGE])
+    assert errors == []
+    roots = set(analyze_race(package).thread_roots)
+    expected = {
+        "handyrl_tpu_torch.learner:DevicePrefetcher._pump",
+        "handyrl_tpu_torch.connection:QueueCommunicator._send_loop",
+        "handyrl_tpu_torch.connection:QueueCommunicator._recv_loop",
+    }
+    assert expected <= roots, expected - roots

@@ -209,6 +209,11 @@ def test_two_process_learner(tmp_path, device_replay, mesh):
     assert all(r["retrace_count"] == 1 for r in records)
     assert all(r["replay"] == ("device" if device_replay == "on"
                                else "host") for r in records)
+    assert all(r["queue_depth"] >= 0 for r in records)
+    if device_replay == "off":
+        # every rank's steps took their batches from its prefetcher
+        assert all("device prefetch: 2 batches deep from 2 threads onto "
+                   "cpu" in out for out in outs)
 
     # the JAX package loads rank 0's checkpoint
     from handyrl_tpu.environment import make_env as jax_make_env

@@ -122,11 +122,15 @@ def test_two_epochs_then_restart_and_jax_reads_the_checkpoint(workdir,
 
 
 def test_host_batcher_path_trains_an_epoch(workdir, capfd):
-    Learner(_args(epochs=1, device_replay="off"), device="cpu").run()
+    Learner(_args(epochs=1, device_replay="off", prefetch_batches=3,
+                  transfer_threads=1), device="cpu").run()
     out = capfd.readouterr().out
     assert "WARNING: device_replay is off" in out
+    # the steps took their batches from the device prefetcher
+    assert "device prefetch: 3 batches deep from 1 threads onto cpu" in out
     (record,) = _records()
     assert record["replay"] == "host" and record["epoch_steps"] >= 1
+    assert 0 <= record["queue_depth"] <= 3 + 8
     assert np.isfinite(record["total"])
 
 
