@@ -221,7 +221,18 @@ from a seed:
                  --ranks 4 --device cuda``): dp2 x tp2 with fsdp, dp4,
                  dp4 with fsdp and a one-rank mesh through the service's
                  ``_forward``, hot swap and routing at one signature
-                 and no copy, one window dispatch.
+                 and no copy, one window dispatch; (f) phase 7's
+                 shipped-config ``--train`` (bf16, 2 epochs of 30 + 30
+                 episodes, 2 workers) launched over two gloo ranks
+                 sharing the card (``cards=2``) as JAX's one process:
+                 exit 0, rank 0 alone runs the workers, its one
+                 service dispatches over both ranks and rank 1 joins
+                 each forward (its forwards = rank 0's sent, above 0),
+                 ``mesh_devices`` 2 and the deal within one per
+                 record summing to the admitted episodes, no resharding
+                 copy, one step signature, rank 0 alone writing;
+                 printed beside 16c's per-rank service (no gate): the
+                 dispatch p50/p99 and requests/s.
  17. torchlint — the port's static linter with all six families
                  (``--shard --comm --race --num --leak``) over
                  ``handyrl_tpu_torch/`` in a child interpreter on the
@@ -239,7 +250,7 @@ signature), and its ``--train`` to the launcher's one-card reduction
 (``launch: 1 card(s) visible, no spawn``).  Depth cut to make room
 for phases 15, 16 and 8c (gates unchanged): phase 7's restart, phase
 8's drills and phase 15a-b run epochs of 50 + 50 episodes, phase 10,
-phase 12's league and 16c of 30 + 30, phase 13c 3 epochs of 20 fused
+phase 12's league, 16c and 16f of 30 + 30, phase 13c 3 epochs of 20 fused
 steps, 14a's load 6 s and 14d's blocks 1 s, phase 7's first run and
 14c 3 epochs of 100 + 100 episodes and phase 9's ring 32 episodes.
 8b's and 8c's worker machines start once the learner's entry port is
@@ -250,7 +261,7 @@ children, all in the background beside phases 9, 11, 12 and 13 (whose
 step times, ONNX runner times and Anakin rates they make read high;
 none gates a time), joined before phase 14; phase 7's ``--eval`` runs
 beside its restart; likewise 12b-12d (after 12a), 13c with 13e, and
-16c-16e.
+16c-16f.
 
 Every phase prints one ``phaseN {json}`` line (phases 12-16 one per
 part) and raises on failure.
@@ -5637,7 +5648,11 @@ def two_rank_train(cwd):
         "guards": [{k: r.get(k) for k in ("retrace_count",
                                           "resharding_copies",
                                           "host_transfers", "epoch_steps")}
-                   for r in records]}
+                   for r in records],
+        # rank 0's own service, answering its own two workers
+        "service": [{k: r.get(k) for k in (
+            "infer_requests", "infer_dispatch_ms_p50",
+            "infer_dispatch_ms_p99", "epoch_wall_sec")} for r in records]}
 
 
 def two_rank_train_gates(c):
@@ -5659,6 +5674,123 @@ def two_rank_train_gates(c):
             raise AssertionError(f"16c: guard keys {g}")
 
 
+# 16f: phase 7's config launched over two ranks sharing the card (the
+# launch told of 2 cards): JAX's one process, rank 0 running both
+# workers and the one service, rank 1 joining each forward
+LIVE_CUTS = {"epochs": 2, "metrics_path": "metrics.jsonl",
+             "minimum_episodes": 30, "update_episodes": 30,
+             "worker": {"num_parallel": 2}}
+RANKS_TRAIN = """\
+import yaml
+from handyrl_tpu_torch.learner import train_main
+
+if __name__ == "__main__":
+    with open("config.yaml") as f:
+        args = yaml.safe_load(f)
+    train_main(args, device="{device}", backend="gloo", cards=2)
+"""
+
+
+def _json_after(prefix, stdout):
+    """The JSON object a line of ``stdout`` carries after ``prefix``."""
+    found = re.search(re.escape(prefix) + r"(\{.*\})", stdout)
+    return json.loads(found.group(1)) if found else None
+
+
+def live_ranks_train(cwd):
+    """16f: ``--train`` on two launched ranks, one service across them."""
+    import yaml
+
+    with open(os.path.join(cwd, "config.yaml"), "w") as f:
+        yaml.safe_dump(train_config(LIVE_CUTS), f)
+    t0 = time.perf_counter()
+    proc, log = _popen(
+        [sys.executable, "-c", RANKS_TRAIN.format(device=RANKS_DEVICE)],
+        cwd, "live_ranks_train")
+    try:
+        code = proc.wait(timeout=400)
+    finally:
+        _stop(proc)
+    wall = time.perf_counter() - t0
+    stdout = _read(log)
+    if code != 0:
+        raise RuntimeError(f"16f: --train on two launched ranks exited "
+                           f"{code}:\n{stdout[-3000:]}")
+    records = _records(cwd)
+    keys = ("mesh_devices", "episodes_dealt", "episodes_received",
+            "infer_resharding_copies", "infer_compiles", "retrace_count",
+            "resharding_copies", "infer_requests", "infer_dispatch_ms_p50",
+            "infer_dispatch_ms_p99", "epoch_wall_sec")
+    return {
+        "wall_s": wall, "epochs": epoch_rows(records),
+        "records": [{k: r.get(k) for k in keys} for r in records],
+        "launches": stdout.count("launch: 2 ranks, one per card; rank 0 "
+                                 "runs the whole fleet of 2 workers"),
+        "followers_without_fleet": stdout.count("rank 1: no fleet"),
+        "workers": _workers(stdout),
+        "service": _json_after("inference service stats = ", stdout),
+        "follower": _json_after("inference follower: rank 1 stats = ",
+                                stdout),
+        "models": sorted(os.listdir(os.path.join(cwd, "models")))
+        if os.path.isdir(os.path.join(cwd, "models")) else []}
+
+
+def live_ranks_gates(f):
+    """16f's gates: the fleet and the service on rank 0, the follower
+    in every forward, the deal in halves, the guards, one writer."""
+    if f["launches"] != 1 or f["followers_without_fleet"] != 1:
+        raise AssertionError(f"16f: not one launch with rank 0's fleet: "
+                             f"{f['launches']}, {f['followers_without_fleet']}")
+    if sorted(w for w, _ in f["workers"]) != [0, 1] or any(
+            cuda for _, cuda in f["workers"]):
+        raise AssertionError(f"16f: workers {f['workers']}: expected "
+                             f"rank 0's 0 and 1, none on CUDA")
+    svc, fol = f["service"] or {}, f["follower"] or {}
+    sent = svc.get("lockstep_forwards", 0)
+    if not sent or fol.get("forwards") != sent:
+        raise AssertionError(f"16f: rank 1 joined {fol.get('forwards')} "
+                             f"forwards of rank 0's {sent}")
+    if fol.get("snapshots") != svc.get("snapshots_sent"):
+        raise AssertionError(f"16f: snapshots {svc} vs {fol}")
+    if [r["epoch"] for r in f["epochs"]] != [0, 1] or not {
+            "1.ckpt", "2.ckpt"} <= set(f["models"]):
+        raise AssertionError(f"16f: not one record per epoch (rank 0 "
+                             f"alone writes): {f['epochs']}, {f['models']}")
+    for r in f["records"]:
+        dealt = r["episodes_dealt"]
+        if (r["mesh_devices"] != 2 or not dealt
+                or abs(dealt[0] - dealt[1]) > 1
+                or sum(dealt) != r["episodes_received"]):
+            raise AssertionError(f"16f: record {r}")
+        if (r["infer_resharding_copies"] != 0 or r["retrace_count"] != 1
+                or r["resharding_copies"] != 0):
+            raise AssertionError(f"16f: guard keys {r}")
+
+
+def _requests_per_s(records):
+    """Requests the service answered per second of epoch wall, past the
+    first epoch (its wall is start-up)."""
+    rest = records[1:] or records
+    wall = sum(r["epoch_wall_sec"] or 0.0 for r in rest)
+    return sum(r["infer_requests"] or 0 for r in rest) / max(wall, 1e-9)
+
+
+def live_line(f, c):
+    """16f's summary beside 16c's per-rank service (no gate)."""
+    last = f["records"][-1]
+    return (f"; one service over two launched ranks: rank 1 joined "
+            f"{f['follower']['forwards']} of {f['service']['lockstep_forwards']}"
+            f" forwards, deal {last['episodes_dealt']}, dispatch p50 "
+            f"{last['infer_dispatch_ms_p50']} / p99 "
+            f"{last['infer_dispatch_ms_p99']} ms, "
+            f"{_requests_per_s(f['records']):.1f} requests/s (16c's "
+            f"rank 0 service over its own workers: p50 "
+            f"{c['service'][-1]['infer_dispatch_ms_p50']} / p99 "
+            f"{c['service'][-1]['infer_dispatch_ms_p99']} ms, "
+            f"{_requests_per_s(c['service']):.1f} requests/s) "
+            f"({f['part_s']:.1f} s)")
+
+
 def parallel_entry(torch, episodes, params, smi):
     import shutil
 
@@ -5670,26 +5802,30 @@ def parallel_entry(torch, episodes, params, smi):
         t1 = time.perf_counter()
         b = nccl_one_rank(torch, batch, params)
         t2 = time.perf_counter()
-        # 16c-16e gate no time: they run together
+        # 16c-16f gate no time: they run together
         done = together({"c": lambda: two_rank_train(cwd),
                          "d": lambda: wide_steps(torch, batch, cwd),
-                         "e": infer_dry_run})
-        (c, c_s), (d, d_s), (e, e_s) = done["c"], done["d"], done["e"]
+                         "e": infer_dry_run,
+                         "f": in_tmp("live_ranks_", live_ranks_train)})
         a["part_s"], b["part_s"] = t1 - t0, t2 - t1
-        c["part_s"], d["part_s"], e["part_s"] = c_s, d_s, e_s
+        for part in "cdef":
+            done[part][0]["part_s"] = done[part][1]
+        c, d, e, f = (done[part][0] for part in "cdef")
     finally:
         shutil.rmtree(cwd, ignore_errors=True)
-    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "card": smi}
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f, "card": smi}
     emit("phase16a", {k: v for k, v in a.items()})
     emit("phase16b", b)
     emit("phase16c", c)
     emit("phase16d", d)
     emit("phase16e", e)
+    emit("phase16f", f)
     sharded_steps_gates(a)
     nccl_one_rank_gates(b)
     two_rank_train_gates(c)
     wide_steps_gates(d)
     infer_dry_run_gates(e)
+    live_ranks_gates(f)
     return out
 
 
@@ -6584,6 +6720,7 @@ def main(phases=ALL_PHASES):
             f"{p16['e']['dp_max_diff']:.2e}, {p16['e']['infer_compiles']} "
             f"signature, {p16['e']['infer_resharding_copies']} copies "
             f"({p16['e']['part_s']:.1f} s)"
+            + live_line(p16["f"], c)
             + f"; phase 16 {p16['phase_s']:.1f} s on {smi}", flush=True)
     # 17. the static linter over the port, all six families
     if 17 in phases:

@@ -111,24 +111,34 @@ metrics over the ``mesh:`` (dp/sp/tp, ``fsdp``), and rank 0 alone
 decides epochs (a control word per step), writes checkpoints, the
 manifest, the WAL and the metrics, and serves the network tier,
 router and status endpoint.  Replicas snapshot collectively at the
-same point (sharded state is gathered) and keep the unsharded inference
-dispatch on their own card, as the JAX replicas do.  Ranks that share
-one host are JAX's single-process mesh over local devices: Anakin then
-shards its env axis over dp (each rank plays its share of
-``num_envs``); ranks spread over hosts fall back from Anakin, as the
-JAX replicas do.  ``--train`` with no ``distributed:`` on a host with
-several cards launches one rank per card itself (:mod:`.parallel.launch`:
-the fleet and its episode counts split over the ranks).  So does
-``--train-server``: its ranks share one host and one endpoint, rank 0's
-(:mod:`.parallel.deal`).  Rank 0 admits every episode (the staleness
-budget, the WAL, the stats, the kill switch and the fleet's epoch clock
-at ``minimum_episodes + k * update_episodes``, the fleet's counts being
-the ranks' summed) and deals it to one rank's ring, round robin in
-admission order, over a localhost channel that no trainer collective
-shares; a WAL replay goes through the same deal.  A follower binds no
-port and only ingests; a broken channel ends its rank (or rank 0) as a
-dead rank.  Across hosts each rank keeps its own endpoint, the JAX rule
-for replicas, and a host may then hold one rank.
+same point (sharded state is gathered).  Ranks that share one host are
+JAX's single-process mesh over local devices: Anakin then shards its
+env axis over dp (each rank plays its share of ``num_envs``); ranks
+spread over hosts fall back from Anakin, as the JAX replicas do.
+
+``--train`` and ``--train-server`` with no ``distributed:`` on a host
+with several cards launch one rank per card themselves
+(:mod:`.parallel.launch`), and those ranks act as JAX's one process.
+Rank 0 alone runs the fleet (``--train``'s local workers) or owns the
+endpoint (``--train-server``'s ports): it admits every episode (the
+staleness budget, the WAL, the stats, the kill switch and the fleet's
+epoch clock at ``minimum_episodes + k * update_episodes``, the fleet's
+counts being the ranks' summed) and deals it to one dp coordinate's
+ring, round robin in admission order, over a localhost channel that no
+trainer collective shares (:mod:`.parallel.deal`); a WAL replay goes
+through the same deal.  A follower runs no worker, binds no port and
+only ingests; a broken channel ends its rank (or rank 0) as a dead
+rank.  Under ``--train`` rank 0's inference service is the host's one
+batching window: with ``pipeline.infer_mesh: auto`` it dispatches on
+the training mesh's layout and every follower joins each forward
+(:class:`~.pipeline.service.ServiceFollower`, on process groups of the
+service's own); with ``off``, or when JAX's pow2 rule disarms the
+mesh, it answers unsharded on rank 0's card and the followers run no
+service.  Hand-started ``--train`` ranks (an explicit
+``distributed:``) are JAX's multi-host replicas: each keeps its own
+fleet and an unsharded service on its own card.  Hand-started
+``--train-server`` ranks deal as launched ones when they share a host;
+across hosts each keeps its own endpoint, and a host may hold one rank.
 
 Chaos reaches every layer the JAX package's does: besides the gather
 and service kills, ``chaos.serve_kill_epoch`` silences this replica's
@@ -201,6 +211,7 @@ from .parallel import multihost as mh
 from .parallel.deal import ChannelBroken, FollowerEndpoint, open_channel
 from .parallel.mesh import AXES, MeshSpec, axis_size, check_mesh_size, make_mesh
 from .parallel.update import full_state_dict, make_sharded_update_step
+from .pipeline.service import LockstepBroken
 from .resilience import ChaosConfig, FleetRegistry, LearnerKillSwitch
 from .resilience.supervisor import FailureWindow
 from .staging import DeviceReplay, make_replay_update_step
@@ -646,6 +657,7 @@ class Trainer:
         if self.multihost:
             self.local_batch_size = mh.local_batch_size(args["batch_size"])
         self.train_mesh = None
+        self.train_fsdp = False    # the mesh's fsdp rule (the service's too)
         self.rows_mesh = None      # the ranks that share this rank's rows
 
         self.spec = model.spec
@@ -760,6 +772,7 @@ class Trainer:
                 f"every process runs a learner, and one outside the mesh "
                 f"would train alone")
         self.train_mesh = make_mesh(spec, device_type=self.device.type)
+        self.train_fsdp = spec.fsdp
         self.rows_mesh = mh.local_replay_mesh(self.train_mesh)
         dp = axis_size(self.train_mesh, "dp")
         if self.args["batch_size"] % dp:
@@ -1470,9 +1483,11 @@ class Learner:
     _upload_backlog_epoch = 0
     _upload_backlog_peak = 0
     # the episode deal's ends and the fleet's ring size (set in
-    # __init__ for --train-server on one host's ranks)
+    # __init__ for a launch's ranks and --train-server on one host's)
     dealer = None
     feed = None
+    # a launch follower's stand-in for the inference service
+    service_follower = None
     _fleet_maximum = 0
 
     def __init__(self, args, net=None, device=DEFAULT_DEVICE, remote=False):
@@ -1543,19 +1558,29 @@ class Learner:
         self._shm_epoch = 0
         self._spilled_epoch = 0
 
-        # --train-server over one host's ranks: rank 0 alone owns the
-        # endpoint and deals every admitted episode to one rank's ring
+        # the launch's ranks (parallel/launch.py) act as JAX's one
+        # process, and --train-server's ranks on one host share its
+        # endpoint: rank 0 alone runs the fleet or owns the endpoint
+        # and deals every admitted episode to one dp coordinate's ring
         # (parallel/deal.py); a follower's endpoint is its feed, set up
         # once the trainer is built
-        deals = remote and self.multihost and mh.one_host()
+        self.launched = self.multihost and launch.launched(args)
+        deals = self.launched or (remote and self.multihost
+                                  and mh.one_host())
         if remote and self.multihost and not deals:
             _check_one_rank_per_host()
         if deals and not self.primary:
             self.worker = None
-            print(f"rank {mh.process_index()}: no worker endpoint: rank 0 "
-                  f"serves the worker machines on ports "
-                  f"{worker_module.ENTRY_PORT}/{worker_module.WORKER_PORT}"
-                  f" and deals this rank its episodes", flush=True)
+            if remote:
+                print(f"rank {mh.process_index()}: no worker endpoint: "
+                      f"rank 0 serves the worker machines on ports "
+                      f"{worker_module.ENTRY_PORT}/"
+                      f"{worker_module.WORKER_PORT} and deals this rank "
+                      f"its episodes", flush=True)
+            else:
+                print(f"rank {mh.process_index()}: no fleet: rank 0 runs "
+                      f"every worker and deals this rank its episodes",
+                      flush=True)
         else:
             self.worker = WorkerServer(self.args) if remote \
                 else WorkerCluster(self.args)
@@ -1633,7 +1658,7 @@ class Learner:
         # trajectories over shared memory (never across machines: a
         # remote learner runs none).  A dead service is respawned
         # behind respawn_backoff and a windowed breaker
-        from .pipeline import InferenceService, PipelineConfig
+        from .pipeline import PipelineConfig
 
         self.infer_service = None
         self._infer_kill_epoch = chaos.infer_kill_epoch
@@ -1647,22 +1672,8 @@ class Learner:
         pipeline_cfg = PipelineConfig.from_config(
             self.args.get("pipeline") or {})
         if pipeline_cfg.enabled and not remote:
-            if self.multihost and pipeline_cfg.infer_mesh == "auto":
-                # the JAX rule for multi-host replicas: each rank's
-                # service answers its own workers, unsharded, on its
-                # card (a dispatch over the mesh would need every rank
-                # in each forward)
-                print("inference dispatch: unsharded on this rank's "
-                      "card (multi-process learners keep per-rank "
-                      "services)")
             with self._startup.section("service"):
-                # no mesh: every rank's service answers its own workers
-                self.infer_service = InferenceService(
-                    self.model, pipeline_cfg, epoch=self.model_epoch,
-                    device=self.device, chaos=chaos,
-                    max_reshard=int(
-                        self.args.get("max_resharding_copies", 0) or 0))
-                self.infer_service.start()
+                self._build_service(pipeline_cfg, chaos)
         self._build_serving()
         self._build_guards()
 
@@ -1675,6 +1686,57 @@ class Learner:
         prev = signal.getsignal(signal.SIGTERM)
         if telemetry.install_signal_dump(pre_dump=self._preempt_save):
             self._sigterm_prev = prev
+
+    def _build_service(self, cfg, chaos):
+        """The batched inference service (the JAX learner's
+        ``infer_mesh`` rule): one process, or rank 0 of a launch, serves
+        every local worker; with ``infer_mesh: auto`` a launch's
+        service dispatches on the training mesh's layout, and each
+        follower joins every forward (the groups built here on every
+        rank alike, before any thread uses them).  Hand-started ranks
+        are replicas: each serves its own workers, unsharded."""
+        from .pipeline.service import (
+            InferenceService,
+            ServiceFollower,
+            ServiceGroups,
+            mesh_bucket_floor,
+        )
+
+        mesh = groups = None
+        max_reshard = int(self.args.get("max_resharding_copies", 0) or 0)
+        fsdp = self.trainer.train_fsdp
+        if self.launched and cfg.infer_mesh == "auto":
+            mesh = self.trainer.train_mesh
+            if mesh_bucket_floor(axis_size(mesh, "dp"),
+                                 cfg.max_batch) is not None:
+                groups = ServiceGroups(mesh, self.device.type)
+        elif self.multihost and cfg.infer_mesh == "auto":
+            # the JAX rule for multi-host replicas: each rank's service
+            # answers its own workers, unsharded, on its card (a
+            # dispatch over the mesh would need every rank in each
+            # forward)
+            print("inference dispatch: unsharded on this rank's card "
+                  "(multi-process learners keep per-rank services)")
+        if self.launched and not self.primary:
+            if groups is None:
+                print(f"rank {mh.process_index()}: no inference service: "
+                      f"rank 0's answers every worker, unsharded",
+                      flush=True)
+                return
+            self.service_follower = ServiceFollower(
+                groups, device=self.device, fsdp=fsdp,
+                max_reshard=max_reshard)
+            self.service_follower.start()
+            print(f"rank {mh.process_index()}: inference follower: joins "
+                  f"every forward of rank 0's service", flush=True)
+            return
+        # a disarmed mesh (JAX's pow2 rule) is handed over all the
+        # same, so the service says so, with JAX's warning
+        self.infer_service = InferenceService(
+            self.model, cfg, epoch=self.model_epoch, device=self.device,
+            chaos=chaos, mesh=mesh, fsdp=fsdp, max_reshard=max_reshard,
+            lockstep=groups)
+        self.infer_service.start()
 
     def _build_serving(self):
         """The network serving tier and the status endpoint, as the
@@ -2470,6 +2532,9 @@ class Learner:
         update step stay on the device either way."""
         svc = self.infer_service
         if svc is None:
+            follower = self.service_follower
+            if follower is not None and follower.failure is not None:
+                raise follower.failure
             return
         episodes = svc.drain_trajectories(max_episodes=512)
         if episodes:
@@ -2480,6 +2545,11 @@ class Learner:
                 self.feed_episodes(episodes)
         if svc.alive or self._infer_disabled or self.shutdown_flag:
             return
+        if svc.lockstep_broken:
+            # its followers sit in a forward it will never finish: no
+            # respawn can rejoin them, so the rank (and the group) ends
+            raise LockstepBroken(f"the inference service died mid-forward "
+                                 f"({svc.failure!r})")
         now = time.monotonic()
         if self._infer_respawn_at == 0.0:
             if self._infer_window.record(now):
@@ -2488,6 +2558,7 @@ class Learner:
                       "(circuit breaker tripped); pipelined inference "
                       "disabled for this run — workers continue on "
                       "local CPU inference")
+                svc.stop()   # its followers, if any, are released
                 return
             delay = float(self.args.get("respawn_backoff", 0.5) or 0.5)
             self._infer_respawn_at = now + delay
@@ -2725,6 +2796,21 @@ class Learner:
                 pass  # missing/corrupt snapshot: serve the latest model
         return pickle.dumps(model)
 
+    def _join_service_follower(self):
+        """A follower's end: its thread ends at rank 0's STOP, before
+        this rank's groups come down; one still waiting past
+        ``FOLLOWER_JOIN`` (or one that failed) ends the rank."""
+        follower = self.service_follower
+        follower.join(FOLLOWER_JOIN)
+        print(f"inference follower: rank {mh.process_index()} stats = "
+              + json.dumps(follower.stats(), sort_keys=True), flush=True)
+        if follower.alive:
+            _leave_dead(LockstepBroken(
+                f"no STOP from rank 0's inference service within "
+                f"{FOLLOWER_JOIN:.0f} s"))
+        if follower.failure is not None:
+            _leave_dead(follower.failure)
+
     def run(self):
         trainer_thread = threading.Thread(target=self.trainer.run,
                                           daemon=True)
@@ -2733,7 +2819,7 @@ class Learner:
         self._arm_lock_guard()
         try:
             self.server()
-        except ChannelBroken as exc:
+        except (ChannelBroken, LockstepBroken) as exc:
             _leave_dead(exc)
         finally:
             if self.dealer is not None:
@@ -2772,8 +2858,12 @@ class Learner:
                 print("inference service stats = "
                       + json.dumps(self.infer_service.stats(),
                                    sort_keys=True), flush=True)
-                # workers are gone: unmap and unlink every ring
+                # workers are gone: unmap and unlink every ring (with
+                # followers, STOP to them first, before any rank tears
+                # its groups down)
                 self.infer_service.close()
+            if self.service_follower is not None:
+                self._join_service_follower()
             if self.wal is not None:
                 self.wal.close()  # final fsync of the append tail
             telemetry.flush()  # ship the span-log tail before exit
@@ -2802,8 +2892,12 @@ def params_digest(model):
     return h.hexdigest()[:16]
 
 
-# a rank whose episode channel broke exits with this code
+# a rank whose episode channel or inference lockstep broke exits with
+# this code
 DEAD_RANK_EXIT = 3
+# seconds a follower waits at its end for rank 0's service to stop (rank
+# 0 stops it after its trainer and its fleet)
+FOLLOWER_JOIN = 120.0
 
 
 def _leave_dead(exc):

@@ -18,27 +18,23 @@ visible cards spawns the ranks itself:
     variables :func:`.multihost.init_distributed` reads (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``)
     and its card from ``LOCAL_RANK``;
-  * ``--train``: together the ranks run the JAX single-host learner's
-    fleet and counts: the local fleet (``train_args.worker.num_parallel``;
-    ``worker_args`` sizes a remote ``--worker`` machine) is split over
-    the ranks, the remainder to rank 0, each rank's workers numbered on
-    from the previous rank's (so no two draw alike);
-    ``update_episodes``, ``minimum_episodes`` and ``maximum_episodes``
-    are split in the same shares, so each rank counts, warms and trims
-    its own ring on its own workers' episodes and the fleet's epoch is
-    JAX's ``update_episodes``; rank 0 decides the epoch's end;
-  * ``--train-server`` (``server=True``): there is no local fleet to
-    split, and ``worker_args`` is what remote machines receive, so
-    both stay as they are; rank 0 alone owns the entry and worker
-    ports and deals every admitted episode to one dp coordinate's
-    rings (:mod:`.deal`; the ``sp``/``tp`` ranks of a coordinate hold
-    copies, as its rows replicate over them), so ``minimum_episodes``
-    and ``maximum_episodes`` split in equal shares over the dp
-    coordinates (each rank warms and trims its ring on what its
-    coordinate is dealt, as each coordinate draws ``batch_size / dp``
-    rows) and ``update_episodes`` stays whole: rank 0 counts every
-    episode its endpoint receives, and the fleet's epochs fall at JAX's
-    ``minimum_episodes + k * update_episodes``;
+  * the ranks act as JAX's one process: rank 0 alone runs
+    ``--train``'s local fleet (the whole ``train_args.worker``; the
+    followers get none) or owns ``--train-server``'s entry and worker
+    ports (``worker_args`` is what remote machines receive), and deals
+    every admitted episode to one dp coordinate's rings (:mod:`.deal`;
+    the ``sp``/``tp`` ranks of a coordinate hold copies, as its rows
+    replicate over them); so ``minimum_episodes`` and
+    ``maximum_episodes`` split in equal shares over the dp coordinates
+    (each rank warms and trims its ring on what its coordinate is
+    dealt, as each coordinate draws ``batch_size / dp`` rows) and
+    ``update_episodes`` stays whole: rank 0 counts every episode, and
+    the fleet's epochs fall at JAX's ``minimum_episodes + k *
+    update_episodes``.  Under ``--train`` rank 0's inference service
+    is the one batching window of every local worker and, with
+    ``pipeline.infer_mesh: auto``, dispatches on the training mesh's
+    layout with every follower joining each forward
+    (:class:`..pipeline.service.ServiceFollower`);
   * ``batch_size`` is global (each dp rank draws ``batch_size / dp``
     rows);
   * a rank that dies brings the others down, and the launch returns its
@@ -69,10 +65,13 @@ from .mesh import MeshSpec, check_mesh_size
 
 TERM_GRACE = 10.0     # seconds a surviving rank gets to exit on SIGTERM
 
-# the episode counts split over the ranks in the fleet's shares
-SPLIT_COUNTS = ("update_episodes", "minimum_episodes", "maximum_episodes")
-# --train-server: each rank's ring counts split, the epoch clock whole
+# each rank's ring counts split over the dp coordinates, the epoch
+# clock (update_episodes) whole
 SERVER_SPLIT_COUNTS = ("minimum_episodes", "maximum_episodes")
+# the mark rank_args leaves on a rank it makes (a top-level key of the
+# rank's args, which the config never reads): the rank is one of a
+# launch, not a hand-started replica
+LAUNCHED = "_launched_rank"
 
 
 def default_dp(n, batch_size):
@@ -94,18 +93,6 @@ def default_dp(n, batch_size):
     return dp
 
 
-def fleet_split(total, world):
-    """Workers per rank: ``total`` split evenly, the remainder to rank
-    0; every rank needs one worker to fill its ring, so a fleet smaller
-    than the ranks grows to one each, loudly."""
-    if total < world:
-        print(f"WARNING: train_args.worker.num_parallel {total} < {world} "
-              f"ranks: one worker per rank", flush=True)
-        return [1] * world
-    share, rest = divmod(total, world)
-    return [share + rest] + [share] * (world - 1)
-
-
 def _default(key):
     """The train config's default for ``key``."""
     from ..config import TrainConfig
@@ -113,13 +100,11 @@ def _default(key):
     return getattr(TrainConfig, key)
 
 
-def share_split(total, fleet):
-    """``total`` split in the shares of ``fleet``, the remainder to
-    rank 0, at least 1 each."""
-    whole = sum(fleet)
-    shares = [total * n // whole for n in fleet]
-    shares[0] += total - sum(shares)
-    return [max(1, n) for n in shares]
+def share_split(total, parts):
+    """``total`` in ``parts`` equal shares, the remainder to the first,
+    at least 1 each."""
+    share, rest = divmod(total, parts)
+    return [max(1, share + rest)] + [max(1, share)] * (parts - 1)
 
 
 def fleet_size(args):
@@ -131,35 +116,34 @@ def fleet_size(args):
     return int(worker.get("num_parallel", WorkerConfig.num_parallel))
 
 
-def rank_args(args, rank, mesh, fleet, server=False):
-    """Rank ``rank``'s copy of the config: ``distributed: {auto:
-    true}``, the launch's ``mesh``, and no guard of its own (the guard
-    wraps the launch).  ``--train``: its share ``fleet[rank]`` of the
-    workers, numbered after the lower ranks', and the same share of the
-    episode counts.  ``server``: the ring's counts in equal shares over
-    the mesh's dp coordinates, the rank's coordinate's share (``fleet``
-    unused), the workers and ``update_episodes`` untouched."""
+def launched(args):
+    """Whether ``args`` are a launch's rank's (:data:`LAUNCHED`)."""
+    return bool(args.get(LAUNCHED))
+
+
+def rank_args(args, rank, mesh, server=False):
+    """Rank ``rank``'s copy of the config, marked :data:`LAUNCHED`:
+    ``distributed: {auto: true}``, the launch's ``mesh``, no guard of
+    its own (the guard wraps the launch), and the ring's counts in
+    equal shares over the mesh's dp coordinates (the rank's
+    coordinate's share), ``update_episodes`` whole.  ``--train``: the
+    whole fleet on rank 0 and none on the others; ``server``: the
+    workers untouched (remote machines are the fleet)."""
     args = copy.deepcopy(args)
+    args[LAUNCHED] = True
     train = args.setdefault("train_args", {})
     train["distributed"] = {"auto": True}
     train["mesh"] = dict(mesh)
     train.pop("supervise_learner", None)
-    if server:
-        spec = MeshSpec.from_config(mesh)
-        for key in SERVER_SPLIT_COUNTS:
-            total = int(train.get(key, _default(key)))
-            train[key] = share_split(total, [1] * spec.dp)[
-                rank // (spec.sp * spec.tp)]
-        return args
-    for key in SPLIT_COUNTS:
+    spec = MeshSpec.from_config(mesh)
+    for key in SERVER_SPLIT_COUNTS:
         total = int(train.get(key, _default(key)))
-        train[key] = share_split(total, fleet)[rank]
-    worker = dict(train.get("worker") or {})
-    worker["base_worker_id"] = (int(worker.get("base_worker_id", 0))
-                                + sum(fleet[:rank]))
-    worker["num_parallel"] = fleet[rank]
-    worker.pop("num_gathers", None)   # derived from the rank's share
-    train["worker"] = worker
+        train[key] = share_split(total, spec.dp)[rank // (spec.sp * spec.tp)]
+    if rank and not server:
+        worker = dict(train.get("worker") or {})
+        worker["num_parallel"] = 0
+        worker.pop("num_gathers", None)
+        train["worker"] = worker
     return args
 
 
@@ -214,20 +198,19 @@ def launch(args, target, device="cuda", cards=None, server=False):
 
     world = MeshSpec.from_config(mesh).size
     if server:
-        fleet = None
         print(f"launch: {world} ranks, one per card; rank 0 serves the "
               f"worker machines and deals the episodes", flush=True)
     else:
-        fleet = fleet_split(fleet_size(args), world)
-        print(f"launch: {world} ranks, one per card; workers per rank "
-              f"{fleet}", flush=True)
+        print(f"launch: {world} ranks, one per card; rank 0 runs the "
+              f"whole fleet of {fleet_size(args)} workers and deals the "
+              f"episodes", flush=True)
     port = find_free_port()
     ctx = mp.get_context("spawn")
     procs = []
     for rank in range(world):
         proc = ctx.Process(
             target=_rank_main, name=f"rank{rank}",
-            args=(target, rank_args(args, rank, mesh, fleet, server),
+            args=(target, rank_args(args, rank, mesh, server),
                   rank, world, port))
         proc.start()
         procs.append(proc)

@@ -107,6 +107,36 @@ def make_mesh(spec: Optional[MeshSpec] = None, device_type: str = "cuda"):
                       mesh_dim_names=AXES)
 
 
+def own_mesh(mesh, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``mesh``'s ranks and axes for a second
+    thread's collectives: every axis runs on gloo groups of its own
+    (``dist.new_group``), never on ``mesh``'s.  ``DeviceMesh`` hands an
+    axis that spans the world the default group, so two meshes built
+    alike would share communicators, and two threads issuing
+    collectives on one group are unordered; and NCCL does not order the
+    kernels of two communicators that two threads launch on one card
+    (its documentation warns that such concurrent use can deadlock), so
+    these groups are gloo whatever the default backend (gloo moves CUDA
+    tensors through the host).  Every rank of the group must call this,
+    in the same order."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = mesh.mesh.cpu()
+    me = dist.get_rank()
+    groups = []
+    for dim in range(ranks.ndim):
+        mine = None
+        for sub in ranks.swapdims(-1, dim).reshape(
+                -1, ranks.size(dim)).tolist():
+            group = dist.new_group(ranks=sub, backend="gloo")
+            if me in sub:
+                mine = group
+        groups.append(mine)
+    return DeviceMesh.from_group(groups, device_type, mesh=ranks,
+                                 mesh_dim_names=tuple(mesh.mesh_dim_names))
+
+
 def axis_size(mesh, name: str) -> int:
     """The size of axis ``name`` of a ``DeviceMesh`` or a MeshSpec."""
     if isinstance(mesh, MeshSpec):

@@ -69,10 +69,10 @@ class PipelineConfig:
     # free, so raw pickle blocks skip the bz2 CPU cost on both ends
     compress: bool = False
     # "auto" shards the inference dispatch over the learner's training
-    # mesh in the JAX package when that mesh is one process's; the
-    # port's meshes always span ranks, so (the JAX rule for multi-host
-    # replicas) each rank dispatches unsharded on its own card either
-    # way, and the key is validated so one config.yaml serves both
+    # mesh, as the JAX package does when that mesh is one process's:
+    # here over a launch's ranks (rank 0's service, every follower
+    # joining each forward); hand-started ranks are JAX's multi-host
+    # replicas and dispatch unsharded on their own cards either way
     infer_mesh: str = "auto"
 
     @classmethod

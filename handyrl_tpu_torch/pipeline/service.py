@@ -65,16 +65,32 @@ backdated; ``stats()`` then carries the injected counts (``chaos``).
 **With a mesh** (``mesh=``, a rank ``DeviceMesh``): the pow2 bucket
 floor rises to a pow2 ``dp`` (a ``dp`` the buckets cannot honour
 disarms the mesh with the JAX warning, and the dispatch runs
-unsharded).  Each snapshot's module is laid out once by
-:func:`..parallel.mesh.inference_shardings` (tp kernels compute their
-output slice, fsdp leaves hold their dp chunk and gather it), cached on
-the model keyed by the layout.  ``_forward(model, obs)`` is then a
-collective: every rank of the mesh calls it in lockstep with the SAME
-observation batch, each forwards its ``dp`` rows, and the outputs are
-gathered back over ``dp``.  A one-rank mesh is bit-identical to the
-mesh-less dispatch.  The learner passes no mesh: its ranks each answer
-their own workers (the JAX rule for replicas); a live dispatch across
-one host's ranks, followers joining each forward, is not ported.
+unsharded; :func:`mesh_bucket_floor`).  Each snapshot's module is laid
+out once by :func:`..parallel.mesh.inference_shardings` (tp kernels
+compute their output slice, fsdp leaves hold their dp chunk and gather
+it), cached on the model keyed by the layout.  ``_forward(model, obs)``
+is then a collective: every rank of the mesh calls it in lockstep with
+the SAME observation batch, each forwards its ``dp`` rows, and the
+outputs are gathered back over ``dp``.  A one-rank mesh is
+bit-identical to the mesh-less dispatch.
+
+**Across one host's launched ranks** (``lockstep=``, the
+:class:`ServiceGroups` every rank built alike): rank 0's service is the
+one batching window of the whole host, and each other rank runs a
+:class:`ServiceFollower` thread in its place.  Before each sharded
+forward rank 0 broadcasts a word ``(FORWARD, snapshot id, rows)`` and
+the observation batch on the groups' gloo group; the followers join
+the forward on the groups' own mesh.  A snapshot rank 0 places and the
+followers lack goes first as ``(LOAD, snapshot id, evicted id)`` with
+its state, so the followers hold exactly the snapshots rank 0's mirror
+says (the live one plus ``snapshot_cache`` routed ones) and never read
+their own learner's model or ``models/``.  ``stop()`` sends ``STOP``
+once the loop has ended; a chaos kill sends nothing (the followers wait
+at the next word, and the respawned loop carries on the stream).  A
+loop that dies between a word and the end of its forward leaves the
+followers mid-collective: ``lockstep_broken`` says so, and the learner
+ends the rank.  Hand-started ranks pass no ``lockstep``: each answers
+its own workers (the JAX rule for replicas).
 """
 
 import random
@@ -149,7 +165,220 @@ def _percentile(values, q):
     return srt[min(len(srt) - 1, int(q * len(srt)))]
 
 
-class InferenceService:
+BUCKET_FLOOR = 8
+
+# the lockstep words rank 0 sends its followers: (op, snapshot id, n),
+# n the rows of a FORWARD and the snapshot id a LOAD evicts (0: none)
+STOP, FORWARD, LOAD = 0, 1, 2
+
+
+def _dp_floor(dp):
+    """The pow2 bucket floor, raised to a pow2 ``dp`` above it."""
+    return dp if dp > BUCKET_FLOOR and dp & (dp - 1) == 0 else BUCKET_FLOOR
+
+
+def mesh_bucket_floor(dp, max_batch):
+    """The JAX rule of the sharded dispatch: the pow2 bucket floor a
+    ``dp``-way mesh dispatches at, or None when the buckets cannot
+    split evenly over ``dp`` (the mesh disarms)."""
+    floor = _dp_floor(dp)
+    if floor % dp == 0 and int(max_batch) % dp == 0 \
+            and floor <= int(max_batch):
+        return floor
+    return None
+
+
+class LockstepBroken(ConnectionError):
+    """The lockstep between rank 0's service and its followers broke."""
+
+
+class ServiceGroups:
+    """The inference service's own process groups, built on EVERY rank
+    of the group, in the same order, before any thread issues a
+    collective on them: a gloo group for the words and the observation
+    batches (CPU objects, rank 0 the source), and a ``DeviceMesh`` of
+    the training mesh's ranks and axes whose groups are its own
+    (:func:`..parallel.mesh.own_mesh`), so the service thread's
+    collectives never share a communicator with the trainer thread's
+    (gloo ones too, whatever the trainer's backend)."""
+
+    def __init__(self, mesh, device_type):
+        import torch.distributed as dist
+
+        from ..parallel.mesh import own_mesh
+        from ..parallel.multihost import CONTROL_TIMEOUT
+
+        # a follower waits at the next word as long as rank 0's window
+        # is idle: the control group's timeout, not gloo's 30 minutes
+        self.words = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+        self.mesh = own_mesh(mesh, device_type)
+
+    def send(self, word, payload=None):
+        """Rank 0: one word and its payload to every follower."""
+        torch.distributed.broadcast_object_list(
+            [tuple(word), payload], src=0, group=self.words)
+
+    def recv(self):
+        """A follower: rank 0's next ``(word, payload)``."""
+        box = [None, None]
+        torch.distributed.broadcast_object_list(box, src=0,
+                                                group=self.words)
+        return box
+
+
+class _GuardedForward:
+    """The guarded forward of a batched dispatch, with or without a
+    mesh: what rank 0's service and a follower share."""
+
+    def __init__(self, device, mesh, fsdp, max_reshard):
+        from ..analysis.guards import RetraceGuard, ShardingContractGuard
+
+        self.device = resolve_device(device)
+        self._mesh = mesh
+        self._fsdp = bool(fsdp)
+        # the guard contract, the update step's: signatures counted per
+        # geometry (one per batch bucket, NOT per snapshot), layout
+        # moves at the call boundary budgeted at 0 in steady state
+        self.retrace_guard = RetraceGuard(name="inference_batch")
+        self.shard_guard = ShardingContractGuard(
+            max_copies=int(max_reshard or 0), name="inference_batch")
+        self._fwd = None             # the guarded forward of _fwd_spec
+        self._infer_sh = None        # InferenceShardings when mesh-armed
+        # service-owned modules on the device, LRU by snapshot:
+        # id(model) -> (model, (module, {name: tensor})); the model
+        # reference pins the id
+        self._fwds = OrderedDict()
+        self._fwd_spec = None        # (class, config) of the forward
+        # routed snapshots the LRU keeps beside the live one (the
+        # learner sets serving.snapshot_cache when it serves)
+        self.snapshot_cache = 0
+        self.param_loads = 0         # snapshots copied onto the device
+
+    @property
+    def mesh_devices(self):
+        """Ranks of the armed inference mesh (1 without one)."""
+        return int(self._mesh.size()) if self._mesh is not None else 1
+
+    def _ensure_forward(self, model):
+        """The service-owned guarded forward ``fwd(module, params,
+        obs)``, built once per net spec and shared by every snapshot;
+        ``params`` (the module's tensors) rides as an argument so the
+        guards see each snapshot's layouts, as the JAX jit's arguments.
+        With a mesh the inference shardings are planned here.  None for
+        duck models without a ``spec`` (RandomModel, stubs), which keep
+        their own ``inference_batch``."""
+        spec = getattr(model, "spec", None)
+        if spec is None:
+            return None
+        if self._fwd is not None and self._fwd_spec == spec:
+            return self._fwd
+        self._fwds.clear()
+        self._fwd_spec = spec
+        self._infer_sh = None
+        if self._mesh is not None:
+            from ..parallel.mesh import inference_shardings
+
+            self._infer_sh = inference_shardings(
+                self._mesh, build_module(spec, "meta"), fsdp=self._fsdp)
+
+        def forward(module, params, obs):
+            return module(obs, None)
+
+        self._fwd = self.retrace_guard.wrap(self.shard_guard.wrap(forward))
+        return self._fwd
+
+    def _placed(self, model):
+        """``(module, params)``: a service-owned device module holding
+        ``model``'s parameters, and its tensors by name.
+
+        Without a mesh: from the snapshot LRU, copied once per snapshot
+        it does not hold (the live one plus ``snapshot_cache`` routed
+        ones); a full LRU hands its least recently used module over to
+        the new snapshot instead of building another.  With a mesh: laid
+        out on the inference param shardings ONCE per snapshot and
+        cached on the model, keyed by the shardings it was placed with
+        (a model that crosses services re-places instead of dispatching
+        another mesh's layout)."""
+        if self._infer_sh is not None:
+            cached = getattr(model, "_infer_placed", None)
+            if cached is not None and cached[0] is self._infer_sh:
+                return cached[1]
+            from ..parallel.update import shard_module
+
+            module = build_module(self._fwd_spec, self.device)
+            module.load_state_dict(model.module.state_dict())
+            shard_module(module, self._mesh, self._infer_sh.params)
+            placed = (module, dict(module.named_parameters()))
+            model._infer_placed = (self._infer_sh, placed)
+            self.param_loads += 1
+            return placed
+        key = id(model)
+        hit = self._fwds.get(key)
+        if hit is not None and hit[0] is model:
+            self._fwds.move_to_end(key)
+            return hit[1]
+        if len(self._fwds) > max(0, int(self.snapshot_cache)):
+            _old, (module, _params) = self._fwds.popitem(last=False)[1]
+        else:
+            module = build_module(self._fwd_spec, self.device)
+        module.load_state_dict(model.module.state_dict())
+        self.param_loads += 1
+        placed = (module, dict(module.named_parameters()))
+        self._fwds[key] = (model, placed)
+        return placed
+
+    def _gather_rows(self, out):
+        """Each dp rank's output rows, concatenated in dp order on every
+        rank (a collective over the mesh's dp group)."""
+        from ..parallel.mesh import AXES
+
+        group = self._mesh.get_group(AXES.index("dp"))
+        n = torch.distributed.get_world_size(group)
+
+        def gather(t):
+            if t is None or n == 1:
+                return t
+            parts = [torch.empty_like(t) for _ in range(n)]
+            torch.distributed.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim=0)
+
+        return tree_map_leaves(gather, out)
+
+    def _dp_rows(self, obs):
+        """The observation rows and this rank's dp slice of them; a row
+        count that does not split over ``dp`` raises before any
+        collective."""
+        from ..parallel.mesh import AXES, axis_size
+
+        dp = axis_size(self._mesh, "dp")
+        rows = len(tree_leaves(obs)[0])
+        if rows % dp:
+            # the bucket floor keeps every dispatch divisible; a direct
+            # caller must too
+            raise ValueError(f"{rows} observation rows do not split "
+                             f"over dp={dp}")
+        share = rows // dp
+        lo = self._mesh.get_local_rank(AXES.index("dp")) * share
+        return rows, tree_map_leaves(lambda a: a[lo:lo + share], obs)
+
+    def _forward(self, model, obs):
+        """One batched forward: numpy leaves in, numpy dict out, through
+        the guarded forward.  With a mesh, a collective every rank calls
+        with the same ``obs``: this rank forwards its dp rows."""
+        fwd = self._ensure_forward(model)
+        if fwd is None:
+            return model.inference_batch(obs, None)
+        module, params = self._placed(model)
+        if self._mesh is None:
+            return forward_numpy(lambda x, _h: fwd(module, params, x),
+                                 self.device, obs)
+        _rows, local = self._dp_rows(obs)
+        return forward_numpy(
+            lambda x, _h: self._gather_rows(fwd(module, params, x)),
+            self.device, local)
+
+
+class InferenceService(_GuardedForward):
     """The batched inference server (one per learner process).
 
     Thread contract: ``attach``/``set_model``/``stats`` may be called
@@ -167,47 +396,47 @@ class InferenceService:
     # itself to local inference on the next reply timeout
     CLIENT_IDLE_REAP = 600.0
     GRAVE_GRACE = 10.0  # close only after in-flight snapshots expire
-    BUCKET_FLOOR = 8
 
     def __init__(self, model, cfg, epoch=0, device=DEFAULT_DEVICE,
                  clock=time.monotonic, sleep=time.sleep, chaos=None,
-                 mesh=None, fsdp=False, max_reshard=0):
-        from ..analysis.guards import RetraceGuard, ShardingContractGuard
+                 mesh=None, fsdp=False, max_reshard=0, lockstep=None):
         from ..resilience.chaos import maybe_chaos_board
 
         self.cfg = cfg
-        self.device = resolve_device(device)
         # the sharded dispatch (module docstring): the pow2 bucket
         # floor must divide by dp so every dispatch splits the rows
         # evenly; a dp the buckets cannot honour disarms the mesh
         # LOUDLY (unsharded dispatch, never a shape error)
-        self._mesh = None
-        self._fsdp = bool(fsdp)
-        self._bucket_floor = self.BUCKET_FLOOR
+        if lockstep is not None:
+            mesh = lockstep.mesh
+        armed, self._bucket_floor = None, BUCKET_FLOOR
         if mesh is not None:
             from ..parallel.mesh import axis_size
 
             dp = int(axis_size(mesh, "dp")) or 1
-            floor = self._bucket_floor
-            if dp > floor and dp & (dp - 1) == 0:
-                floor = dp  # pow2 dp above the floor: raise the floor
-            if (floor % dp == 0 and int(cfg.max_batch) % dp == 0
-                    and floor <= int(cfg.max_batch)):
-                self._mesh = mesh
-                self._bucket_floor = floor
+            floor = mesh_bucket_floor(dp, cfg.max_batch)
+            if floor is not None:
+                armed, self._bucket_floor = mesh, floor
+            elif lockstep is not None:
+                # the followers would wait for words never sent
+                raise ValueError(f"a lockstep dispatch needs an armed "
+                                 f"mesh; dp={dp} disarms it")
             else:
                 print(f"WARNING: inference mesh disarmed: dp={dp} "
                       f"does not divide the pow2 batch buckets "
-                      f"(floor {floor}, max_batch {cfg.max_batch}); "
+                      f"(floor {_dp_floor(dp)}, max_batch "
+                      f"{cfg.max_batch}); "
                       f"inference dispatch runs unsharded")
-        # the guard contract, the update step's: signatures counted per
-        # geometry (one per batch bucket, NOT per snapshot), layout
-        # moves at the call boundary budgeted at 0 in steady state
-        self.retrace_guard = RetraceGuard(name="inference_batch")
-        self.shard_guard = ShardingContractGuard(
-            max_copies=int(max_reshard or 0), name="inference_batch")
-        self._fwd = None             # the guarded forward of _fwd_spec
-        self._infer_sh = None        # InferenceShardings when mesh-armed
+        super().__init__(device, armed, fsdp, max_reshard)
+        # the followers' end (module docstring): the snapshots they
+        # hold, id(model) -> (model, snapshot id), least recent first
+        self._link = lockstep
+        self._sent = OrderedDict()
+        self._next_sid = 1
+        self._midstream = False      # a word sent, its forward not done
+        self._released = False       # STOP sent: no word follows
+        self.lockstep_forwards = 0   # FORWARD words sent
+        self.snapshots_sent = 0      # LOAD words sent
         self.clock = clock
         self.sleep = sleep
         self._lock = threading.Lock()
@@ -216,14 +445,6 @@ class InferenceService:
         self._model = model
         self._epoch = int(epoch)
         self._pending_model = None
-        # service-owned modules on the device, LRU by snapshot:
-        # id(model) -> (model, (module, {name: tensor})); the model
-        # reference pins the id
-        self._fwds = OrderedDict()
-        self._fwd_spec = None        # (class, config) of the forward
-        # routed snapshots the LRU keeps beside the live one (the
-        # learner sets serving.snapshot_cache when it serves)
-        self.snapshot_cache = 0
         # network plane (serving frontend): handler threads queue
         # requests here via submit(); _collect drains them into the
         # same batching window as the shm rings.  The queue belongs to
@@ -259,7 +480,6 @@ class InferenceService:
         self.batches = 0             # cumulative dispatches
         self.requests = 0            # cumulative request frames served
         self.rows_served = 0         # cumulative obs rows answered
-        self.param_loads = 0         # snapshots copied onto the device
         self.reclaimed = 0           # torn slots skipped (dead writers)
         self.corrupt = 0             # undecodable slots skipped
         self.reply_drops = 0         # replies refused by a full/small ring
@@ -367,9 +587,17 @@ class InferenceService:
         self.start()
 
     def stop(self):
+        """End the loop; with followers, then STOP to them (the loop has
+        ended, so no word of its own can follow; not when it died
+        mid-forward, which leaves them in a collective)."""
         self._stop = True
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self.alive:
+            print("WARNING: the inference service's loop outlived its "
+                  "stop; its followers are not released")
+        elif not self.lockstep_broken:
+            self._release()
 
     def close(self):
         self.stop()
@@ -473,12 +701,10 @@ class InferenceService:
             "infer_resharding_copies": self.shard_guard.copies,
             "infer_compiles": self.retrace_guard.compiles,
             "mesh_devices": self.mesh_devices,
+            **({"lockstep_forwards": self.lockstep_forwards,
+                "snapshots_sent": self.snapshots_sent}
+               if self._link is not None else {}),
         }
-
-    @property
-    def mesh_devices(self):
-        """Ranks of the armed inference mesh (1 without one)."""
-        return int(self._mesh.size()) if self._mesh is not None else 1
 
     # -- trajectory intake (learner thread) ----------------------------
     def drain_trajectories(self, max_episodes=512):
@@ -543,122 +769,71 @@ class InferenceService:
         # the first request after a swap does not wait for the copy
         self._adopt_params(self._model)
 
-    def _ensure_forward(self, model):
-        """The service-owned guarded forward ``fwd(module, params,
-        obs)``, built once per net spec and shared by every snapshot;
-        ``params`` (the module's tensors) rides as an argument so the
-        guards see each snapshot's layouts, as the JAX jit's arguments.
-        With a mesh the inference shardings are planned here.  None for
-        duck models without a ``spec`` (RandomModel, stubs), which keep
-        their own ``inference_batch``."""
-        spec = getattr(model, "spec", None)
-        if spec is None:
-            return None
-        if self._fwd is not None and self._fwd_spec == spec:
-            return self._fwd
-        self._fwds.clear()
-        self._fwd_spec = spec
-        self._infer_sh = None
-        if self._mesh is not None:
-            from ..parallel.mesh import inference_shardings
-
-            self._infer_sh = inference_shardings(
-                self._mesh, build_module(spec, "meta"), fsdp=self._fsdp)
-
-        def forward(module, params, obs):
-            return module(obs, None)
-
-        self._fwd = self.retrace_guard.wrap(self.shard_guard.wrap(forward))
-        return self._fwd
-
-    def _placed(self, model):
-        """``(module, params)``: a service-owned device module holding
-        ``model``'s parameters, and its tensors by name.
-
-        Without a mesh: from the snapshot LRU, copied once per snapshot
-        it does not hold (the live one plus ``snapshot_cache`` routed
-        ones); a full LRU hands its least recently used module over to
-        the new snapshot instead of building another.  With a mesh: laid
-        out on the inference param shardings ONCE per snapshot and
-        cached on the model, keyed by the shardings it was placed with
-        (a model that crosses services re-places instead of dispatching
-        another mesh's layout)."""
-        if self._infer_sh is not None:
-            cached = getattr(model, "_infer_placed", None)
-            if cached is not None and cached[0] is self._infer_sh:
-                return cached[1]
-            from ..parallel.update import shard_module
-
-            module = build_module(self._fwd_spec, self.device)
-            module.load_state_dict(model.module.state_dict())
-            shard_module(module, self._mesh, self._infer_sh.params)
-            placed = (module, dict(module.named_parameters()))
-            model._infer_placed = (self._infer_sh, placed)
-            self.param_loads += 1
-            return placed
-        key = id(model)
-        hit = self._fwds.get(key)
-        if hit is not None and hit[0] is model:
-            self._fwds.move_to_end(key)
-            return hit[1]
-        if len(self._fwds) > max(0, int(self.snapshot_cache)):
-            _old, (module, _params) = self._fwds.popitem(last=False)[1]
-        else:
-            module = build_module(self._fwd_spec, self.device)
-        module.load_state_dict(model.module.state_dict())
-        self.param_loads += 1
-        placed = (module, dict(module.named_parameters()))
-        self._fwds[key] = (model, placed)
-        return placed
-
     def _adopt_params(self, model):
         """Place a newly adopted snapshot's params between batches."""
         if self._ensure_forward(model) is not None:
             self._placed(model)
 
-    def _gather_rows(self, out):
-        """Each dp rank's output rows, concatenated in dp order on every
-        rank (a collective over the mesh's dp group)."""
-        from ..parallel.mesh import AXES
+    # -- the followers' end (module docstring) -------------------------
+    def _tell(self, word, payload=None):
+        """One word to the followers; a FORWARD stays ``_midstream``
+        until the forward ends, a word that fails to go out too."""
+        if self._released:
+            raise LockstepBroken("the followers were released (STOP sent)")
+        self._midstream = True
+        self._link.send(word, payload)
+        self._midstream = word[0] == FORWARD
 
-        group = self._mesh.get_group(AXES.index("dp"))
-        n = torch.distributed.get_world_size(group)
+    def _share(self, model):
+        """The followers' id of ``model``, sent first (a LOAD word and
+        its state) when they do not hold it; the least recently used
+        snapshot past ``snapshot_cache`` + the live one leaves with it."""
+        key = id(model)
+        hit = self._sent.get(key)
+        if hit is not None and hit[0] is model:
+            self._sent.move_to_end(key)
+            return hit[1]
+        evict = 0
+        if len(self._sent) > max(0, int(self.snapshot_cache)):
+            evict = self._sent.popitem(last=False)[1][1]
+        sid, self._next_sid = self._next_sid, self._next_sid + 1
+        state = {k: v.detach().cpu()
+                 for k, v in model.module.state_dict().items()}
+        self._tell((LOAD, sid, evict), (self._fwd_spec, state))
+        self._sent[key] = (model, sid)
+        self.snapshots_sent += 1
+        return sid
 
-        def gather(t):
-            if t is None or n == 1:
-                return t
-            parts = [torch.empty_like(t) for _ in range(n)]
-            torch.distributed.all_gather(parts, t.contiguous(), group=group)
-            return torch.cat(parts, dim=0)
-
-        return tree_map_leaves(gather, out)
+    def _placed(self, model):
+        if self._link is not None and self._infer_sh is not None:
+            self._share(model)
+        return super()._placed(model)
 
     def _forward(self, model, obs):
-        """One batched forward: numpy leaves in, numpy dict out, through
-        the guarded forward.  With a mesh, a collective every rank calls
-        with the same ``obs``: this rank forwards its dp rows."""
-        fwd = self._ensure_forward(model)
-        if fwd is None:
-            return model.inference_batch(obs, None)
-        module, params = self._placed(model)
-        if self._mesh is None:
-            return forward_numpy(lambda x, _h: fwd(module, params, x),
-                                 self.device, obs)
-        from ..parallel.mesh import AXES, axis_size
+        """With followers, each sharded forward is announced first: the
+        word and the batch, then every rank forwards its dp rows."""
+        if self._link is None or self._ensure_forward(model) is None:
+            return super()._forward(model, obs)
+        rows, _local = self._dp_rows(obs)      # raises before any word
+        self._tell((FORWARD, self._share(model), rows), obs)
+        out = super()._forward(model, obs)
+        self._midstream = False
+        self.lockstep_forwards += 1
+        return out
 
-        dp = axis_size(self._mesh, "dp")
-        rows = len(tree_leaves(obs)[0])
-        if rows % dp:
-            # the bucket floor keeps every dispatch divisible; a direct
-            # caller must too
-            raise ValueError(f"{rows} observation rows do not split "
-                             f"over dp={dp}")
-        share = rows // dp
-        lo = self._mesh.get_local_rank(AXES.index("dp")) * share
-        local = tree_map_leaves(lambda a: a[lo:lo + share], obs)
-        return forward_numpy(
-            lambda x, _h: self._gather_rows(fwd(module, params, x)),
-            self.device, local)
+    def _release(self):
+        """STOP to the followers, once, from a thread that is not the
+        loop's (the loop has ended)."""
+        if self._link is not None and not self._released:
+            self._tell((STOP, 0, 0))
+            self._released = True
+
+    @property
+    def lockstep_broken(self):
+        """The loop died while a word went out or between a FORWARD and
+        the end of its forward: the followers sit in a collective it
+        will never finish."""
+        return self._midstream and not self.alive
 
     # -- the batching loop --------------------------------------------
     def _collect(self, pending, now):
@@ -771,8 +946,12 @@ class InferenceService:
                 rows += items[i][2]
                 i += 1
             t0 = telemetry.span_begin()
-            bucket = _bucket(rows, max(rows, self.cfg.max_batch),
-                             self._bucket_floor)
+            cap = max(rows, self.cfg.max_batch)
+            if self._mesh is not None and rows > self.cfg.max_batch:
+                # an oversized chunk under a mesh pads to the FULL pow2
+                # (JAX's rule), so the bucket keeps dividing dp
+                cap = 1 << (rows - 1).bit_length()
+            bucket = _bucket(rows, cap, self._bucket_floor)
             leaves = [np.concatenate(parts, axis=0) for parts in zip(
                 *[leaves for _, _, _, leaves, _ in chunk])]
             if bucket > rows:
@@ -887,3 +1066,82 @@ class InferenceService:
             # service; the owner reads the cause here
             self.failure = exc
             traceback.print_exc()
+
+
+class _Snapshot:
+    """A snapshot as rank 0 sent it: its net spec and a host module
+    holding its state (what ``_placed`` lays out on the mesh)."""
+
+    def __init__(self, spec, state):
+        self.spec = spec
+        self.module = build_module(spec, "cpu")
+        self.module.load_state_dict(state)
+
+
+class ServiceFollower(_GuardedForward):
+    """A follower rank's stand-in for the inference service (module
+    docstring): a thread that takes rank 0's words on ``groups`` and
+    joins each sharded forward in lockstep, on the follower's card, with
+    the snapshots rank 0 sent it, until STOP.  ``failure`` is the
+    :class:`LockstepBroken` that ended it otherwise (a word out of
+    protocol, a snapshot it does not hold, a group that failed)."""
+
+    def __init__(self, groups, device=DEFAULT_DEVICE, fsdp=False,
+                 max_reshard=0):
+        super().__init__(device, groups.mesh, fsdp, max_reshard)
+        self._link = groups
+        self._models = {}            # snapshot id -> _Snapshot
+        self.forwards = 0            # forwards joined
+        self.snapshots = 0           # snapshots received
+        self.failure = None
+        self._thread = None
+
+    def start(self):
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="infer-follower")
+        self._thread.start()
+
+    @property
+    def alive(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def join(self, timeout=None):
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def _step(self):
+        """One word; False on STOP."""
+        # torchlint: disable=unbounded-recv -- the lockstep protocol: rank 0 sends every word, and a follower waits at the next one while rank 0's window is idle; a dead rank 0 fails the broadcast (raises here), and a wedged one wedges the group, which the launch's supervision ends
+        (op, sid, n), payload = self._link.recv()
+        if op == STOP:
+            return False
+        if op == LOAD:
+            self._models.pop(n, None)
+            self._models[sid] = _Snapshot(*payload)
+            self.snapshots += 1
+        elif op == FORWARD:
+            model = self._models.get(sid)
+            if model is None:
+                raise LockstepBroken(f"a forward with snapshot {sid}, "
+                                     f"which rank 0 never sent")
+            self._forward(model, payload)
+            self.forwards += 1
+        else:
+            raise LockstepBroken(f"unknown lockstep word {op!r}")
+        return True
+
+    def _run(self):
+        try:
+            while self._step():
+                pass
+        except Exception as exc:
+            broken = LockstepBroken(f"inference follower failed ({exc!r})")
+            broken.__cause__ = exc
+            self.failure = broken
+            traceback.print_exc()
+
+    def stats(self):
+        return {"forwards": self.forwards, "snapshots": self.snapshots,
+                "infer_compiles": self.retrace_guard.compiles,
+                "infer_resharding_copies": self.shard_guard.copies,
+                "mesh_devices": self.mesh_devices}

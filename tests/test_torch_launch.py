@@ -5,18 +5,22 @@ has no ``distributed:`` section (JAX's auto-dp over a host's devices).
 Here the card count is injected through ``launch``'s ``cards`` argument
 and the ranks train on the CPU over gloo:
 
-  * JAX's auto-dp rule and its messages, the split of ``--train``'s
-    local fleet (``train_args.worker``; remainder to rank 0, worker ids
-    numbered on across ranks) and of its episode counts in the same
-    shares, each rank's config, and the one-card reduction (no spawn,
+  * JAX's auto-dp rule and its messages, each launched rank's config
+    (the whole fleet on rank 0 and none on the others, the ring's
+    counts in equal shares over the dp coordinates, ``update_episodes``
+    whole, the launch's mark), and the one-card reduction (no spawn,
     said aloud);
   * a mesh the user set stands: ``{dp: 1}`` runs one process (JAX's
     explicit all-ones mesh), ``{tp: 2}`` spawns two ranks that train
     at tp=2, and a mesh larger than the host is JAX's error;
-  * ``--train`` on TicTacToe for one epoch on two ranks: both exit 0,
-    rank 0 alone writes the checkpoint and the metrics, the fleet of 3
-    workers runs as 2 + 1 (not 3 per rank), and each record carries
-    the inference service's guard keys;
+  * ``--train`` on TicTacToe for one epoch on two ranks, as JAX's one
+    process: both exit 0, rank 0 alone writes the checkpoint and the
+    metrics and runs the fleet of 3 workers, it deals the episodes in
+    halves, and its one inference service dispatches over both ranks
+    (``mesh_devices`` 2, the follower joining every forward); with
+    ``infer_mesh: off`` that service answers unsharded and the follower
+    runs none; hand-started ranks (an explicit ``distributed:``) keep a
+    fleet and a service each, the JAX rule for replicas;
   * Anakin on the two ranks: each plays its half of the games;
   * a rank that dies ends the run with its exit code, and ranks asked
     for the card where there is none fail rather than train on the CPU;
@@ -27,6 +31,7 @@ and the ranks train on the CPU over gloo:
 
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -38,6 +43,7 @@ from torchfix import CHILD_ENV, one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEADLINE = 150
+WORKER = re.compile(r"closed worker (\d+)")
 
 CHILD = textwrap.dedent("""
     import functools, os, sys, threading
@@ -63,6 +69,8 @@ CHILD = textwrap.dedent("""
     }
     if mode == "tp":
         args["train_args"]["mesh"] = {"tp": 2}
+    if mode == "off":
+        args["train_args"]["pipeline"]["infer_mesh"] = "off"
     if mode == "anakin":
         args["train_args"].update(
             updates_per_epoch=3, pipeline={"mode": "off"},
@@ -78,13 +86,40 @@ CHILD = textwrap.dedent("""
         train_main(args, device="cpu")
 
 
+    def hand_started(rank, port):
+        # a rank the user started: its own distributed: section and
+        # directory (rank 0 alone writes), no launch
+        from handyrl_tpu_torch.learner import train_main
+
+        os.makedirs("rank%d" % rank)
+        os.chdir("rank%d" % rank)
+        args["train_args"]["mesh"] = {"dp": 2}
+        args["train_args"]["distributed"] = {
+            "coordinator_address": "127.0.0.1:%d" % port,
+            "num_processes": 2, "process_id": rank}
+        train_main(args, device="cpu")
+
+
     if __name__ == "__main__":  # spawn-safe: the ranks re-import
         from handyrl_tpu_torch.learner import train_main
         from handyrl_tpu_torch.parallel.launch import launch
 
-        target = (rank_one_dies if mode == "die"
-                  else functools.partial(train_main, device=device))
-        code = launch(args, target, device=device, cards=2)
+        if mode == "hand":
+            import multiprocessing as mp
+            from handyrl_tpu_torch.connection import find_free_port
+
+            port = find_free_port()
+            procs = [mp.get_context("spawn").Process(
+                target=hand_started, args=(r, port)) for r in range(2)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join()
+            code = max(p.exitcode for p in procs)
+        else:
+            target = (rank_one_dies if mode == "die"
+                      else functools.partial(train_main, device=device))
+            code = launch(args, target, device=device, cards=2)
         print("LAUNCH EXIT %s" % code, flush=True)
         sys.exit(code)
 """)
@@ -125,33 +160,42 @@ def test_the_auto_dp_rule_and_its_messages_are_jax(capsys, monkeypatch):
 
 
 def test_fleet_split_and_rank_config():
-    assert launch.fleet_split(3, 2) == [2, 1]
-    assert launch.fleet_split(8, 4) == [2, 2, 2, 2]
-    assert launch.fleet_split(1, 2) == [1, 1]   # every ring needs a feed
+    """A launched ``--train`` rank's config: the whole fleet on rank 0
+    and none on the followers, the ring's counts in equal shares over
+    the dp coordinates (``SERVER_SPLIT_COUNTS``, the remainder to the
+    first), ``update_episodes`` whole, and the launch's mark."""
     args = {"train_args": {"batch_size": 8, "mesh": {"fsdp": True},
-                           "worker": {"num_parallel": 5, "num_gathers": 2}}}
+                           "minimum_episodes": 101,
+                           "update_episodes": 40,
+                           "worker": {"num_parallel": 5, "num_gathers": 2,
+                                      "base_worker_id": 4}}}
     assert launch.fleet_size(args) == 5
     assert launch.fleet_size({"train_args": {}}) == 6   # the default
-    fleet = launch.fleet_split(5, 2)
     mesh = {"dp": 2, "fsdp": True}
-    ranks = [launch.rank_args(args, r, mesh, fleet)["train_args"]
-             for r in range(2)]
+    made = [launch.rank_args(args, r, mesh) for r in range(2)]
+    ranks = [m["train_args"] for m in made]
+    assert all(launch.launched(m) for m in made)
+    assert not launch.launched(args)   # a copy; the user's args unmarked
     assert all(t["distributed"] == {"auto": True} for t in ranks)
     assert all(t["mesh"] == {"dp": 2, "fsdp": True} for t in ranks)
-    # 3 + 2 workers, numbered 0-2 and 3-4: no two ranks seed alike
-    assert [t["worker"] for t in ranks] == [
-        {"num_parallel": 3, "base_worker_id": 0},
-        {"num_parallel": 2, "base_worker_id": 3}]
+    # rank 0 runs all 5 workers as configured, the follower none
+    assert ranks[0]["worker"] == args["train_args"]["worker"]
+    assert ranks[1]["worker"] == {"num_parallel": 0, "base_worker_id": 4}
     assert args["train_args"]["worker"]["num_parallel"] == 5   # a copy
-    # the episode counts (the config's defaults here) in the fleet's
-    # shares: the ranks together count, warm and trim as one learner
-    for key, total in (("update_episodes", 200), ("minimum_episodes", 400),
-                       ("maximum_episodes", 100_000)):
-        assert [t[key] for t in ranks] == launch.share_split(total, fleet)
-        assert sum(t[key] for t in ranks) == total
-    assert launch.share_split(12, [2, 1]) == [8, 4]
-    assert launch.share_split(4, [2, 1]) == [3, 1]
-    assert launch.share_split(1, [1, 1]) == [1, 1]   # never 0
+    # the epoch clock whole on rank 0's intake; the rings' counts split
+    assert [t["update_episodes"] for t in ranks] == [40, 40]
+    assert [t["minimum_episodes"] for t in ranks] == [51, 50]
+    for key in launch.SERVER_SPLIT_COUNTS:
+        total = 101 if key == "minimum_episodes" else 100_000
+        assert sum(t[key] for t in ranks) == total, key
+    # over sp/tp: whole within one dp coordinate (ranks 0-1 are dp 0)
+    tp = [launch.rank_args(args, r, {"dp": 2, "tp": 2})["train_args"]
+          for r in range(4)]
+    assert [t["minimum_episodes"] for t in tp] == [51, 51, 50, 50]
+    assert [t["worker"]["num_parallel"] for t in tp] == [5, 0, 0, 0]
+    assert launch.share_split(12, 2) == [6, 6]
+    assert launch.share_split(13, 3) == [5, 4, 4]
+    assert launch.share_split(1, 2) == [1, 1]   # never 0
 
 
 def test_a_mesh_the_user_set_stands(capsys):
@@ -189,7 +233,7 @@ def test_supervise_learner_guards_the_launch(monkeypatch):
                               "restart_epoch": "auto"}}
     assert _planned_mesh(guarded, "cpu", 2) == {"dp": 2, "fsdp": False}
     for server in (False, True):
-        ranks = [launch.rank_args(guarded, r, {"dp": 2}, [1, 1], server)
+        ranks = [launch.rank_args(guarded, r, {"dp": 2}, server)
                  ["train_args"] for r in range(2)]
         assert all("supervise_learner" not in t for t in ranks)
         assert all(t["restart_epoch"] == "auto" for t in ranks)
@@ -221,37 +265,95 @@ def test_one_card_makes_no_spawn(capsys):
     assert "1 of 2 devices used" in capsys.readouterr().out
 
 
+LOCKSTEP_STATS = re.compile(r"inference service stats = (\{.*\})")
+FOLLOWER_STATS = re.compile(r"inference follower: rank 1 stats = (\{.*\})")
+
+
+def _records(tmp_path):
+    with open(tmp_path / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _one_process_gates(tmp_path, out, mesh_devices, group=1):
+    """What a launch of two ranks shares with JAX's one process: rank 0
+    runs all 3 workers and writes alone, deals every admitted episode
+    once to a dp coordinate's ``group`` ranks (in halves over dp 2, to
+    both under tp 2), and its one service reports ``mesh_devices``."""
+    assert ("launch: 2 ranks, one per card; rank 0 runs the whole fleet "
+            "of 3 workers and deals the episodes") in out
+    assert "rank 1: no fleet: rank 0 runs every worker" in out
+    # the fleet is rank 0's, not one per rank: 3 workers in all
+    assert sorted(WORKER.findall(out)) == ["0", "1", "2"], out[-5000:]
+    assert (tmp_path / "models" / "1.ckpt").exists()
+    records = _records(tmp_path)
+    assert [r["epoch"] for r in records] == sorted(
+        {r["epoch"] for r in records})
+    # the fleet's clock, JAX's: minimum_episodes 4 (2 + 2 over the dp
+    # coordinates, whole under tp) + update_episodes 12
+    assert records[0]["episodes_received"] >= 16
+    for r in records:
+        dealt = r["episodes_dealt"]
+        assert abs(dealt[0] - dealt[1]) <= 1, dealt
+        assert sum(dealt[::group]) == r["episodes_received"], r
+        assert r["mesh_devices"] == mesh_devices
+        assert r["resharding_copies"] == 0 and r["retrace_count"] == 1
+        assert r["infer_resharding_copies"] == 0
+        assert 0 <= r["infer_compiles"] <= 4
+    assert len(LOCKSTEP_STATS.findall(out)) == 1   # one service, rank 0's
+    return json.loads(LOCKSTEP_STATS.search(out).group(1))
+
+
 def test_two_ranks_train_one_epoch(tmp_path):
     code, out = _run(tmp_path, "train")
     assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
-    assert "launch: 2 ranks, one per card; workers per rank [2, 1]" in out
     assert "distributed: process 0 of 2, gloo" in out
     assert "distributed: process 1 of 2, gloo" in out
     assert out.count("mesh dp=2 sp=1 tp=1 over 2 processes") == 2
-    # the fleet is split, not multiplied: 3 workers in all
-    assert out.count("closed worker ") == 3, out[-5000:]
-    # rank 0 alone writes: one checkpoint series, one record per epoch
-    assert (tmp_path / "models" / "1.ckpt").exists()
-    with open(tmp_path / "metrics.jsonl") as f:
-        records = [json.loads(line) for line in f]
-    assert [r["epoch"] for r in records] == sorted(
-        {r["epoch"] for r in records})
-    last = records[-1]
-    assert last["resharding_copies"] == 0 and last["retrace_count"] == 1
-    # the inference service's guard keys ride every record
-    assert last["infer_resharding_copies"] == 0
-    assert 0 <= last["infer_compiles"] <= 4
-    assert last["mesh_devices"] == 1
+    stats = _one_process_gates(tmp_path, out, mesh_devices=2)
+    # the follower joined every forward rank 0 sent, with its snapshots
+    follower = json.loads(FOLLOWER_STATS.search(out).group(1))
+    assert follower["forwards"] == stats["lockstep_forwards"] > 0
+    assert follower["snapshots"] == stats["snapshots_sent"] >= 1
+    assert follower["mesh_devices"] == 2
+    assert follower["infer_resharding_copies"] == 0
 
 
 def test_a_launched_tp_mesh_trains_as_written(tmp_path):
     code, out = _run(tmp_path, "tp")
     assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
-    assert "launch: 2 ranks, one per card; workers per rank [2, 1]" in out
     # tp=2 on both ranks, not the dp the cards alone would give
     assert out.count("mesh dp=1 sp=1 tp=2 over 2 processes") == 2
     assert "defaulting to dp" not in out
-    assert (tmp_path / "models" / "1.ckpt").exists()
+    stats = _one_process_gates(tmp_path, out, mesh_devices=2, group=2)
+    follower = json.loads(FOLLOWER_STATS.search(out).group(1))
+    assert follower["forwards"] == stats["lockstep_forwards"] > 0
+
+
+def test_infer_mesh_off_serves_unsharded_on_rank_0(tmp_path):
+    code, out = _run(tmp_path, "off")
+    assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
+    stats = _one_process_gates(tmp_path, out, mesh_devices=1)
+    assert "lockstep_forwards" not in stats
+    assert "rank 1: no inference service: rank 0's answers" in out
+    assert "inference follower" not in out
+
+
+def test_hand_started_ranks_keep_a_fleet_and_a_service_each(tmp_path):
+    """An explicit ``distributed:`` makes JAX's multi-host replicas:
+    each rank runs the configured fleet and its own unsharded service,
+    and deals nothing."""
+    code, out = _run(tmp_path, "hand")
+    assert code == 0 and "LAUNCH EXIT 0" in out, out[-5000:]
+    assert "launch:" not in out
+    assert out.count("inference dispatch: unsharded on this rank's "
+                     "card") == 2
+    assert sorted(WORKER.findall(out)) == ["0", "0", "1", "1", "2", "2"]
+    assert len(LOCKSTEP_STATS.findall(out)) == 2
+    assert "inference follower" not in out and "no fleet" not in out
+    records = _records(tmp_path / "rank0")
+    assert records and all(r["mesh_devices"] == 1 for r in records)
+    assert not any("episodes_dealt" in r for r in records)
+    assert not (tmp_path / "rank1" / "metrics.jsonl").exists()
 
 
 def test_two_ranks_run_anakin_on_the_rank_mesh(tmp_path):

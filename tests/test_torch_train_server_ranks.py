@@ -251,7 +251,7 @@ def test_rank_args_in_server_mode():
                            "worker": {"num_parallel": 5,
                                       "num_gathers": 2}},
             "worker_args": {"num_parallel": 6, "server_address": "h"}}
-    ranks = [launch.rank_args(args, r, {"dp": 2}, [1, 1], server=True)
+    ranks = [launch.rank_args(args, r, {"dp": 2}, server=True)
              for r in range(2)]
     for rank in ranks:
         train = rank["train_args"]
@@ -268,18 +268,18 @@ def test_rank_args_in_server_mode():
     assert [r["train_args"]["minimum_episodes"] for r in ranks] == [51, 50]
     assert [r["train_args"]["maximum_episodes"] for r in ranks] == [500, 500]
     # the config's defaults split alike
-    bare = [launch.rank_args({"train_args": {}}, r, {"dp": 3}, [1, 1, 1],
+    bare = [launch.rank_args({"train_args": {}}, r, {"dp": 3},
                              server=True)["train_args"] for r in range(3)]
     assert sum(t["minimum_episodes"] for t in bare) == 400
     assert not any("update_episodes" in t for t in bare)   # the default
     assert args["train_args"]["supervise_learner"] is True   # a copy
     # over sp/tp the counts split by dp coordinate, whole within one:
     # ranks 0-1 are dp 0, ranks 2-3 dp 1 (make_mesh lays dp major)
-    tp = [launch.rank_args(args, r, {"dp": 2, "tp": 2}, None, server=True)
+    tp = [launch.rank_args(args, r, {"dp": 2, "tp": 2}, server=True)
           ["train_args"] for r in range(4)]
     assert [t["minimum_episodes"] for t in tp] == [51, 51, 50, 50]
     assert [t["maximum_episodes"] for t in tp] == [500] * 4
-    whole = [launch.rank_args(args, r, {"tp": 2}, None, server=True)
+    whole = [launch.rank_args(args, r, {"tp": 2}, server=True)
              ["train_args"] for r in range(2)]
     assert [t["minimum_episodes"] for t in whole] == [101, 101]
     assert all(t["update_episodes"] == 40 for t in whole)
